@@ -41,10 +41,12 @@ class DeviceBlock(NamedTuple):
 
 
 class TableInput(NamedTuple):
-    """Layer-0 input read straight from the flat feature table."""
+    """Layer-0 input read straight from a constant feature table: the flat
+    cache table with the frontier's node ids, or a window's frontier
+    features [cap_src, dim] with their slot positions ``arange(cap_src)``."""
 
-    table: torch.Tensor   # [num_nodes + 1, dim] f32|bf16, constant
-    ids: torch.Tensor     # int32 [cap_src] frontier ids, invalid ids -> 0
+    table: torch.Tensor   # [rows, dim] f32|bf16, constant
+    ids: torch.Tensor     # int32 [cap_src] rows of the frontier, invalid -> 0
 
 
 LayerInput = Union[torch.Tensor, TableInput]

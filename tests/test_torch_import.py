@@ -1,6 +1,8 @@
 """The port runs where there is no JAX: in a fresh interpreter with jax,
-flax and optax blocked, every module of coala_gnn_tpu_torch and
-chip_smoke.py import, and a tiny ResidentTrainer trains one window."""
+flax, optax and ml_dtypes blocked, every module of coala_gnn_tpu_torch and
+chip_smoke.py import, and a tiny ResidentTrainer trains one window at full
+coverage and staged windows under pressure with bf16 and int8 transport
+(fused native and gather + encode stores)."""
 
 import os
 import subprocess
@@ -35,6 +37,15 @@ rt = chip_smoke.make_trainer(torch, ds, HostFeatureStore(ds.features,
 grids = chip_smoke.make_grids(ds, 1, 2, 8, np.random.default_rng(0))
 losses, edges = rt.train_windows(grids, seed=0)
 assert torch.isfinite(losses).all() and losses.shape == (2,)
+for native in (True, False):
+    for transport in ("bfloat16", "int8"):
+        rt = chip_smoke.make_trainer(
+            torch, ds, HostFeatureStore(ds.features, use_native=native),
+            torch.float32, "cpu", fanouts=[3, 2], batch=8, hidden=8,
+            cache_mb=0, priorities="degree", stage_transport=transport)
+        assert not rt.direct and (rt._store is not None) == native
+        losses, edges = rt.train_windows(grids, seed=0)
+        assert torch.isfinite(losses).all() and rt.stats()["misses"] > 0
 jaxish = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
                 and sys.modules[m] is not None)

@@ -143,12 +143,19 @@ def test_per_step_path_with_misses_matches_jax(setup):
 
 
 def test_unported_paths_raise(setup):
+    """What stays unported raises and names its ROADMAP.md item:
+    dedup=True and nbr_cap sampling, int8 cache lines, GCN and GAT."""
     ds, fanouts, _, params0, grids = setup
     tt = _torch_trainer(ds, fanouts, params0)
+    for kw in ({"dedup": True}, {"nbr_cap": 2 * max(fanouts)}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ResidentTrainer(graph=ds.graph, host_fetch=None,
+                            labels=ds.labels, cache_cfg=tt.cache_cfg,
+                            model=tt.model, optimizer=tt.optimizer,
+                            fanouts=fanouts, batch_size=B, device="cpu",
+                            **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.train_windows(grids, seed=0)          # not prewarmed: partial
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResidentTrainer(graph=ds.graph, host_fetch=None, labels=ds.labels,
-                        cache_cfg=tfc.make_config(0, 8), model=tt.model,
-                        optimizer=tt.optimizer, fanouts=fanouts,
-                        batch_size=B, device="cpu")
+        tfc.make_config(8, 8, quantize=True)
+    for model_type in ("gcn", "gat"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_model(model_type, 8, 8, 4, 2)
