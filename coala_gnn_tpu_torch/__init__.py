@@ -12,10 +12,12 @@ by import: ``coala_gnn_tpu.graph``, ``coala_gnn_tpu.sampling.neighbor``,
 
 Subpackages
 -----------
-ops       gather-SpMM (hand-written CUDA kernel + plain version), aggregation
-models    SAGEConv / SAGE over sampled blocks
+ops       gather-SpMM (hand-written CUDA kernels: f32 / bf16 / int8 forward
+          and the backward, + plain versions), aggregation, COO oracles
+models    SAGE, GCN and GAT over sampled blocks
 sampling  on-device fanout neighbour sampling
-cache     flat (direct-mapped) device feature table
+cache     flat and set-associative device feature caches (f32, bf16 or
+          int8 rows)
 parallel  ResidentTrainer: the single-device resident training step
 utils     flax->torch parameter conversion, per-window generators, CUDA build
 csrc      CUDA C++ sources, built with nvcc at first use

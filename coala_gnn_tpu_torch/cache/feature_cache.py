@@ -21,8 +21,11 @@ state stays bitwise equal to JAX's. Nothing here reads a device value
 back to the host (no ``nonzero``, no boolean indexing) apart from
 ``stats``.
 
-int8 lines (``quantize=True``) are queued in ROADMAP.md; ``quantize_rows``
-/ ``dequantize_rows`` serve the int8 stage transport.
+int8 lines (``quantize=True``), in both tiers as in JAX: each row is
+stored as int8 with one f32 absmax scale (``quantize_rows``), quantised
+on the device at insert and dequantised to ``cfg.dtype`` at lookup. The
+flat tier's int8 table is also read in place by the gather-SpMM kernel's
+int8 form (``models.layers.TableInput`` with ``scale``).
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ class CacheConfig:
     cache_dim: int      # padded line dim
     num_colors: int     # 0 disables color tracking
     dtype: torch.dtype = torch.float32
+    quantize: bool = False  # int8 lines + a per-line f32 absmax scale
 
     @property
     def capacity(self) -> int:
@@ -68,7 +72,14 @@ class CacheConfig:
 
     @property
     def line_bytes(self) -> int:
+        if self.quantize:
+            return self.cache_dim + 4        # int8 row + f32 scale
         return self.cache_dim * self.dtype.itemsize
+
+    @property
+    def data_dtype(self) -> torch.dtype:
+        """The stored row type: int8 when quantised, else ``dtype``."""
+        return torch.int8 if self.quantize else self.dtype
 
     @property
     def size_mb(self) -> float:
@@ -78,50 +89,56 @@ class CacheConfig:
 def make_config(cache_mb: int, dim: int, num_colors: int = 0,
                 dtype: torch.dtype = torch.float32,
                 quantize: bool = False) -> CacheConfig:
-    if quantize:
-        raise NotImplementedError(
-            "int8 cache lines are not ported yet: ROADMAP.md queue A, "
-            "\"the int8 table input and the backward of the gather-SpMM\"")
     cache_dim = round_cache_dim(dim)
-    num_pages = max(int(cache_mb) * 2**20 // (cache_dim * dtype.itemsize),
-                    WAYS)
+    page = cache_dim + 4 if quantize else cache_dim * dtype.itemsize
+    num_pages = max(int(cache_mb) * 2**20 // page, WAYS)
     return CacheConfig(num_sets=num_pages // WAYS, ways=WAYS, dim=dim,
                        cache_dim=cache_dim, num_colors=num_colors,
-                       dtype=dtype)
+                       dtype=dtype, quantize=quantize)
 
 
 @dataclasses.dataclass
 class FlatState:
-    data: torch.Tensor          # cfg.dtype [num_nodes + 1, dim] (+1 scratch)
+    data: torch.Tensor          # cfg.data_dtype [num_nodes + 1, dim] (+1
+                                # scratch row)
     admitted: torch.Tensor      # uint8 [num_nodes + 1]
     color_counts: torch.Tensor  # int32 [num_colors + 1]
     hits: torch.Tensor          # int32 [] since the last stats reset
     misses: torch.Tensor        # int32 []
+    scale: Optional[torch.Tensor] = None   # f32 [num_nodes + 1] (int8 rows)
 
 
 def flat_init(cfg: CacheConfig, num_nodes: int, device) -> FlatState:
     def zeros(*shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return FlatState(data=zeros(num_nodes + 1, cfg.dim, dtype=cfg.dtype),
+    return FlatState(data=zeros(num_nodes + 1, cfg.dim, dtype=cfg.data_dtype),
                      admitted=zeros(num_nodes + 1, dtype=torch.uint8),
                      color_counts=zeros(cfg.num_colors + 1,
                                         dtype=torch.int32),
                      hits=zeros(dtype=torch.int32),
-                     misses=zeros(dtype=torch.int32))
+                     misses=zeros(dtype=torch.int32),
+                     scale=(torch.ones(num_nodes + 1, dtype=torch.float32,
+                                       device=device)
+                            if cfg.quantize else None))
 
 
-def flat_lookup(state: FlatState, ids: torch.Tensor, valid: torch.Tensor
+def flat_lookup(state: FlatState, ids: torch.Tensor, valid: torch.Tensor,
+                dtype: torch.dtype = torch.float32
                 ) -> Tuple[FlatState, torch.Tensor, torch.Tensor]:
-    """(state, rows [n, dim], hit bool [n]); rows that miss read zero. The
-    hit and miss counters add on the device; nothing is read back. (The
-    JAX function's ``assume_hit`` / ``count_stats=False`` form, used by its
-    full-coverage window, has no caller here: the port's window reads the
-    table in place, see models/layers.TableInput.)"""
+    """(state, rows [n, dim], hit bool [n]); rows that miss read zero; int8
+    rows come back dequantised to ``dtype`` (pass cfg.dtype, as JAX's
+    trainer does). The hit and miss counters add on the device; nothing is
+    read back. (The JAX function's ``assume_hit`` / ``count_stats=False``
+    form, used by its full-coverage window, has no caller here: the port's
+    window reads the table in place, see models/layers.TableInput.)"""
     hit = (state.admitted[ids] > 0) & valid
-    feats = torch.where(hit[:, None], state.data[ids],
-                        torch.zeros((), dtype=state.data.dtype,
-                                    device=state.data.device))
+    feats = state.data[ids]
+    if state.scale is not None:
+        feats = dequantize_rows(feats, state.scale[ids], dtype=dtype)
+    feats = torch.where(hit[:, None], feats,
+                        torch.zeros((), dtype=feats.dtype,
+                                    device=feats.device))
     n_hit = hit.sum(dtype=torch.int32)
     state.hits += n_hit
     state.misses += valid.sum(dtype=torch.int32) - n_hit
@@ -151,8 +168,9 @@ def _dedup_valid(ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 def flat_insert(cfg: CacheConfig, state: FlatState, ids: torch.Tensor,
                 feats: torch.Tensor, valid: torch.Tensor,
                 colors: torch.Tensor) -> FlatState:
-    """Admit rows in place (no eviction; re-admission refreshes the row).
-    Color occupancy counts first admissions only."""
+    """Admit rows in place (no eviction; re-admission refreshes the row;
+    int8 rows are quantised here, on the device). Color occupancy counts
+    first admissions only."""
     n_nodes = state.data.shape[0] - 1
     slot = torch.where(valid, ids.to(torch.int64),
                        torch.full_like(ids, n_nodes, dtype=torch.int64))
@@ -160,7 +178,12 @@ def flat_insert(cfg: CacheConfig, state: FlatState, ids: torch.Tensor,
         newly = _dedup_valid(ids, valid) & (state.admitted[slot] == 0)
     else:
         newly = valid
-    state.data[slot] = feats.to(state.data.dtype)
+    if state.scale is not None:
+        q, row_scale = quantize_rows(feats)
+        state.data[slot] = q
+        state.scale[slot] = row_scale
+    else:
+        state.data[slot] = feats.to(state.data.dtype)
     state.admitted[slot] = 1
     state.admitted[n_nodes] = 0
     inc = torch.where(newly & (colors > 0), colors.to(torch.int64),
@@ -177,11 +200,13 @@ def flat_insert(cfg: CacheConfig, state: FlatState, ids: torch.Tensor,
 @dataclasses.dataclass
 class CacheState:
     tags: torch.Tensor          # int32 [num_sets + 1, ways], -1 = empty
-    data: torch.Tensor          # cfg.dtype [num_sets + 1, ways, cache_dim]
+    data: torch.Tensor          # cfg.data_dtype [num_sets + 1, ways,
+                                # cache_dim]
     rr: torch.Tensor            # int32 [num_sets] round-robin cursor
     color_counts: torch.Tensor  # int32 [num_colors + 1] occupancy by color
     hits: torch.Tensor          # int32 [] since the last stats reset
     misses: torch.Tensor        # int32 []
+    scales: Optional[torch.Tensor] = None  # f32 [num_sets + 1, ways] (int8)
 
 
 @dataclasses.dataclass
@@ -202,13 +227,15 @@ def init_state(cfg: CacheConfig, device) -> CacheState:
     s, w = cfg.num_sets + 1, cfg.ways
     return CacheState(
         tags=torch.full((s, w), -1, dtype=torch.int32, device=device),
-        data=torch.zeros((s, w, cfg.cache_dim), dtype=cfg.dtype,
+        data=torch.zeros((s, w, cfg.cache_dim), dtype=cfg.data_dtype,
                          device=device),
         rr=torch.zeros(cfg.num_sets, dtype=torch.int32, device=device),
         color_counts=torch.zeros(cfg.num_colors + 1, dtype=torch.int32,
                                  device=device),
         hits=torch.zeros((), dtype=torch.int32, device=device),
-        misses=torch.zeros((), dtype=torch.int32, device=device))
+        misses=torch.zeros((), dtype=torch.int32, device=device),
+        scales=(torch.ones((s, w), dtype=torch.float32, device=device)
+                if cfg.quantize else None))
 
 
 def init_colored_state(cfg: CacheConfig, device,
@@ -243,11 +270,26 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def _to_lines(cfg: CacheConfig, feats: torch.Tensor) -> torch.Tensor:
-    """Feature rows [n, dim] -> cache lines [n, cache_dim] in cfg.dtype."""
+def _to_lines(cfg: CacheConfig, feats: torch.Tensor
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Feature rows [n, dim] -> (cache lines [n, cache_dim] in the stored
+    type, their f32 scales when quantised, else None)."""
+    row_scales = None
+    if cfg.quantize:
+        feats, row_scales = quantize_rows(feats)
     pad = torch.zeros(feats.shape[0], cfg.cache_dim - cfg.dim,
-                      dtype=cfg.dtype, device=feats.device)
-    return torch.cat([feats.to(cfg.dtype), pad], dim=1)
+                      dtype=cfg.data_dtype, device=feats.device)
+    return torch.cat([feats.to(cfg.data_dtype), pad], dim=1), row_scales
+
+
+def _write_lines(cfg: CacheConfig, state: "CacheState", sets: torch.Tensor,
+                 way: torch.Tensor, feats: torch.Tensor) -> None:
+    """Rows (and their scales) into (set, way); ``sets`` = num_sets (the
+    scratch set) for rows that must not land."""
+    lines, row_scales = _to_lines(cfg, feats)
+    state.data[sets, way] = lines
+    if row_scales is not None:
+        state.scales[sets, way] = row_scales
 
 
 def _first_match(match: torch.Tensor) -> torch.Tensor:
@@ -259,15 +301,18 @@ def lookup(cfg: CacheConfig, state: CacheState, ids: torch.Tensor,
            valid: torch.Tensor, count_stats: bool = True
            ) -> Tuple[CacheState, torch.Tensor, torch.Tensor]:
     """(state, feats [n, dim] in cfg.dtype, hit bool [n]) for ids int32
-    [n]; ``valid`` masks padding. Rows that miss read zero. The counters
-    add on the device."""
+    [n]; ``valid`` masks padding. Rows that miss read zero; int8 lines are
+    dequantised. The counters add on the device."""
     sets = _set_index(cfg, ids)
     match = state.tags[sets] == ids[:, None]
     hit = match.any(dim=1) & valid
-    feats = state.data[sets, _first_match(match), :cfg.dim]
+    way = _first_match(match)
+    feats = state.data[sets, way, :cfg.dim]
+    if state.scales is not None:
+        feats = dequantize_rows(feats, state.scales[sets, way])
     feats = torch.where(hit[:, None], feats,
                         torch.zeros((), dtype=feats.dtype,
-                                    device=feats.device))
+                                    device=feats.device)).to(cfg.dtype)
     if count_stats:
         n_hit = hit.sum(dtype=torch.int32)
         state.hits += n_hit
@@ -359,7 +404,7 @@ def insert(cfg: CacheConfig, state: CacheState, ids: torch.Tensor,
     way, is_new, valid = _placement(cfg, state, ids, valid, sets)
     drop_sets = torch.where(valid, sets, cfg.num_sets)
     state.tags[drop_sets, way] = ids.to(torch.int32)
-    state.data[drop_sets, way] = _to_lines(cfg, feats)
+    _write_lines(cfg, state, drop_sets, way, feats)
     _advance_cursors(cfg, state, sets, is_new)
     return state
 
@@ -399,7 +444,7 @@ def insert_with_colors(cfg: CacheConfig, cstate: ColoredCacheState,
     drop_sets = torch.where(valid, sets, cfg.num_sets)
     new_sets = torch.where(is_new, sets, cfg.num_sets)
     state.tags[drop_sets, way] = ids.to(torch.int32)
-    state.data[drop_sets, way] = _to_lines(cfg, feats)
+    _write_lines(cfg, state, drop_sets, way, feats)
     cstate.line_colors[new_sets, way] = colors.to(torch.int32)
     if line_prio is not None:
         line_prio[drop_sets, way] = prios

@@ -1,9 +1,9 @@
 """Model stacks over sampled blocks (port of coala_gnn_tpu/models/gnn.py).
 
 Forward contract as in the JAX package: per layer ``h = conv(block, h)``
-with ReLU + dropout between layers, logits in f32. Only GraphSAGE is
-ported so far; GCN and GAT are queued in ROADMAP.md ("GCN, GAT and
-hetero").
+with ReLU + dropout between layers, logits in f32. GAT flattens its heads
+between layers and takes their mean at the output. Models are f32; the
+bf16 model dtype and the hetero models are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from coala_gnn_tpu_torch.models.layers import (DeviceBlock, LayerInput,
+from coala_gnn_tpu_torch.models.layers import (DeviceBlock, GATConv,
+                                               GraphConv, LayerInput,
                                                SAGEConv, TableInput)
 
 
@@ -31,23 +32,26 @@ def dropout(h: torch.Tensor, rate: float,
     return torch.where(keep, h / keep_prob, torch.zeros_like(h))
 
 
-class SAGE(nn.Module):
-    """GraphSAGE (mean); layers are named ``layer_{i}`` as in flax, so the
-    state_dict keys read ``layer_0.fc_self.weight`` etc. Weights are made
-    on the CPU from ``seed`` (the same weights on every device); move the
-    model with ``.to(device)``."""
+class _Stack(nn.Module):
+    """Layers named ``layer_{i}`` as in flax, so state_dict keys read
+    ``layer_0.fc_self.weight`` etc. Weights are made on the CPU from
+    ``seed`` (the same weights on every device); move the model with
+    ``.to(device)``."""
 
-    def __init__(self, in_dim: int, hidden: int, num_classes: int,
-                 num_layers: int = 2, dropout: float = 0.5, seed: int = 0):
+    def __init__(self, convs: Sequence[nn.Module], dropout: float):
         super().__init__()
-        self.num_layers = num_layers
+        self.num_layers = len(convs)
         self.dropout = dropout
-        gen = torch.Generator().manual_seed(seed)
-        d = in_dim
-        for i in range(num_layers):
-            out = num_classes if i == num_layers - 1 else hidden
-            self.add_module(f"layer_{i}", SAGEConv(d, out, gen))
-            d = out
+        for i, conv in enumerate(convs):
+            self.add_module(f"layer_{i}", conv)
+
+    def _post(self, i: int, h: torch.Tensor, train: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        """ReLU + dropout between layers."""
+        if i == self.num_layers - 1:
+            return h
+        h = torch.relu(h)
+        return dropout(h, self.dropout, generator) if train else h
 
     def forward(self, blocks: Sequence[DeviceBlock], x: LayerInput,
                 train: bool = False,
@@ -56,24 +60,70 @@ class SAGE(nn.Module):
             raise ValueError("training with dropout needs a generator")
         h = x if isinstance(x, TableInput) else x.float()
         for i, block in enumerate(blocks):
-            h = getattr(self, f"layer_{i}")(block, h)
-            if i != self.num_layers - 1:
-                h = torch.relu(h)
-                if train:
-                    h = dropout(h, self.dropout, generator)
+            h = self._post(i, getattr(self, f"layer_{i}")(block, h), train,
+                           generator)
         return h.float()
 
 
+def _convs(make_conv, in_dim: int, hidden: int, num_classes: int,
+           num_layers: int, seed: int, widen: int = 1) -> list:
+    """``make_conv(d_in, d_out, generator)`` per layer, drawn in layer
+    order from one generator seeded with ``seed``; a layer's input is the
+    previous output times ``widen`` (GAT's flattened heads)."""
+    gen = torch.Generator().manual_seed(seed)
+    outs = [num_classes if i == num_layers - 1 else hidden
+            for i in range(num_layers)]
+    ins = [in_dim] + [o * widen for o in outs[:-1]]
+    return [make_conv(d, o, gen) for d, o in zip(ins, outs)]
+
+
+class SAGE(_Stack):
+    """GraphSAGE (mean)."""
+
+    def __init__(self, in_dim: int, hidden: int, num_classes: int,
+                 num_layers: int = 2, dropout: float = 0.5, seed: int = 0):
+        super().__init__(_convs(SAGEConv, in_dim, hidden, num_classes,
+                                num_layers, seed), dropout)
+
+
+class GCN(_Stack):
+    """GCN (GraphConv, right-normalised)."""
+
+    def __init__(self, in_dim: int, hidden: int, num_classes: int,
+                 num_layers: int = 2, dropout: float = 0.5, seed: int = 0):
+        super().__init__(_convs(GraphConv, in_dim, hidden, num_classes,
+                                num_layers, seed), dropout)
+
+
+class GAT(_Stack):
+    """Multi-head GAT: ``hidden`` features per head; heads flattened
+    between layers and meaned at the output."""
+
+    def __init__(self, in_dim: int, hidden: int, num_classes: int,
+                 num_layers: int = 2, num_heads: int = 4,
+                 dropout: float = 0.5, seed: int = 0):
+        super().__init__(_convs(
+            lambda d, o, gen: GATConv(d, o, num_heads, gen), in_dim, hidden,
+            num_classes, num_layers, seed, widen=num_heads), dropout)
+
+    def _post(self, i, h, train, generator):
+        if i == self.num_layers - 1:
+            return h.mean(dim=1)                       # [n, H, F] -> [n, F]
+        return super()._post(i, h.reshape(h.shape[0], -1), train, generator)
+
+
 def make_model(model_type: str, in_dim: int, hidden: int, num_classes: int,
-               num_layers: int, dropout: float = 0.5,
+               num_layers: int, num_heads: int = 4, dropout: float = 0.5,
                seed: int = 0) -> nn.Module:
-    """Model switch (the JAX package's make_model; flax infers ``in_dim``
-    at init, torch needs it here)."""
+    """Model switch, the JAX package's make_model (sage | gcn | gat); flax
+    infers ``in_dim`` at init, torch needs it here. f32 only so far."""
     if model_type in ("sage", "distsage"):
         return SAGE(in_dim, hidden, num_classes, num_layers=num_layers,
                     dropout=dropout, seed=seed)
-    if model_type in ("gcn", "gat"):
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet: ROADMAP.md "
-            "queue A, \"GCN, GAT and hetero\"")
+    if model_type == "gcn":
+        return GCN(in_dim, hidden, num_classes, num_layers=num_layers,
+                   dropout=dropout, seed=seed)
+    if model_type == "gat":
+        return GAT(in_dim, hidden, num_classes, num_layers=num_layers,
+                   num_heads=num_heads, dropout=dropout, seed=seed)
     raise ValueError(f"unknown model_type {model_type!r}")

@@ -37,6 +37,14 @@ def padded_gather_sum(x_src: torch.Tensor, adj: torch.Tensor,
     return acc.to(x_src.dtype)
 
 
+def padded_gather_sum_dense(x_src: torch.Tensor, adj: torch.Tensor,
+                            weights: torch.Tensor) -> torch.Tensor:
+    """Same contract as ``padded_gather_sum`` via one 3-D gather
+    [n_dst, fanout, dim] and a weighted reduce."""
+    nbr = x_src[adj]
+    return torch.einsum("nfd,nf->nd", nbr, weights.to(x_src.dtype))
+
+
 def padded_mean(x_src: torch.Tensor, adj: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
     """Masked neighbourhood mean (zero for dst rows with no neighbour)."""
@@ -97,12 +105,24 @@ def frontier_adj(ids: torch.Tensor, shape: tuple) -> torch.Tensor:
     return adj.to(torch.int32).contiguous()
 
 
+def table_agg_sum(table: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor,
+                  scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``agg_sum(rows, None, weights)`` of the frontier rows ``table[ids]``
+    (widened to f32, or for an int8 table dequantised with ``scale``)
+    without building them: the weighted sum runs in the gather-SpMM kernel
+    straight off the table at the slots' ids (``frontier_adj``). GCN's
+    layer 0, whose weights are the block mask times 1 / degree.
+    -> f32 [cap_dst, dim]."""
+    adj = frontier_adj(ids, tuple(weights.shape))
+    return gather_spmm(table, adj, weights.contiguous(), scale)
+
+
 def table_agg_mean(table: torch.Tensor, ids: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
-    """``agg_mean(table[ids].float(), None, mask)`` without building
-    ``table[ids]``: the masked sum runs in the gather-SpMM kernel straight
-    off the table at the slots' ids (``frontier_adj``). Sum, then divide by
-    the clamped count: the JAX order of operations. -> f32 [cap_dst, dim]."""
+                   mask: torch.Tensor,
+                   scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``agg_mean`` of the frontier rows ``table[ids]`` through
+    ``table_agg_sum``: sum, then divide by the clamped count, the JAX
+    order of operations. -> f32 [cap_dst, dim]."""
     count = mask.sum(dim=1).clamp_min(1.0)
-    adj = frontier_adj(ids, tuple(mask.shape))
-    return gather_spmm(table, adj, mask.contiguous()) / count[:, None]
+    return table_agg_sum(table, ids, mask, scale) / count[:, None]

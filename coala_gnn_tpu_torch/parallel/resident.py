@@ -3,8 +3,16 @@ coala_gnn_tpu/parallel/resident.py).
 
 Topology, labels and the feature cache live in device memory. Per step
 the device samples the blocks, reads the input frontier's features, runs
-the SAGE forward and backward and the Adam update; layer 0's neighbour
-mean goes through the gather-SpMM kernel on every path.
+the model's forward and backward and the optimizer update. The trainer is
+model-agnostic (any ``models.gnn.make_model`` output): SAGE's and GCN's
+layer-0 neighbour sums and GAT's attention combine of every layer go
+through the gather-SpMM kernel, GAT's backward through its two backward
+kernels.
+
+The cache holds f32, bf16 or int8 rows (``cfg.quantize``, both tiers).
+The flat tier hands its table to the model as it is stored
+(``TableInput(table, ids, scale)``); an int8 table is read by the kernel's
+int8 form, which dequantises each row as it reads it.
 
 Two cache tiers, picked as in JAX (``direct``): the flat table when it
 holds every node, the set-associative cache otherwise. Three window
@@ -43,7 +51,8 @@ Host syncs of the serial staged schedule: one probe readback per window
 fold; stages upload from pinned buffers without blocking.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``dedup=True`` and ``nbr_cap`` sampling, int8 cache lines.
+ROADMAP.md item: ``dedup=True`` and ``nbr_cap`` sampling, and int8 lines
+on a bf16 flat table (JAX dequantises them to bf16, the kernel to f32).
 """
 
 from __future__ import annotations
@@ -210,7 +219,8 @@ class ResidentTrainer:
                                          # "degree" (in-degree of the graph)
     stage_transport: str = "auto"        # miss-row encoding across the host
                                          # link: float32 | bfloat16 | int8;
-                                         # auto = float32 (f32/bf16 lines)
+                                         # auto = int8 for int8 lines, else
+                                         # float32
     stage_admit: bool = True             # offer staged rows to the cache
                                          # after each window
     stage_overlap: bool = False          # overlapped staged schedule
@@ -225,8 +235,9 @@ class ResidentTrainer:
             raise NotImplementedError(
                 "the nbr_cap padded neighbour table is not ported yet: "
                 "ROADMAP.md queue A, \"dedup=True and nbr_cap sampling\"")
+        cfg = self.cache_cfg
         if self.stage_transport == "auto":
-            self.stage_transport = "float32"
+            self.stage_transport = "int8" if cfg.quantize else "float32"
         if self.stage_transport not in _TRANSPORT_DTYPE:
             raise ValueError(
                 f"unknown stage transport {self.stage_transport!r}")
@@ -237,9 +248,12 @@ class ResidentTrainer:
                 np.asarray(self.graph.indptr)).astype(np.float32)
         self.device = torch.device(self.device)
         n = self.graph.num_nodes
-        cfg = self.cache_cfg
         if self.direct is None:
             self.direct = cfg.capacity >= n
+        if self.direct and cfg.quantize and cfg.dtype != torch.float32:
+            raise NotImplementedError(
+                "int8 lines on a bf16 flat table are not ported yet: "
+                "ROADMAP.md queue A, \"the bf16 model dtype\"")
         self._use_prio = self.priorities is not None and not self.direct
         self.g = to_device_graph(self.graph, self.device)
         self.labels_dev = torch.as_tensor(
@@ -269,7 +283,8 @@ class ResidentTrainer:
                     count_stats: bool = True):
         """(feats [n, dim] in cfg.dtype, hit bool [n])."""
         if self.direct:
-            _, feats, hit = fc.flat_lookup(self.cache, ids, valid)
+            _, feats, hit = fc.flat_lookup(self.cache, ids, valid,
+                                           dtype=self.cache_cfg.dtype)
         else:
             _, feats, hit = fc.lookup(self.cache_cfg, self.cache.base, ids,
                                       valid, count_stats=count_stats)
@@ -616,7 +631,7 @@ class ResidentTrainer:
             blocks, _, valid, safe = self._sample(seeds, g_sample)
             n_valid = valid.sum(dtype=torch.int32)
             if self.direct:
-                x = TableInput(self.cache.data, safe)
+                x = TableInput(self.cache.data, safe, self.cache.scale)
                 n_hit, n_unres = n_valid, torch.zeros_like(n_valid)
             else:
                 feats, n_hit, n_unres = self._frontier(safe, valid, stage,

@@ -4,9 +4,10 @@ flax ``Dense`` keeps a kernel [d_in, d_out] and a bias [d_out]; torch
 ``nn.Linear`` a weight [d_out, d_in] and a bias. The port names its
 modules as flax does (``layer_0/fc_self`` -> ``layer_0.fc_self``), so the
 map is the path joined with dots, ``kernel`` -> ``weight`` transposed,
-``bias`` unchanged. Works on nested dicts of numpy arrays and imports no
-flax: a tree from the JAX package goes through ``jax.device_get`` (or
-``np.asarray`` per leaf) first.
+``bias`` unchanged, and GAT's attention params ``attn_l`` / ``attn_r``
+([heads, features], the same layout in both) unchanged. Works on nested
+dicts of numpy arrays and imports no flax: a tree from the JAX package
+goes through ``jax.device_get`` (or ``np.asarray`` per leaf) first.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+#: leaves that keep their name and layout in both frameworks
+_AS_IS = ("bias", "attn_l", "attn_r")
 
 
 def params_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
@@ -34,8 +38,8 @@ def params_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
                 arr = np.asarray(leaf, np.float32)
                 out[".".join(path + ("weight",))] = \
                     torch.from_numpy(np.ascontiguousarray(arr.T))
-            elif name == "bias":
-                out[".".join(path + ("bias",))] = \
+            elif name in _AS_IS:
+                out[".".join(path + (name,))] = \
                     torch.from_numpy(np.array(leaf, np.float32))
             else:
                 raise ValueError(f"unexpected flax leaf "
@@ -54,7 +58,7 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         arr = value.detach().cpu().float().numpy()
         if leaf == "weight":
             leaf, arr = "kernel", np.ascontiguousarray(arr.T)
-        elif leaf != "bias":
+        elif leaf not in _AS_IS:
             raise ValueError(f"unexpected state_dict entry {key}")
         node = tree
         for name in path:

@@ -16,24 +16,28 @@ torch.set_num_threads(1)
 N, DIM = 40, 8
 
 
-def _cfgs(num_colors, tdt=torch.float32, jdt=jnp.float32):
+def _cfgs(num_colors, tdt=torch.float32, jdt=jnp.float32, quantize=False):
     kw = dict(num_sets=2, ways=jfc.WAYS, dim=DIM,
-              cache_dim=jfc.round_cache_dim(DIM), num_colors=num_colors)
+              cache_dim=jfc.round_cache_dim(DIM), num_colors=num_colors,
+              quantize=quantize)
     return jfc.CacheConfig(dtype=jdt, **kw), tfc.CacheConfig(dtype=tdt, **kw)
 
 
 def _same_state(t, j):
     np.testing.assert_array_equal(t.data.numpy(), np.asarray(j.data))
+    assert (t.scale is None) == (j.scale is None)
+    if j.scale is not None:
+        np.testing.assert_array_equal(t.scale.numpy(), np.asarray(j.scale))
     np.testing.assert_array_equal(t.admitted.numpy(), np.asarray(j.admitted))
     np.testing.assert_array_equal(t.color_counts.numpy(),
                                   np.asarray(j.color_counts))
     assert int(t.hits) == int(j.hits) and int(t.misses) == int(j.misses)
 
 
-@pytest.mark.parametrize("num_colors", [0, 4])
-def test_insert_lookup_probe_match_jax(rng, num_colors):
-    jcfg, tcfg = _cfgs(num_colors)
-    feats = rng.normal(size=(N, DIM)).astype(np.float32)
+def _insert_lookup_probe(rng, num_colors, quantize):
+    jcfg, tcfg = _cfgs(num_colors, quantize=quantize)
+    feats = (rng.normal(size=(N, DIM)) *
+             rng.uniform(0.01, 30, size=(N, 1))).astype(np.float32)
     colors_all = rng.integers(0, num_colors + 1, size=N).astype(np.int32)
     js, ts = jfc.flat_init(jcfg, N), tfc.flat_init(tcfg, N, "cpu")
     _same_state(ts, js)
@@ -56,6 +60,7 @@ def test_insert_lookup_probe_match_jax(rng, num_colors):
                                      jnp.asarray(valid))
         ts, tf, th = tfc.flat_lookup(ts, torch.from_numpy(ids),
                                      torch.from_numpy(valid))
+        assert tf.dtype == torch.float32
         np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
         np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
         _same_state(ts, js)
@@ -64,6 +69,23 @@ def test_insert_lookup_probe_match_jax(rng, num_colors):
         tfc.flat_probe(ts, torch.from_numpy(ids),
                        torch.from_numpy(valid)).numpy(),
         np.asarray(jfc.flat_probe(js, jnp.asarray(ids), jnp.asarray(valid))))
+
+
+@pytest.mark.parametrize("num_colors", [0, 4])
+def test_insert_lookup_probe_match_jax(rng, num_colors):
+    _insert_lookup_probe(rng, num_colors, quantize=False)
+
+
+@pytest.mark.parametrize("num_colors", [0, 4])
+def test_int8_table_matches_jax(rng, num_colors):
+    """quantize=True: int8 rows and f32 scales (ones where nothing was
+    admitted) bitwise equal to JAX's after each insert, and lookups that
+    dequantise to the same f32 rows."""
+    _insert_lookup_probe(rng, num_colors, quantize=True)
+    _, tcfg = _cfgs(num_colors, quantize=True)
+    st = tfc.flat_init(tcfg, N, "cpu")
+    assert st.data.dtype == torch.int8 and st.data.shape == (N + 1, DIM)
+    assert (st.scale == 1).all() and st.scale.shape == (N + 1,)
 
 
 def test_bf16_table_rounds_like_jax(rng):
@@ -96,8 +118,12 @@ def test_make_config_matches(tdt, jdt):
                 t.capacity) == \
             (j.num_sets, j.ways, j.dim, j.cache_dim, j.num_colors,
              j.capacity)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfc.make_config(64, 256, quantize=True)
+        # int8 lines page by cache_dim + 4 bytes, whatever the dtype
+        t = tfc.make_config(mb, dim, num_colors=3, dtype=tdt, quantize=True)
+        j = jfc.make_config(mb, dim, num_colors=3, dtype=jdt, quantize=True)
+        assert t.quantize and (t.num_sets, t.capacity, t.line_bytes,
+                               t.size_mb) == \
+            (j.num_sets, j.capacity, j.line_bytes, j.size_mb)
 
 
 def test_ids_must_fit_int32():

@@ -28,9 +28,11 @@ class Pair:
     """One JAX state and one port state, driven in lockstep."""
 
     def __init__(self, num_sets, ways=jfc.WAYS, dim=16, num_colors=0,
-                 colored=False, track_prio=False, dtype="float32"):
+                 colored=False, track_prio=False, dtype="float32",
+                 quantize=False):
         kw = dict(num_sets=num_sets, ways=ways, dim=dim,
-                  cache_dim=jfc.round_cache_dim(dim), num_colors=num_colors)
+                  cache_dim=jfc.round_cache_dim(dim), num_colors=num_colors,
+                  quantize=quantize)
         self.jcfg = jfc.CacheConfig(dtype=getattr(jnp, dtype), **kw)
         self.tcfg = tfc.CacheConfig(dtype=getattr(torch, dtype), **kw)
         self.colored = colored
@@ -61,6 +63,10 @@ class Pair:
         np.testing.assert_array_equal(tb.data[:S].float().numpy(),
                                       np.asarray(jb.data.astype(jnp.float32)))
         np.testing.assert_array_equal(tb.rr.numpy(), np.asarray(jb.rr))
+        assert (tb.scales is None) == (jb.scales is None)
+        if jb.scales is not None:
+            np.testing.assert_array_equal(tb.scales[:S].numpy(),
+                                          np.asarray(jb.scales))
         np.testing.assert_array_equal(tb.color_counts.numpy(),
                                       np.asarray(jb.color_counts))
         assert int(tb.hits) == int(jb.hits)
@@ -327,6 +333,37 @@ CASES = {name[5:]: fn for name, fn in globals().items()
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_assoc_cache_matches_jax(case, colored):
     CASES[case](np.random.default_rng(0), colored)
+
+
+@pytest.mark.parametrize("colored,track_prio",
+                         [(False, False), (True, False), (True, True)],
+                         ids=["insert", "insert_with_colors", "prio"])
+def test_int8_lines_match_jax(colored, track_prio):
+    """quantize=True: int8 lines and per-line scales bitwise equal to JAX's
+    through batches with repeats, invalid slots, evictions and clobbered
+    refreshes; lookups dequantise to the same f32 rows."""
+    rng = np.random.default_rng(3)
+    p = Pair(3, num_colors=3, colored=colored, track_prio=track_prio,
+             quantize=True)
+    assert p.tbase.data.dtype == torch.int8
+    for _ in range(8):
+        n = int(rng.choice([7, 120]))
+        ids = rng.integers(0, 240, n)
+        valid = rng.random(n) < 0.85
+        f = _feats(rng, n) * rng.uniform(0.01, 40, (n, 1)).astype(np.float32)
+        if colored:
+            p.insert(ids, f, valid=valid, colors=rng.integers(0, 4, n),
+                     prios=(rng.integers(0, 4, n).astype(np.float32)
+                            if track_prio else None),
+                     return_evicted=bool(rng.random() < .5))
+        else:
+            p.insert(ids, f, valid=valid)
+        p.lookup(rng.integers(0, 240, 60), valid=rng.random(60) < 0.9,
+                 count_stats=bool(rng.random() < 0.7))
+    p.stats()
+    ids = np.arange(240)
+    hit, rows = p.lookup(ids)
+    assert hit.sum() > 10 and (rows[~hit] == 0).all()
 
 
 def test_bf16_lines_match_jax():

@@ -1,6 +1,6 @@
 """The port runs where there is no JAX: in a fresh interpreter with jax,
 flax, optax and ml_dtypes blocked, every module of coala_gnn_tpu_torch and
-chip_smoke.py import, and a tiny ResidentTrainer trains one window at full
+chip_smoke.py and chip_profile.py import, and a tiny ResidentTrainer trains one window at full
 coverage and staged windows under pressure with bf16 and int8 transport
 (fused native and gather + encode stores)."""
 
@@ -27,6 +27,7 @@ mods = [m.name for m in pkgutil.walk_packages(coala_gnn_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+import chip_profile
 from coala_gnn_tpu.cache.host_tier import HostFeatureStore
 from coala_gnn_tpu.graph.datasets import synthetic_graph
 ds = synthetic_graph(num_nodes=200, avg_degree=4, feature_dim=8,
@@ -61,3 +62,19 @@ def test_port_imports_and_trains_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("modules")[-1])
     assert n >= 12   # ops, models, sampling, cache, parallel, utils modules
+
+
+def test_profile_busy_time_and_no_card():
+    """chip_profile.py's device busy time is the union of the event
+    intervals (overlaps counted once, gaps not at all), and without a card
+    the script exits with a non-zero code before it builds anything."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_profile
+    finally:
+        sys.path.remove(ROOT)
+    assert chip_profile.busy_us([]) == 0.0
+    assert chip_profile.busy_us([(5, 9), (0, 2), (1, 3), (8, 10)]) == 8.0
+    assert chip_profile.busy_us(iter([(0, 4), (1, 2)])) == 4.0
+    if not torch.cuda.is_available():
+        assert chip_profile.main() != 0

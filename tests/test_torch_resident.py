@@ -1,6 +1,7 @@
 """The slice as a whole: coala_gnn_tpu_torch's ResidentTrainer against the
 JAX package's ResidentTrainer, flat tier, on the same converted params,
-seed grids, graph and host tier.
+seed grids, graph and host tier: SAGE, GCN and GAT, with f32 and int8
+tables.
 
 With fanout = max in-degree the sampler takes every in-edge in order, so
 neither trainer depends on its random draws (as in
@@ -8,6 +9,8 @@ tests/test_training_parity.py); dropout is 0. Tolerances are that test's:
 losses rtol 2e-3 / atol 2e-4, final params rtol 5e-3 / atol 5e-4 (Adam
 divides by the root of small second moments and so amplifies rounding
 differences of the matmuls). Hit and miss counts are exact."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -55,26 +58,42 @@ def setup():
     return ds, fanouts, jm, params0, grids
 
 
-def _jax_trainer(ds, fanouts, jm, colors=None):
+def _jax_model(kind, fanouts):
+    """(flax model, its params) of ``kind``, 2 layers, GAT with 2 heads."""
+    jm = jax_make_model(kind, hidden=8, num_classes=4, num_layers=2,
+                        num_heads=2, dropout=0.0)
+    caps = block_capacities(B, fanouts)
+    blocks0 = [JBlock(adj=None, mask=jnp.ones((caps[l][0], fanouts[l])))
+               for l in range(2)]
+    return jm, jm.init(jax.random.key(0), blocks0,
+                       jnp.zeros((caps[0][1], 8), jnp.float32))
+
+
+def _jax_trainer(ds, fanouts, jm, colors=None, quantize=False, sgd=False):
     # capacity 256 >= 250 nodes: the flat (direct) tier
     cfg = jfc.CacheConfig(num_sets=8, ways=jfc.WAYS, dim=8,
                           cache_dim=jfc.round_cache_dim(8),
-                          num_colors=0 if colors is None else 4)
+                          num_colors=0 if colors is None else 4,
+                          quantize=quantize)
     return JTrainer(graph=ds.graph,
                     host_fetch=HostFeatureStore(ds.features).fetch,
                     labels=ds.labels, cache_cfg=cfg, model=jm,
-                    tx=optax.adam(LR), fanouts=fanouts, batch_size=B,
+                    tx=optax.sgd(LR) if sgd else optax.adam(LR),
+                    fanouts=fanouts, batch_size=B,
                     colors=colors)
 
 
-def _torch_trainer(ds, fanouts, params0, colors=None):
+def _torch_trainer(ds, fanouts, params0, colors=None, kind="sage",
+                   quantize=False, sgd=False):
     cfg = tfc.CacheConfig(num_sets=8, ways=tfc.WAYS, dim=8,
                           cache_dim=tfc.round_cache_dim(8),
-                          num_colors=0 if colors is None else 4)
-    model = make_model("sage", 8, 8, 4, 2, dropout=0.0)
+                          num_colors=0 if colors is None else 4,
+                          quantize=quantize)
+    model = make_model(kind, 8, 8, 4, 2, num_heads=2, dropout=0.0)
     model.load_state_dict(params_from_flax(jax.device_get(params0)))
-    opt = torch.optim.Adam(model.parameters(), lr=LR, betas=(0.9, 0.999),
-                           eps=1e-8)
+    opt = (torch.optim.SGD(model.parameters(), lr=LR) if sgd else
+           torch.optim.Adam(model.parameters(), lr=LR, betas=(0.9, 0.999),
+                            eps=1e-8))
     store = HostFeatureStore(ds.features, use_native=False)
     return ResidentTrainer(graph=ds.graph, host_fetch=store.fetch,
                            labels=ds.labels, cache_cfg=cfg, model=model,
@@ -84,7 +103,86 @@ def _torch_trainer(ds, fanouts, params0, colors=None):
 
 def test_train_windows_match_jax(setup):
     ds, fanouts, jm, params0, grids = setup
+    _windows_match(ds, fanouts, jm, params0, grids, "sage", False)
+
+
+@pytest.mark.parametrize("kind,quantize", [("gcn", False), ("gat", False),
+                                           ("sage", True), ("gcn", True),
+                                           ("gat", True)])
+def test_models_and_int8_table_match_jax(setup, kind, quantize):
+    """GCN and GAT on the f32 table, and all three models on an int8
+    table (stage transport "auto" -> int8, layer 0 through the kernel's
+    int8 form for SAGE and GCN, through the dequantised frontier for
+    GAT); the int8 table and its scales equal JAX's bitwise.
+
+    GAT trains with SGD here, which holds every leaf; the Adam run of
+    bench.py's GAT rows is test_gat_adam_matches_jax."""
+    ds, fanouts, _, _, grids = setup
+    jm, params0 = _jax_model(kind, fanouts)
+    jt, tt = _windows_match(ds, fanouts, jm, params0, grids, kind, quantize,
+                            sgd=kind == "gat")
+    if quantize:
+        assert tt.stage_transport == jt.stage_transport == "int8"
+        assert tt.cache.data.dtype == torch.int8
+        np.testing.assert_array_equal(tt.cache.data.numpy(),
+                                      np.asarray(jt.cache.data))
+        # the port divides absmax by 127 as JAX's quantize_rows does op by
+        # op; JAX's jitted insert multiplies by 1/127, one ulp off on some
+        # rows (tests/test_torch_cache.py holds the eager form bitwise)
+        np.testing.assert_allclose(tt.cache.scale.numpy(),
+                                   np.asarray(jt.cache.scale), rtol=2**-23,
+                                   atol=0)
+
+
+def _rounding_level_entries(ds, fanouts, jm, params0, grids):
+    """Per leaf, a mask of the entries whose JAX gradient at ``params0`` is
+    at rounding level on every step of ``grids``: at most 16 f32 ulps of
+    the largest gradient entry of the model. Such a gradient is the
+    residue of sums that cancel, and differs in sign between frameworks."""
     jt = _jax_trainer(ds, fanouts, jm)
+    jt.prewarm(np.arange(ds.graph.num_nodes, dtype=np.int32))
+    worst = None
+    for seeds in grids.reshape(-1, grids.shape[-1]):
+        blocks, feats, y = jt.resolve(jt.begin(seeds, jax.random.key(0)))
+
+        def loss_fn(p):
+            logits = jm.apply(p, blocks, feats, train=False)[:B]
+            return optax.softmax_cross_entropy_with_integer_labels(
+                logits, y).mean()
+
+        g = {k: v.abs().numpy() for k, v in params_from_flax(
+            jax.device_get(jax.grad(loss_fn)(params0))).items()}
+        worst = g if worst is None else {k: np.maximum(worst[k], g[k])
+                                         for k in g}
+    top = max(float(v.max()) for v in worst.values())
+    return {k: v <= 16 * np.finfo(np.float32).eps * top
+            for k, v in worst.items()}
+
+
+def test_gat_adam_matches_jax(setup):
+    """GAT with Adam, as bench.py's GAT rows train it. The softmax over the
+    slots cancels a head's ``attn_r`` in the last layer wherever that
+    head's scores stay on one side of the leaky ReLU; its gradient is then
+    rounding noise, which Adam (dividing by its root mean square) turns
+    into lr-sized steps of random sign in both frameworks. Those entries
+    are found by their reference gradient (``_rounding_level_entries``)
+    and left out; the losses and every other entry are held as in
+    ``_windows_match``."""
+    ds, fanouts, _, _, grids = setup
+    jm, params0 = _jax_model("gat", fanouts)
+    noise = _rounding_level_entries(ds, fanouts, jm, params0, grids)
+    n_noise = sum(int(m.sum()) for m in noise.values())
+    assert 0 < n_noise <= sum(m.size for m in noise.values()) // 20
+    _windows_match(ds, fanouts, jm, params0, grids, "gat", False,
+                   skip=noise)
+
+
+def _windows_match(ds, fanouts, jm, params0, grids, kind, quantize,
+                   sgd=False, skip=None):
+    """Full-coverage windows of both trainers: losses, edges, counters and
+    final params agree, apart from the entries ``skip`` masks per leaf.
+    Returns (JAX trainer, port trainer)."""
+    jt = _jax_trainer(ds, fanouts, jm, quantize=quantize, sgd=sgd)
     jt.prewarm(np.arange(ds.graph.num_nodes, dtype=np.int32))
     assert jt.direct and jt.full_coverage
     opt0 = jt.tx.init(params0)
@@ -92,7 +190,8 @@ def test_train_windows_match_jax(setup):
                                               jax.random.key(7))
     jstats = jt.stats()
 
-    tt = _torch_trainer(ds, fanouts, params0)
+    tt = _torch_trainer(ds, fanouts, params0, kind=kind, quantize=quantize,
+                        sgd=sgd)
     tt.prewarm(np.arange(ds.graph.num_nodes, dtype=np.int32))
     assert tt.direct and tt.full_coverage
     tlosses, tedges = tt.train_windows(grids, seed=7)
@@ -106,8 +205,11 @@ def test_train_windows_match_jax(setup):
     assert tstats["hits"] > 0
     want = params_from_flax(jax.device_get(jp))
     for name, p in tt.model.state_dict().items():
-        np.testing.assert_allclose(p.numpy(), want[name].numpy(),
+        keep = (np.ones(p.shape, bool) if skip is None else
+                ~skip[name])
+        np.testing.assert_allclose(p.numpy()[keep], want[name].numpy()[keep],
                                    **PARAM_TOL)
+    return jt, tt
 
 
 def test_per_step_path_with_misses_matches_jax(setup):
@@ -144,7 +246,8 @@ def test_per_step_path_with_misses_matches_jax(setup):
 
 def test_unported_paths_raise(setup):
     """What stays unported raises and names its ROADMAP.md item:
-    dedup=True and nbr_cap sampling, int8 cache lines, GCN and GAT."""
+    dedup=True and nbr_cap sampling, and int8 lines on a bf16 flat
+    table."""
     ds, fanouts, _, params0, grids = setup
     tt = _torch_trainer(ds, fanouts, params0)
     for kw in ({"dedup": True}, {"nbr_cap": 2 * max(fanouts)}):
@@ -154,8 +257,10 @@ def test_unported_paths_raise(setup):
                             model=tt.model, optimizer=tt.optimizer,
                             fanouts=fanouts, batch_size=B, device="cpu",
                             **kw)
+    bf16_int8 = dataclasses.replace(tt.cache_cfg, dtype=torch.bfloat16,
+                                    quantize=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfc.make_config(8, 8, quantize=True)
-    for model_type in ("gcn", "gat"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_model(model_type, 8, 8, 4, 2)
+        ResidentTrainer(graph=ds.graph, host_fetch=None, labels=ds.labels,
+                        cache_cfg=bf16_int8, model=tt.model,
+                        optimizer=tt.optimizer, fanouts=fanouts,
+                        batch_size=B, device="cpu")

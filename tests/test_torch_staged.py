@@ -59,22 +59,24 @@ def setup():
     return ds, fanouts, jm, params0, grids
 
 
-def _kw(num_sets, colors):
+def _kw(num_sets, colors, quantize=False):
     return dict(num_sets=num_sets, ways=jfc.WAYS, dim=DIM,
                 cache_dim=jfc.round_cache_dim(DIM),
-                num_colors=0 if colors is None else int(colors.max()))
+                num_colors=0 if colors is None else int(colors.max()),
+                quantize=quantize)
 
 
-def _jax(ds, fanouts, jm, num_sets=8, colors=None, **kw):
+def _jax(ds, fanouts, jm, num_sets=8, colors=None, quantize=False, **kw):
     return jres.ResidentTrainer(
         graph=ds.graph, host_fetch=HostFeatureStore(ds.features).fetch,
-        labels=ds.labels, cache_cfg=jfc.CacheConfig(**_kw(num_sets, colors)),
+        labels=ds.labels,
+        cache_cfg=jfc.CacheConfig(**_kw(num_sets, colors, quantize)),
         model=jm, tx=optax.adam(LR), fanouts=fanouts, batch_size=B,
         colors=colors, **kw)
 
 
 def _torch(ds, fanouts, params0, num_sets=8, native=True, dropout=0.0,
-           colors=None, **kw):
+           colors=None, quantize=False, **kw):
     model = make_model("sage", DIM, 8, 4, 2, dropout=dropout)
     if params0 is not None:
         model.load_state_dict(params_from_flax(jax.device_get(params0)))
@@ -83,7 +85,8 @@ def _torch(ds, fanouts, params0, num_sets=8, native=True, dropout=0.0,
     store = HostFeatureStore(ds.features, use_native=native)
     return tres.ResidentTrainer(
         graph=ds.graph, host_fetch=store.fetch, labels=ds.labels,
-        cache_cfg=tfc.CacheConfig(**_kw(num_sets, colors)), model=model,
+        cache_cfg=tfc.CacheConfig(**_kw(num_sets, colors, quantize)),
+        model=model,
         optimizer=opt, fanouts=fanouts, batch_size=B, device="cpu",
         colors=colors, **kw)
 
@@ -94,6 +97,13 @@ def _same_cache(tt, jt):
     np.testing.assert_array_equal(tb.tags[:S].numpy(), np.asarray(jb.tags))
     np.testing.assert_array_equal(tb.rr.numpy(), np.asarray(jb.rr))
     np.testing.assert_array_equal(tb.data[:S].numpy(), np.asarray(jb.data))
+    assert (tb.scales is None) == (jb.scales is None)
+    if jb.scales is not None:
+        # JAX's jitted insert computes absmax * (1/127), the port (and JAX
+        # op by op) absmax / 127: one ulp apart on some lines
+        np.testing.assert_allclose(tb.scales[:S].numpy(),
+                                   np.asarray(jb.scales), rtol=2**-23,
+                                   atol=0)
     assert (tt.cache.line_prio is None) == (jt.cache.line_prio is None)
     if jt.cache.line_prio is not None:
         np.testing.assert_array_equal(tt.cache.line_prio[:S].numpy(),
@@ -239,6 +249,34 @@ def test_staged_run_matches_jax(setup, name):
     for t in (jt, tt):
         assert "replay" not in t.timers.totals
         assert t.timers.tallies["stage_rows"] > 0
+
+
+@pytest.mark.parametrize("overlap", [False, True], ids=["serial",
+                                                       "overlap"])
+def test_int8_lines_staged_run_matches_jax(setup, overlap):
+    """int8 lines on the set-associative tier (quantize=True, so the stage
+    transport "auto" is int8), degree priorities: the staged overlay
+    dequantises stage rows to cfg.dtype and the lookup dequantises cache
+    lines, in JAX's order; losses, counters and the int8 cache agree."""
+    ds, fanouts, jm, params0, grids = setup
+    kw = dict(priorities="degree", stage_overlap=overlap, quantize=True)
+    jt = _jax(ds, fanouts, jm, direct=False, **kw)
+    tt = _torch(ds, fanouts, params0, **kw)
+    assert tt.stage_transport == jt.stage_transport == "int8"
+    assert tt.cache.base.data.dtype == torch.int8
+    for t in (jt, tt):
+        t.prewarm(np.arange(t.cache_cfg.capacity, dtype=np.int32))
+    _same_cache(tt, jt)
+    _, _, jlosses, _ = jt.train_windows(params0, jt.tx.init(params0), grids,
+                                        jax.random.key(6))
+    tlosses, _ = tt.train_windows(grids, seed=6)
+    np.testing.assert_allclose(tlosses.numpy(), np.asarray(jlosses),
+                               **LOSS_TOL)
+    ts, js = tt.stats(), jt.stats()
+    assert ts == js and ts["misses"] > 0 and ts["hits"] > 0
+    _same_cache(tt, jt)
+    for t in (jt, tt):
+        assert "replay" not in t.timers.totals
 
 
 def test_overlap_losses_equal_serial(setup):
