@@ -1,0 +1,156 @@
+"""Times this checkout's gather-SpMM kernels against another checkout's on
+one CUDA card, in one process, in turns: other, this, this, other.
+
+    python3 chip_compare.py OTHER_CHECKOUT
+
+Builds OTHER_CHECKOUT/coala_gnn_tpu_torch/csrc/gather_spmm.cu with this
+checkout's nvcc flags (into this checkout's coala_gnn_tpu_torch/_build/)
+beside this checkout's own, and times with ``chip_smoke.median_ms`` (L2
+flushed, median of 25, after a warm-up) on the same inputs:
+
+  - the forward, f32, bf16 and int8 (+ row scales) tables at the training
+    step's layer-0 shape, and f32 at GAT layer 1's combine (D = 16);
+  - grad_x at GAT's two head-stacked combine shapes: a checkout whose
+    library has ``gather_spmm_adj_transpose`` runs its gather over the
+    transpose (built once beforehand, as the GAT layer keeps it); an older
+    one zeroes the table and adds into it (its wrapper's fill included).
+
+Checks that both checkouts' forward outputs are equal bit for bit and
+their grad_x equal the plain version. Prints one line per entry and a
+JSON line; needs one card, and exits with a non-zero code without one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+SOURCE = os.path.join("coala_gnn_tpu_torch", "csrc", "gather_spmm.cu")
+
+
+def load(src: str) -> ctypes.CDLL:
+    """Build ``src`` with this checkout's nvcc flags unless built; load."""
+    from coala_gnn_tpu_torch.utils.build import BUILD_DIR, NVCC_FLAGS, find_nvcc
+
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    out = os.path.join(BUILD_DIR, f"libcompare_{digest.hexdigest()[:16]}.so")
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", out, src], check=True,
+                       capture_output=True, text=True)
+    lib = ctypes.CDLL(out)
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    sizes = [i64, i32, i32, i32, ptr]
+    for name in ("gather_spmm_f32", "gather_spmm_bf16"):
+        getattr(lib, name).argtypes = [ptr] * 4 + sizes
+    lib.gather_spmm_i8.argtypes = [ptr] * 5 + sizes
+    lib.transposed = hasattr(lib, "gather_spmm_adj_transpose")
+    lib.gather_spmm_grad_x.argtypes = ([ptr] * 5 + [i64, i32, i32, ptr]
+                                       if lib.transposed else [ptr] * 4 + sizes)
+    return lib
+
+
+def forward(torch, lib, x, scale, adj, w):
+    """One forward launch through ``lib``'s C entry -> f32 [N, D]."""
+    entry = {torch.float32: lib.gather_spmm_f32,
+             torch.bfloat16: lib.gather_spmm_bf16,
+             torch.int8: lib.gather_spmm_i8}[x.dtype]
+    (s, d), (n, f) = x.shape, adj.shape
+    out = torch.empty(n, d, device="cuda")
+    ptrs = [x.data_ptr()] + ([] if scale is None else [scale.data_ptr()])
+    err = entry(*ptrs, adj.data_ptr(), w.data_ptr(), out.data_ptr(), s, n, f,
+                d, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"forward launch failed ({err})")
+    return out
+
+
+def grad_x(torch, lib, adj, adj_t, w, g, s):
+    """grad_x [s, D] through ``lib``: over the transpose, or into a table
+    zeroed here (the older checkout's wrapper)."""
+    (n, f), d = adj.shape, g.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    if lib.transposed:
+        gx = torch.empty(s, d, device="cuda")
+        args = (adj_t[0].data_ptr(), adj_t[1].data_ptr(), w.data_ptr(),
+                g.data_ptr(), gx.data_ptr(), s, f, d, stream)
+    else:
+        gx = torch.zeros(s, d, device="cuda")
+        args = (adj.data_ptr(), w.data_ptr(), g.data_ptr(), gx.data_ptr(), s,
+                n, f, d, stream)
+    if lib.gather_spmm_grad_x(*args):
+        raise RuntimeError("grad_x launch failed")
+    return gx
+
+
+def turns(torch, median_ms, other, this) -> dict:
+    """other, this, this, other -> the four medians and each side's mean."""
+    t = [median_ms(torch, fn) for fn in (other, this, this, other)]
+    return {"other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
+            "other": statistics.mean((t[0], t[3])),
+            "this": statistics.mean((t[1], t[2]))}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available() or len(sys.argv) != 2:
+        print("chip_compare: needs a CUDA card and OTHER_CHECKOUT",
+              file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from coala_gnn_tpu_torch.models.layers import head_stacked_adj
+    from coala_gnn_tpu_torch.ops.gather_spmm import (
+        adj_transpose_reference, gather_spmm_grad_x_reference)
+
+    smi = cs.smi_string()
+    libs = {"other": load(os.path.join(sys.argv[1], SOURCE)),
+            "this": load(SOURCE)}
+    cs.warm_up(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layer0 = (cs.N_NODES + 1, 6 * cs.BATCH, cs.FANOUTS[0], cs.DIM)
+    gat = cs.gat_combine_shapes()
+    res = {}
+    cases = [(f"forward[{str(dt).split('.')[-1]}] {layer0}", layer0, dt)
+             for dt in (torch.float32, torch.bfloat16, torch.int8)]
+    cases.append(("forward[float32] GAT layer 1 (%d, %d, %d, %d)"
+                  % gat[1][:4], gat[1][:4], torch.float32))
+    for name, shape, dt in cases:
+        x, scale, adj, w = cs.kernel_inputs(torch, *shape, dt, gen)
+        outs = [forward(torch, libs[k], x, scale, adj, w) for k in libs]
+        cs.require(bool(torch.equal(*outs)), f"{name}: outputs differ")
+        res[name] = turns(torch, cs.median_ms,
+                          *(lambda lib=libs[k]: forward(torch, lib, x, scale,
+                                                        adj, w)
+                            for k in libs))
+    for layer, (S, N, F, D, cap_src, cap_dst) in enumerate(gat):
+        adj = head_stacked_adj(None, cap_src, (cap_dst, F), cs.HEADS, "cuda")
+        _, w = cs.masked_slots(torch, S, N, F, gen)
+        g = torch.randn(N, D, generator=gen, device="cuda")
+        adj_t = adj_transpose_reference(adj, S)
+        want = gather_spmm_grad_x_reference(adj, w, g, S)
+        name = f"grad_x GAT layer {layer} ({S}, {N}, {F}, {D})"
+        for k in libs:
+            cs.require(bool(torch.equal(grad_x(torch, libs[k], adj, adj_t, w,
+                                               g, S), want)),
+                       f"{name}: {k} differs from the plain version")
+        res[name] = turns(torch, cs.median_ms,
+                          *(lambda lib=libs[k]: grad_x(torch, lib, adj, adj_t,
+                                                       w, g, S)
+                            for k in libs))
+    for name, r in res.items():
+        print(f"{name}: other {r['other_ms'][0]:.4f} {r['other_ms'][1]:.4f}, "
+              f"this {r['this_ms'][0]:.4f} {r['this_ms'][1]:.4f} ms "
+              f"(median of 25 each, L2 flushed; {smi})")
+    print(json.dumps({"card": smi, "entries": res}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,8 +12,9 @@ with ``torch.profiler`` and prints:
   - device busy time: the union of the intervals of every device event
     (kernels and copies; user annotations such as ``Optimizer.step#...``
     dropped), per step, and the idle share 1 - busy / wall;
-  - the gather-SpMM kernels' (forward, grad_w, grad_x) share of the summed
-    device time, each kernel's time, and the 14 largest device events.
+  - the gather-SpMM kernels' (forward, grad_w, grad_x, and the transpose,
+    which a steady window should not launch) share of the summed device
+    time, each kernel's time, and the 14 largest device events.
 
 Needs one card; exits with a non-zero code without one.
 """
@@ -26,7 +27,9 @@ import time
 import numpy as np
 
 STEPS = 8
-OURS = ("gather_spmm_kernel", "grad_w_kernel", "grad_x_kernel")
+OURS = ("gather_spmm_kernel", "grad_w_kernel", "grad_x_kernel",
+        "count_rows_kernel", "scan_rows_kernel", "place_slots_kernel",
+        "order_slots_kernel")
 
 
 def busy_us(intervals) -> float:
@@ -68,8 +71,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

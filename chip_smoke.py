@@ -15,10 +15,14 @@ same config, and the int8 cache lines on both tiers. Phases:
   2. kernels vs plain: builds the gather-SpMM kernels from the checkout and
      holds each against its plain PyTorch version on the card: the f32,
      bf16 and int8 (+ row scales) forward at the training step's layer-0
-     shape, a ragged shape and odd widths (D = 100 and 8); grad_w and
-     grad_x at GAT's two head-stacked combine shapes, and grad_x on an adj
-     with repeated rows (atomics that meet); times each against its plain
-     version;
+     shape, a ragged shape, widths 100, 16, 8 and 1, and GAT layer 1's
+     combine (D = 16); adj's transpose, grad_w and grad_x (over the
+     transpose) at GAT's two head-stacked combine shapes, and the
+     transpose and grad_x on an adj with repeated rows; prints each
+     kernel's registers and spills; times each against its plain version,
+     its bound (bytes or operations over the card's published peak) and,
+     for the f32 forward, the one PyTorch call of the same function
+     (embedding_bag);
   3. the flagship: 1 warm-up + 2 measured windows (f32 table), then 1 window
      with a bf16 table; checks finite, falling losses, one kernel launch
      per step, full table coverage, and that table, params and optimizer
@@ -40,9 +44,11 @@ same config, and the int8 cache lines on both tiers. Phases:
   8. bench.py's grid-gat-10x5 row: GAT, 4 heads of 256, flat f32 table at
      full coverage, 1 warm-up + 2 measured K = 8 windows; checks finite,
      falling losses, 6 kernel launches per step (forward, grad_w, grad_x
-     on each layer), state on the card; prints ms/step, train edges/s and
-     peak device memory; holds the three kernels against their plain
-     versions on one real step's feat, attention and upstream gradient;
+     on each layer) plus 2 transposes in the run (one per layer's combine
+     shape, kept), state on the card; prints ms/step, train edges/s and
+     peak device memory; holds the kernels against their plain versions
+     on one real step's feat, attention, kept transpose and upstream
+     gradient;
      then GCN, one K = 8 window: finite, falling losses, one launch per
      step;
   9. int8 lines: bench.py's resident-pressure-int8 row (97 MB of int8
@@ -57,10 +63,11 @@ same config, and the int8 cache lines on both tiers. Phases:
      version).
 
 Every failure ends the script with a non-zero code. The line before the
-last two is a JSON object with the kernels' launches, errors and times;
-the last line is ``{"ok": true, "device": {...}}``. Writes nothing but the
-kernel build under coala_gnn_tpu_torch/_build/ and the native host
-library under coala_gnn_tpu/native/.
+last two is a JSON object with the kernels' launches, errors, times,
+bounds and library times;
+the last line is ``{"ok": true, "device": {...}}``. Writes nothing but
+coala_gnn_tpu_torch/_build/ (the kernels and the native host library,
+built there at first use). Imports nothing of JAX or of coala_gnn_tpu.
 """
 
 from __future__ import annotations
@@ -92,6 +99,8 @@ KERNEL_TOL = 1e-5   # forward, rtol = atol: kernel and plain version both sum
 SMALL_RTOL, SMALL_ATOL = 2e-3, 2e-4   # losses, card vs CPU (Adam amplifies
                                       # rounding; the JAX parity tolerance)
 SMALL_P_RTOL, SMALL_P_ATOL = 5e-3, 5e-4
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peaks at 700 W: HBM3,
+F32_OPS_PER_S = 67e12        # and f32 outside the tensor cores
 
 
 def require(cond: bool, what: str) -> None:
@@ -148,6 +157,18 @@ def median_ms(torch, fn, runs: int = 25) -> float:
     return statistics.median(times)
 
 
+def warm_up(torch, seconds: float = 1.0) -> None:
+    """Keep the card busy for ``seconds`` before the first timing: after
+    the idle build its clocks are low, and the first kernel timed read up
+    to ~25% slow."""
+    buf = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            buf.zero_()
+        torch.cuda.synchronize()
+
+
 def masked_slots(torch, S, N, F, gen):
     """Sampled-style adj and weights: ~20% of slots masked (w = 0) and
     pointed at row 0, as the sampler's padding is."""
@@ -188,17 +209,83 @@ def within_bound(torch, out, ref, bound, what: str) -> float:
     return float(err.max())
 
 
-def timed(torch, entry: dict, kernel, plain) -> None:
-    """Median ms of the kernel and of its plain version into ``entry``."""
+def forward_work(torch, x, scale, adj, w) -> tuple:
+    """(bytes, operations) the forward needs on these inputs: each distinct
+    live row (w != 0, index in range) read once, with its scale for int8,
+    adj and w read, the f32 output written; one multiply-add per live
+    element (and the dequantising multiply for int8)."""
+    s, d = x.shape
+    live = (w != 0) & (adj >= 0) & (adj < s)
+    rows = int(torch.unique(adj[live]).numel())
+    nbytes = (rows * (d * x.element_size() + (4 if scale is not None else 0))
+              + adj.numel() * 8 + adj.shape[0] * d * 4)
+    return nbytes, int(live.sum()) * d * (3 if scale is not None else 2)
+
+
+def grad_w_work(torch, x, adj, g) -> tuple:
+    """grad_w reads every in-range slot's row (w == 0 included) once per
+    distinct row, g and adj, and writes [N, F]."""
+    rows = int(torch.unique(adj).numel())
+    d = x.shape[1]
+    return (rows * d * x.element_size() + g.numel() * 4 + adj.numel() * 8,
+            2 * adj.numel() * d)
+
+
+def grad_x_work(torch, adj, w, g, s) -> tuple:
+    """grad_x over a transpose handed in: row_ptr, slot and w read, the g
+    rows of live slots read once, every [S, D] row written once."""
+    d = g.shape[1]
+    g_rows = int((w != 0).any(dim=1).sum())
+    nbytes = (s + 1) * 4 + adj.numel() * 8 + g_rows * d * 4 + s * d * 4
+    return nbytes, 2 * int((w != 0).sum()) * d
+
+
+def transpose_work(adj, s) -> tuple:
+    """The transpose reads adj and writes row_ptr and slot."""
+    return adj.numel() * 8 + (s + 1) * 4, 0
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    HBM rate and operations over the f32 rate (published H100 SXM peaks)."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def timed(torch, entry: dict, kernel, plain, work: tuple,
+          library=None) -> None:
+    """Median ms of the kernel, its plain version and (where there is one)
+    the library call into ``entry``, with the bound and its share."""
     entry["ms"] = median_ms(torch, kernel)
     entry["plain_ms"] = median_ms(torch, plain)
+    entry.update(bound(*work))
+    entry["share"] = entry["bound_ms"] / entry["ms"]
+    entry["library_ms"] = None if library is None else median_ms(torch,
+                                                                 library)
+
+
+def describe(name: str, entry: dict) -> str:
+    lib = entry["library_ms"]
+    return (f"kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
+            f"ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
+            f"share {entry['share']:.3f}), library "
+            + ("none" if lib is None else f"{lib:.4f} ms") +
+            " (median of 25, L2 flushed)")
+
+
+def embedding_bag(torch, x, adj, w):
+    """The one PyTorch call that computes the f32 forward's function."""
+    return lambda: torch.nn.functional.embedding_bag(
+        adj, x, per_sample_weights=w, mode="sum")
 
 
 def gat_combine_shapes():
     """(S, N, F, D, cap_src, cap_dst) of GAT's head-stacked combine on each
     layer at the flagship config: S = cap_src * heads rows of feat, N =
     cap_dst * heads dst rows, F = fanout, D = features per head."""
-    from coala_gnn_tpu.sampling.neighbor import block_capacities
+    from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
 
     caps = block_capacities(BATCH, FANOUTS)
     feats = [HIDDEN, CLASSES]
@@ -206,18 +293,50 @@ def gat_combine_shapes():
             for (dst, src), f, d in zip(caps, FANOUTS, feats)]
 
 
+def ptxas_report() -> None:
+    """Registers and spills of every kernel, from the build's -Xptxas -v
+    log (demangled by c++filt where it is on PATH)."""
+    import re
+    import shutil
+
+    from coala_gnn_tpu_torch.ops.gather_spmm import SOURCE
+    from coala_gnn_tpu_torch.utils.build import library_path
+
+    with open(library_path(SOURCE) + ".log") as fh:
+        log = fh.read()
+    names = re.findall(r"Compiling entry function '(\w+)'", log)
+    used = re.findall(r"Used (\d+) registers", log)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", log)
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.split("\n")
+    for name, regs, (st, ld) in zip(names, used, spills):
+        name = name.replace("(anonymous namespace)::", "")
+        print(f"ptxas: {regs:>3} registers, spill {st}/{ld} B "
+              f"(stores/loads): {name.split('(')[0].removeprefix('void ')}")
+
+
 def phase_kernels(torch) -> dict:
     """Every kernel entry against its plain version; returns the kernels
-    JSON entries (max_abs_err, ms, plain_ms) by name."""
+    JSON entries (max_abs_err, ms, plain_ms, bound_ms, bound_by, share,
+    library_ms) by name."""
     from coala_gnn_tpu_torch.models.layers import head_stacked_adj
     from coala_gnn_tpu_torch.ops.gather_spmm import (
-        gather_spmm, gather_spmm_grad_w, gather_spmm_grad_w_reference,
+        adj_transpose, adj_transpose_reference, gather_spmm,
+        gather_spmm_grad_w, gather_spmm_grad_w_reference,
         gather_spmm_grad_x, gather_spmm_grad_x_reference,
-        gather_spmm_reference, grad_w_error_bound, grad_x_error_bound)
+        gather_spmm_grad_x_transposed_reference, gather_spmm_reference,
+        grad_w_error_bound, grad_x_error_bound)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (N_NODES + 1, 6 * BATCH, FANOUTS[0], DIM)
     res = {}
+    warm_up(torch)
+    floor = median_ms(torch, lambda: torch.zeros(1, device="cuda"))
+    print(f"phase 2: timing floor, median_ms of a one-element fill: "
+          f"{floor:.4f} ms")
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         name = f"gather_spmm[{str(dtype).split('.')[-1]}]"
         x, scale, adj, w = kernel_inputs(torch, *shape, dtype, gen)
@@ -227,13 +346,16 @@ def phase_kernels(torch) -> dict:
         res[name] = {"max_abs_err": max_err(torch, out, ref,
                                             f"{name} {shape}")}
         timed(torch, res[name], lambda: gather_spmm(x, adj, w, scale),
-              lambda: gather_spmm_reference(x, adj, w, scale))
+              lambda: gather_spmm_reference(x, adj, w, scale),
+              forward_work(torch, x, scale, adj, w),
+              embedding_bag(torch, x, adj, w) if dtype == torch.float32
+              else None)
         print(f"phase 2: {name} S,N,F,D={shape}: max_abs_err "
-              f"{res[name]['max_abs_err']:.3g} (tol {KERNEL_TOL}), kernel "
-              f"{res[name]['ms']:.4f} ms, plain {res[name]['plain_ms']:.4f} "
-              "ms (median of 25, L2 flushed)")
+              f"{res[name]['max_abs_err']:.3g} (tol {KERNEL_TOL}), "
+              + describe(name, res[name]))
         for S, N, F, D in [(50, 17, 10, 128), (3000, 500, 10, 100),
-                           (3000, 500, 10, 8)]:
+                           (3000, 500, 10, 16), (3000, 500, 10, 8),
+                           (3000, 500, 10, 1), (24_576, 4096, 5, 16)]:
             x, scale, adj, w = kernel_inputs(torch, S, N, F, D, dtype, gen)
             out = gather_spmm(x, adj, w, scale)
             ref = gather_spmm_reference(x, adj, w, scale)
@@ -242,8 +364,11 @@ def phase_kernels(torch) -> dict:
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
             print(f"phase 2: {name} S,N,F,D=({S},{N},{F},{D}): max_abs_err "
                   f"{err:.3g}")
+    ptxas_report()
 
-    res["gather_spmm_grad_w"], res["gather_spmm_grad_x"] = {}, {}
+    names = ("gather_spmm_grad_w", "gather_spmm_grad_x", "adj_transpose")
+    for n in names:
+        res[n] = {"max_abs_err": 0.0}
     for layer, (S, N, F, D, cap_src, cap_dst) in enumerate(
             gat_combine_shapes()):
         x = torch.randn(S, D, generator=gen, device="cuda")
@@ -252,36 +377,56 @@ def phase_kernels(torch) -> dict:
         adj = head_stacked_adj(None, cap_src, (cap_dst, F), HEADS, "cuda")
         rand_adj = torch.randint(0, S, (N, F), generator=gen, device="cuda",
                                  dtype=torch.int32)
+        adj_t = adj_transpose(adj, S)
+        for a in (adj, rand_adj):
+            got, want = (adj_transpose(a, S) if a is rand_adj else adj_t,
+                         adj_transpose_reference(a, S))
+            require(bool(torch.equal(got[0], want[0]) and
+                         torch.equal(got[1], want[1])),
+                    "adj_transpose: kernel differs from its plain version")
         gw = gather_spmm_grad_w(x, adj, g)
         err_w = within_bound(torch, gw, gather_spmm_grad_w_reference(
             x, adj, g), grad_w_error_bound(x, adj, g), "grad_w")
         require(bool((gw[w == 0] != 0).any()),
                 "grad_w: zero-weight slots got no gradient")
-        gx = gather_spmm_grad_x(adj, w, g, S)
+        gx = gather_spmm_grad_x(adj, w, g, S, adj_t)
         require(bool(torch.equal(gx, gather_spmm_grad_x_reference(
             adj, w, g, S))), "grad_x: not exact on the head-stacked layout")
         gx = gather_spmm_grad_x(rand_adj, w, g, S)
         err_x = within_bound(torch, gx, gather_spmm_grad_x_reference(
             rand_adj, w, g, S), grad_x_error_bound(rand_adj, w, g, S),
             "grad_x, repeated rows")
+        require(bool(torch.equal(gx, gather_spmm_grad_x_transposed_reference(
+            adj_transpose_reference(rand_adj, S), w, g))),
+            "grad_x, repeated rows: not the slot-order sums")
         torch.cuda.synchronize()
-        times = {"gather_spmm_grad_w": {}, "gather_spmm_grad_x": {}}
+        times = {n: {} for n in names}
         timed(torch, times["gather_spmm_grad_w"],
               lambda: gather_spmm_grad_w(x, adj, g),
-              lambda: gather_spmm_grad_w_reference(x, adj, g))
+              lambda: gather_spmm_grad_w_reference(x, adj, g),
+              grad_w_work(torch, x, adj, g))
         timed(torch, times["gather_spmm_grad_x"],
-              lambda: gather_spmm_grad_x(adj, w, g, S),
-              lambda: gather_spmm_grad_x_reference(adj, w, g, S))
-        for name, err in (("gather_spmm_grad_w", err_w),
-                          ("gather_spmm_grad_x", err_x)):
-            r = res[name]
-            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+              lambda: gather_spmm_grad_x(adj, w, g, S, adj_t),
+              lambda: gather_spmm_grad_x_reference(adj, w, g, S),
+              grad_x_work(torch, adj, w, g, S))
+        timed(torch, times["adj_transpose"], lambda: adj_transpose(adj, S),
+              lambda: adj_transpose_reference(adj, S),
+              transpose_work(adj, S))
+        fwd = {}
+        timed(torch, fwd, lambda: gather_spmm(x, adj, w),
+              lambda: gather_spmm_reference(x, adj, w),
+              forward_work(torch, x, None, adj, w),
+              embedding_bag(torch, x, adj, w))
+        for n, err in zip(names, (err_w, err_x, 0.0)):
+            r = res[n]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
             if layer == 0:                    # the JSON line's shape
-                r.update(times[name])
-            print(f"phase 2: {name} GAT layer {layer} combine S,N,F,D="
-                  f"({S},{N},{F},{D}): max_abs_err {err:.3g} (f32 sum "
-                  f"bound), kernel {times[name]['ms']:.4f} ms, plain "
-                  f"{times[name]['plain_ms']:.4f} ms")
+                r.update(times[n])
+            print(f"phase 2: {n} GAT layer {layer} combine S,N,F,D="
+                  f"({S},{N},{F},{D}): max_abs_err {err:.3g} "
+                  + describe(n, times[n]))
+        print(f"phase 2: gather_spmm[float32] GAT layer {layer} combine "
+              f"S,N,F,D=({S},{N},{F},{D}): " + describe("forward", fwd))
     return res
 
 
@@ -425,8 +570,8 @@ def phase_small(torch) -> None:
     cancels the last layer's attn_r wherever its scores stay on one side
     of the leaky ReLU: that gradient is rounding noise, which Adam would
     turn into lr-sized steps of random sign."""
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
 
     ds = synthetic_graph(num_nodes=250, avg_degree=4, feature_dim=8,
                          num_classes=4, seed=5)
@@ -454,7 +599,8 @@ def phase_small(torch) -> None:
         steps = grids.shape[0] * grids.shape[1]
         if model_type == "gat":
             require(card[2]["gather_spmm_grad_w"] == 2 * steps and
-                    card[2]["gather_spmm_grad_x"] == 2 * steps,
+                    card[2]["gather_spmm_grad_x"] == 2 * steps and
+                    card[2]["adj_transpose"] == 2,
                     f"small GAT run: backward launches {card[2]}")
         print(f"phase 5: small {model_type} run (250 nodes, {steps} steps) "
               f"card vs CPU: losses max diff "
@@ -669,9 +815,10 @@ def phase_gat_step(torch, rt, ds) -> dict:
     from coala_gnn_tpu_torch.models import layers
     from coala_gnn_tpu_torch.models.layers import TableInput
     from coala_gnn_tpu_torch.ops.gather_spmm import (
-        gather_spmm_grad_w, gather_spmm_grad_w_reference,
-        gather_spmm_grad_x, gather_spmm_grad_x_reference,
-        gather_spmm_reference, grad_w_error_bound)
+        adj_transpose_reference, gather_spmm_grad_w,
+        gather_spmm_grad_w_reference, gather_spmm_grad_x,
+        gather_spmm_grad_x_reference, gather_spmm_reference,
+        grad_w_error_bound)
     from coala_gnn_tpu_torch.utils.rng import SAMPLE, step_generators
 
     seeds = torch.as_tensor(ds.train_idx[:BATCH].astype(np.int32),
@@ -680,10 +827,10 @@ def phase_gat_step(torch, rt, ds) -> dict:
     blocks, _, _, safe = rt._sample(seeds, gen)
     kernel, calls = layers.gather_spmm, []
 
-    def recording(x, adj, w):
-        out = kernel(x, adj, w)
+    def recording(x, adj, w, adj_t=None):
+        out = kernel(x, adj, w, adj_t=adj_t)
         rec = {"x": x.detach(), "adj": adj, "w": w.detach(),
-               "out": out.detach()}
+               "adj_t": adj_t, "out": out.detach()}
         out.register_hook(lambda g: rec.update(g=g.detach().contiguous()))
         calls.append(rec)
         return out
@@ -702,15 +849,19 @@ def phase_gat_step(torch, rt, ds) -> dict:
     errs = {"gather_spmm[float32]": 0.0, "gather_spmm_grad_w": 0.0,
             "gather_spmm_grad_x": 0.0}
     for layer, c in enumerate(calls):
-        x, adj, w, g = c["x"], c["adj"], c["w"], c["g"]
+        x, adj, w, g, adj_t = c["x"], c["adj"], c["w"], c["g"], c["adj_t"]
         s = x.shape[0]
+        want_t = adj_transpose_reference(adj, s)
+        require(adj_t is not None and torch.equal(adj_t[0], want_t[0]) and
+                torch.equal(adj_t[1], want_t[1]), f"GAT layer {layer}: the "
+                "kept transpose differs from the plain one")
         e_f = max_err(torch, c["out"], gather_spmm_reference(x, adj, w),
                       f"GAT layer {layer} forward")
         e_w = within_bound(torch, gather_spmm_grad_w(x, adj, g),
                            gather_spmm_grad_w_reference(x, adj, g),
                            grad_w_error_bound(x, adj, g),
                            f"GAT layer {layer} grad_w")
-        gx = gather_spmm_grad_x(adj, w, g, s)
+        gx = gather_spmm_grad_x(adj, w, g, s, adj_t)
         ref = gather_spmm_grad_x_reference(adj, w, g, s)
         require(bool(torch.equal(gx, ref)), f"GAT layer {layer} grad_x not "
                 "exact (each feat row is read by one slot)")
@@ -720,7 +871,8 @@ def phase_gat_step(torch, rt, ds) -> dict:
         print(f"phase 8: GAT layer {layer} real step: feat {tuple(x.shape)}, "
               f"adj {tuple(adj.shape)}, alpha zero slots "
               f"{int((w == 0).sum())}: forward max_abs_err {e_f:.3g}, grad_w "
-              f"{e_w:.3g} (within bound), grad_x exact")
+              f"{e_w:.3g} (within bound), grad_x exact over the kept "
+              "transpose")
     return errs
 
 
@@ -742,7 +894,11 @@ def phase_gat_gcn(torch, ds, store, smi) -> tuple:
                  "gather_spmm_grad_x"):
         require(counts[name] == 2 * steps, f"GAT: {counts[name]} {name} "
                 f"launches for {steps} steps (2 per step)")
-    require(sum(counts.values()) == 6 * steps, f"GAT launches {counts}")
+    # one transpose per layer's combine shape, built at the run's first
+    # step and kept: 6 launches per step, plus 2 in the run
+    require(counts["adj_transpose"] == 2, f"GAT: {counts['adj_transpose']} "
+            "transposes (one per layer)")
+    require(sum(counts.values()) == 6 * steps + 2, f"GAT launches {counts}")
     require(stats["misses"] == 0 and stats["hits"] > 0, f"GAT {stats}")
     require(on_card(torch, rt), "GAT state off the card")
     report_row("phase 8: GAT", losses, edges, dt, steps - K, smi)
@@ -776,8 +932,8 @@ def phase_int8(torch, ds, store, smi) -> tuple:
     reduced depth; returns (launches by kernel, the int8 kernel's error on
     one flat step's real inputs, the f32 kernel's error on one staged
     dim1024 step's real inputs)."""
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
     from coala_gnn_tpu_torch.ops.aggregate import frontier_adj
     from coala_gnn_tpu_torch.ops.gather_spmm import (gather_spmm,
                                                      gather_spmm_reference)
@@ -877,8 +1033,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("phase 1: TF32 off for matmul and cuDNN (full f32 products)")
 
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
     from coala_gnn_tpu_torch.ops.gather_spmm import (gather_spmm,
                                                      gather_spmm_reference)
 
@@ -934,7 +1090,8 @@ def main() -> int:
                     "coala_gnn_tpu/ops/pallas_gather.py:77",
                 "gather_spmm[int8]": "coala_gnn_tpu/ops/pallas_spmm.py:82",
                 "gather_spmm_grad_w": "coala_gnn_tpu/models/layers.py:143",
-                "gather_spmm_grad_x": "coala_gnn_tpu/models/layers.py:143"}
+                "gather_spmm_grad_x": "coala_gnn_tpu/models/layers.py:143",
+                "adj_transpose": "coala_gnn_tpu/models/layers.py:143"}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": where, "launches": main_launches[name],
                 **kern[name]} for name, where in replaces.items()]

@@ -6,21 +6,29 @@ names mirror ``coala_gnn_tpu`` so each counterpart is easy to find; inside,
 the code is PyTorch: ``nn.Module``s and functions on tensors, an explicit
 ``device`` and explicit ``torch.Generator``s.
 
-The port imports no JAX. It reuses the JAX package's JAX-free host modules
-by import: ``coala_gnn_tpu.graph``, ``coala_gnn_tpu.sampling.neighbor``,
-``coala_gnn_tpu.cache.host_tier`` and ``coala_gnn_tpu.utils.timers``.
+The port stands alone: it imports neither JAX nor ``coala_gnn_tpu``. What
+it needs of the JAX package's host modules it keeps as its own copies,
+under the same names (``graph/csc.py``, ``graph/datasets.py``,
+``sampling/neighbor.py``, ``cache/host_tier.py``, ``native/lib.py`` with
+``csrc/host_native.cpp``, ``utils/timers.py``); tests/test_torch_host.py
+holds them bit for bit against the originals. Its native host library and
+its kernels build into ``coala_gnn_tpu_torch/_build/``.
 
 Subpackages
 -----------
-ops       gather-SpMM (hand-written CUDA kernels: f32 / bf16 / int8 forward
-          and the backward, + plain versions), aggregation, COO oracles
+ops       gather-SpMM (hand-written CUDA kernels: f32 / bf16 / int8 forward,
+          the backward and adj's transpose, + plain versions),
+          aggregation, COO oracles
 models    SAGE, GCN and GAT over sampled blocks
-sampling  on-device fanout neighbour sampling
+sampling  on-device fanout neighbour sampling; block capacities
 cache     flat and set-associative device feature caches (f32, bf16 or
-          int8 rows)
+          int8 rows); the host feature tier
+graph     CSC graph and the synthetic dataset
+native    ctypes bindings of the native host row functions
 parallel  ResidentTrainer: the single-device resident training step
-utils     flax->torch parameter conversion, per-window generators, CUDA build
-csrc      CUDA C++ sources, built with nvcc at first use
+utils     flax->torch parameter conversion, per-window generators, phase
+          timers, the nvcc / g++ build
+csrc      CUDA C++ (nvcc) and host C++ (g++) sources, built at first use
 """
 
 __version__ = "0.1.0"

@@ -13,20 +13,44 @@
 //   - the int8 instantiation: the table's rows dequantised as they are read,
 //     v = float(q) * scale[idx], the JAX order of dequantize_rows
 //     (coala_gnn_tpu/cache/feature_cache.py) followed by the plane FMAs;
-//   - gather_spmm_grad_w / gather_spmm_grad_x: the backward. Neither Pallas
-//     kernel has one; the JAX GAT differentiates its XLA plane FMAs
-//     (coala_gnn_tpu/models/layers.py:143), and these two kernels are the
-//     Hopper form of that autodiff, because the port runs GAT's attention
-//     combine through the forward kernel.
+//   - gather_spmm_grad_w / gather_spmm_grad_x (with its transpose kernels):
+//     the backward. Neither Pallas kernel has one; the JAX GAT
+//     differentiates its XLA plane FMAs (coala_gnn_tpu/models/layers.py:143),
+//     and these kernels are the Hopper form of that autodiff, because the
+//     port runs GAT's attention combine through the forward kernel.
 //
-// Forward. What bounds it on this card: the bytes of the random row reads.
-// On the training step's layer 0 (N = 6144 dst rows, F = 10 slots, D = 256
-// f32) that is 61,440 slots x 1 KB = 63 MB per step, read at random from a
-// 205 MB table; the arithmetic (one FMA per 4 bytes) is negligible. The
-// design reads each slot's row exactly once, straight from the table, and
-// reduces it in registers: the gathered [67,584 x 256] frontier (69 MB)
-// that a gather-then-reduce would write and read back is never built. An
-// int8 table moves a quarter of those bytes plus one 4-byte scale per slot.
+// Forward. What bounds it on this card: the bytes of the random row reads
+// (layer 0 of the training step: N = 6144 dst rows, F = 10 slots, D = 256,
+// ~44k distinct live rows of a 200k-row table); one FMA per element is
+// negligible. What stands in the way is latency: a loop that loads one
+// slot's row and FMAs it before the next load issues keeps one row read in
+// flight per warp, and the kernel takes a chain of 2F dependent DRAM round
+// trips. So the kernel loads first: a dst row's slots go in batches of
+// kBatch = 4; for a batch, every lane reads the 4 indices and weights (the
+// group's lanes read the same words, so memory serves each once; a later
+// batch or column pass finds them in L1), then issues all 4 row reads into
+// registers, and only then runs the FMAs, in slot order k = 0..F-1 with
+// fmaf(w, v, acc): the order of the plain version, so the outputs do not
+// depend on the batching and a staged window's losses equal a flat
+// window's bitwise. The batch size is the card's choice: deeper batches
+// were timed at the layer-0 shape and lost, because each lane's registers
+// grew (54 for f32 at 4 slots) and fewer warps fit an SM; capping the
+// registers by launch bounds spilled. The launch takes batches of 2
+// where that alone fits the grid in one wave (asked of the occupancy
+// API): a resident row pays its chain of dependent reads once, a row of
+// a second wave pays it again (the bf16 table at layer 0: 768 blocks).
+// Registers, not a TMA (cp.async.bulk) ring in shared memory: shared
+// memory holds no more bytes in flight per SM than the register file, and
+// a bulk-copy ring would add an mbarrier protocol and a shared-memory round
+// trip per row.
+//
+// Lanes per dst row follow the row: a group of L lanes, L the power of two
+// at or above row bytes / VB (VB the vector width below), at most a block.
+// Each lane owns VB bytes of the row, so one pass covers it: f32 at
+// D = 256 (1 KB) takes 64 lanes (two warps), bf16 32, int8 16 (two dst
+// rows per warp), GAT layer 1's f32 D = 16 four (eight dst rows per warp);
+// a row wider than 256 x VB loops. Groups never talk to each other, so a
+// group may span warps.
 //
 // grad_w[n, k] = <g[n, :], x[adj[n, k], :]>. Bound by bytes: it reads the
 // forward's rows again plus g (N x D x 4). One warp per dst row; each slot's
@@ -35,28 +59,46 @@
 // a slot because it contributes nothing, but the derivative with respect to
 // its weight is not zero.
 //
-// grad_x[adj[n, k], :] += w[n, k] * g[n, :] into a zeroed [S, D] f32 (the
-// wrapper zeroes it). Bound by bytes: it writes S x D x 4 bytes (zeroing
-// included) and reads g once. One warp per dst row reads its g row once
-// into registers and scatters w * g to each slot's row with vector atomics
-// (float4 atomicAdd, Hopper). On the contiguous layout every slot row is
-// referenced by exactly one (n, k), so no two atomics meet: the result is
-// deterministic and equal to the plain index_add_. With repeated indices the
-// order of the sums varies from run to run.
+// grad_x[s, :] = sum over the slots (n, k) with adj[n, k] = s, in slot
+// order n * F + k, of w[n, k] * g[n, :]. Bound by bytes: it writes S x D x 4
+// (277 MB at GAT layer 0) and reads g (25 MB) and the slots. Zero-filling
+// the table and adding into it with atomics would move each output row
+// across HBM three times (fill, atomic read, write-back). Instead it is a
+// gather over the transpose of adj (row_ptr / slot, a CSR form): each row
+// is written once, with no fill and no atomics, and the result is
+// deterministic with repeated rows. A lane group owns kRowsPerGroup = 8
+// consecutive table rows, whose slots are one contiguous range of the
+// transpose; it walks that range in batches of kBatch slots (slot ids,
+// then w, then the g rows of the live ones, all of a batch in flight),
+// sums acc = acc + w * g in slot order (product and sum each rounded: the
+// order and rounding of the plain index_add_), and stores each row as its
+// slots end, zeros for a row no slot names, with streaming stores (__stcs,
+// evict-first) so g's lines stay in L2. Eight rows per group put eight
+// rows' reads behind one chain of dependent loads: GAT's layout names most
+// rows once, and a group per row would wait out the chain row_ptr -> slot
+// -> w -> g for every 1 KB it writes. A slot with w == 0 adds w * g = 0
+// (g finite) and is skipped.
 //
-// Layout: one warp per dst row, 8 rows per block. The vector width follows
-// the row's byte alignment: each lane moves VB bytes per access, the largest
-// of 16, 8, 4, 2, 1 that divides both D * sizeof(T) and the table's base
-// address, so any D works (a bf16 row of width 100 starts only 8-byte
-// aligned, and a 16-byte load there would fault). Slots are reduced in order
-// k = 0..F-1 with f32 accumulation, the order of the plain version and of the
-// JAX plane FMAs. A slot whose index lies outside [0, S) is not read: its
-// forward dst row and its grad_w entry come out NaN, so a bad frontier shows
-// instead of faulting; grad_x skips it. Row offsets are 64-bit: adj * D
+// The transpose (gather_spmm_adj_transpose): count per row (atomics), an
+// exclusive scan (three coalesced passes), a placement by atomics, then an ordering
+// pass that puts each row's slots in slot order: slot j lands at
+// row_ptr[r] + #{slots of row r below j}, found by a walk over row r's
+// placed slots. That walk costs sum over rows of (slots per row)^2: one
+// per slot on GAT's contiguous layout, where every row is named by one
+// slot. Out-of-range indices are skipped; slot entries past row_ptr[S]
+// hold -1. GAT builds it once per shape (its adj depends only on shapes).
+//
+// Vector width: each lane moves VB bytes per access, the largest of 16,
+// 8, 4, 2, 1 that divides both D * sizeof(T) and the base addresses, so any
+// D works (a bf16 row of width 100 starts only 8-byte aligned, and a
+// 16-byte load there would fault). A slot whose index lies outside [0, S)
+// is not read: its forward dst row and its grad_w entry come out NaN, so a
+// bad frontier shows instead of faulting. Row offsets are 64-bit: adj * D
 // passes 2^31 at 10M x 1024.
 //
 // The kernels allocate nothing, launch on the caller's stream and do not
-// synchronise. Each entry point returns cudaGetLastError().
+// synchronise (the transpose clears its scratch with cudaMemsetAsync on
+// that stream). Each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,7 +107,11 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;
+constexpr int kThreads = 256;     // forward, grad_x, transpose blocks
+constexpr int kBatch = 4;         // slots whose reads are in flight together
+constexpr int kRowsPerBlock = 8;  // grad_w: one warp per dst row
+constexpr int kRowsPerGroup = 8;  // grad_x: table rows per lane group
+constexpr int kScanThreads = 1024;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // VB bytes of a row, as one load.
@@ -86,12 +132,16 @@ __device__ __forceinline__ float widen(int8_t v) {
   return static_cast<float>(v);
 }
 
-// VB bytes of T at p (VB-aligned) -> VB / sizeof(T) floats.
+template <int VB>
+__device__ __forceinline__ typename Raw<VB>::type load_raw(const void* p) {
+  return __ldg(reinterpret_cast<const typename Raw<VB>::type*>(p));
+}
+
+// VB raw bytes of T -> VB / sizeof(T) floats.
 template <typename T, int VB>
-__device__ __forceinline__ void load_vec(const T* p, float* v) {
-  using R = typename Raw<VB>::type;
+__device__ __forceinline__ void widen_raw(const typename Raw<VB>::type& r,
+                                          float* v) {
   constexpr int E = VB / sizeof(T);
-  const R r = __ldg(reinterpret_cast<const R*>(p));
   T e[E];
   memcpy(e, &r, VB);
 #pragma unroll
@@ -129,18 +179,18 @@ __device__ __forceinline__ void store_f32(float* p, const float* v) {
   }
 }
 
-// p[0..E) += v[0..E) atomically, one vector atomic per 4 floats.
+// store_f32 with evict-first streaming stores.
 template <int E>
-__device__ __forceinline__ void atomic_add_f32(float* p, const float* v) {
+__device__ __forceinline__ void store_f32_cs(float* p, const float* v) {
   if constexpr (E % 4 == 0) {
 #pragma unroll
     for (int j = 0; j < E; j += 4)
-      atomicAdd(reinterpret_cast<float4*>(p + j),
-                make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]));
+      __stcs(reinterpret_cast<float4*>(p + j),
+             make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]));
   } else if constexpr (E == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
   } else {
-    atomicAdd(p, v[0]);
+    __stcs(p, v[0]);
   }
 }
 
@@ -148,40 +198,60 @@ __device__ __forceinline__ bool out_of_range(int64_t idx, int64_t s) {
   return idx < 0 || idx >= s;
 }
 
-template <typename T, int VB>
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
+template <typename T, int VB, int KB>
+__global__ void __launch_bounds__(kThreads)
 gather_spmm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                    const int32_t* __restrict__ adj,
                    const float* __restrict__ w, float* __restrict__ out,
-                   int64_t s, int n, int f, int d) {
+                   int64_t s, int n, int f, int d, int lanes) {
+  using R = typename Raw<VB>::type;
   constexpr int E = VB / sizeof(T);
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * (kThreads / lanes) + threadIdx.x / lanes;
   if (row >= n) return;
+  const int sub = threadIdx.x % lanes;
   const int32_t* adj_row = adj + (int64_t)row * f;
   const float* w_row = w + (int64_t)row * f;
   float* out_row = out + (int64_t)row * d;
 
-  bool bad = false;
-  for (int k = 0; k < f; ++k) bad |= out_of_range(adj_row[k], s);
-
-  for (int c = lane * E; c < d; c += kWarp * E) {
+  for (int c = sub * E; c < d; c += lanes * E) {  // one pass up to 256 x VB
     float acc[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] = 0.f;
-    for (int k = 0; k < f; ++k) {
-      const float wk = w_row[k];
-      const int64_t idx = adj_row[k];
-      if (wk == 0.f || out_of_range(idx, s)) continue;
-      float v[E];
-      load_vec<T, VB>(x + idx * d + c, v);
-      if constexpr (sizeof(T) == 1) {      // int8: dequantise, then the FMA
-        const float sc = __ldg(scale + idx);
+    bool bad = false;
+    for (int k0 = 0; k0 < f; k0 += KB) {
+      int32_t idx[KB];
+      float wk[KB];
+      bool live[KB];
 #pragma unroll
-        for (int e = 0; e < E; ++e) v[e] = v[e] * sc;
+      for (int j = 0; j < KB; ++j) {          // indices and weights
+        const bool in = k0 + j < f;
+        idx[j] = in ? __ldg(adj_row + k0 + j) : 0;
+        wk[j] = in ? __ldg(w_row + k0 + j) : 0.f;
+        const bool oor = in && out_of_range(idx[j], s);
+        bad |= oor;
+        live[j] = in && !oor && wk[j] != 0.f;
+      }
+      R raw[KB];
+      float sc[KB];
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {          // every row read in flight
+        if (live[j]) {
+          raw[j] = load_raw<VB>(x + (int64_t)idx[j] * d + c);
+          if constexpr (sizeof(T) == 1) sc[j] = __ldg(scale + idx[j]);
+        }
       }
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] = fmaf(wk, v[e], acc[e]);
+      for (int j = 0; j < KB; ++j) {          // then the FMAs, in order
+        if (!live[j]) continue;
+        float v[E];
+        widen_raw<T, VB>(raw[j], v);
+        if constexpr (sizeof(T) == 1) {           // int8: dequantise first
+#pragma unroll
+          for (int e = 0; e < E; ++e) v[e] = v[e] * sc[j];
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] = fmaf(wk[j], v[e], acc[e]);
+      }
     }
     if (bad) {
 #pragma unroll
@@ -210,7 +280,7 @@ grad_w_kernel(const T* __restrict__ x, const int32_t* __restrict__ adj,
     if (!bad) {
       for (int c = lane * E; c < d; c += kWarp * E) {
         float v[E], gv[E];
-        load_vec<T, VB>(x + idx * d + c, v);
+        widen_raw<T, VB>(load_raw<VB>(x + idx * d + c), v);
         load_f32<E>(g_row + c, gv);
 #pragma unroll
         for (int e = 0; e < E; ++e) part = fmaf(gv[e], v[e], part);
@@ -225,31 +295,173 @@ grad_w_kernel(const T* __restrict__ x, const int32_t* __restrict__ adj,
 }
 
 template <int VB>
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
-grad_x_kernel(const int32_t* __restrict__ adj, const float* __restrict__ w,
-              const float* __restrict__ g, float* __restrict__ gx,
-              int64_t s, int n, int f, int d) {
+__global__ void __launch_bounds__(kThreads)
+grad_x_kernel(const int32_t* __restrict__ row_ptr,
+              const int32_t* __restrict__ slot, const float* __restrict__ w,
+              const float* __restrict__ g, float* __restrict__ gx, int64_t s,
+              int f, int d, int lanes) {
   constexpr int E = VB / 4;
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (row >= n) return;
-  const int32_t* adj_row = adj + (int64_t)row * f;
-  const float* w_row = w + (int64_t)row * f;
-  const float* g_row = g + (int64_t)row * d;
+  const int64_t group =
+      (int64_t)blockIdx.x * (kThreads / lanes) + threadIdx.x / lanes;
+  const int64_t r_beg = group * kRowsPerGroup;
+  if (r_beg >= s) return;
+  const int64_t r_end = r_beg + kRowsPerGroup < s ? r_beg + kRowsPerGroup : s;
+  const int sub = threadIdx.x % lanes;
+  // the group's rows own the contiguous slot range [p_beg, p_end)
+  const int p_beg = __ldg(row_ptr + r_beg), p_end = __ldg(row_ptr + r_end);
 
-  for (int c = lane * E; c < d; c += kWarp * E) {
-    float gv[E];
-    load_f32<E>(g_row + c, gv);
-    for (int k = 0; k < f; ++k) {
-      const float wk = w_row[k];
-      const int64_t idx = adj_row[k];
-      // w == 0 adds w * g = 0 (g finite): nothing to write
-      if (wk == 0.f || out_of_range(idx, s)) continue;
-      float v[E];
+  for (int c = sub * E; c < d; c += lanes * E) {
+    int64_t row = r_beg;
+    int next = __ldg(row_ptr + row + 1);
+    float acc[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) v[e] = wk * gv[e];
-      atomic_add_f32<E>(gx + idx * d + c, v);
+    for (int e = 0; e < E; ++e) acc[e] = 0.f;
+    for (int p0 = p_beg; p0 < p_end; p0 += kBatch) {
+      int32_t sl[kBatch];
+      float wk[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        sl[j] = p0 + j < p_end ? __ldg(slot + p0 + j) : -1;
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        wk[j] = sl[j] >= 0 ? __ldg(w + sl[j]) : 0.f;
+      float gv[kBatch][E];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)            // every g read in flight
+        if (wk[j] != 0.f) load_f32<E>(g + (int64_t)(sl[j] / f) * d + c, gv[j]);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {          // slot order
+        if (sl[j] < 0) break;
+        while (p0 + j >= next) {                  // rows finished before it
+          store_f32_cs<E>(gx + row * d + c, acc);
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[e] = 0.f;
+          next = __ldg(row_ptr + ++row + 1);
+        }
+        if (wk[j] == 0.f) continue;
+#pragma unroll                                    // index_add_'s rounding:
+        for (int e = 0; e < E; ++e)               // no FMA
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(wk[j], gv[j][e]));
+      }
     }
+    for (; row < r_end; ++row) {                  // the last row, then
+      store_f32_cs<E>(gx + row * d + c, acc);     // rows without slots
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = 0.f;
+    }
+  }
+}
+
+// ---- the transpose of adj: row_ptr [S + 1], slot [N * F] ------------------
+
+__global__ void __launch_bounds__(kThreads)
+count_rows_kernel(const int32_t* __restrict__ adj, int64_t nf, int64_t s,
+                  int32_t* __restrict__ counts) {
+  for (int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x; j < nf;
+       j += (int64_t)gridDim.x * kThreads) {
+    const int64_t r = adj[j];
+    if (!out_of_range(r, s)) atomicAdd(counts + r, 1);
+  }
+}
+
+// Exclusive scan of v over the block -> (this thread's prefix, the block's
+// total). Threads with nothing to add pass 0.
+__device__ __forceinline__ int32_t block_scan(int32_t v, int32_t* total) {
+  __shared__ int32_t warp_sums[kScanThreads / kWarp];
+  const int lane = threadIdx.x % kWarp, wid = threadIdx.x / kWarp;
+  int32_t incl = v;
+#pragma unroll
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int32_t u = __shfl_up_sync(kFullMask, incl, off);
+    if (lane >= off) incl += u;
+  }
+  if (lane == kWarp - 1) warp_sums[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    const int32_t own = warp_sums[lane];
+    int32_t wi = own;
+#pragma unroll
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const int32_t u = __shfl_up_sync(kFullMask, wi, off);
+      if (lane >= off) wi += u;
+    }
+    warp_sums[lane] = wi - own;
+    if (lane == kWarp - 1) *total = wi;
+  }
+  __syncthreads();
+  const int32_t out = warp_sums[wid] + incl - v;
+  __syncthreads();                    // warp_sums is reused by the next call
+  return out;
+}
+
+// The exclusive scan of counts [s] into row_ptr [s + 1], in three passes
+// over tiles of kScanThreads rows (one row per thread, coalesced): the
+// tiles' sums, their scan by one block, each tile's scan plus its offset.
+__global__ void __launch_bounds__(kScanThreads)
+tile_sums_kernel(const int32_t* __restrict__ counts, int64_t s,
+                 int32_t* __restrict__ tile_sums) {
+  const int64_t i = (int64_t)blockIdx.x * kScanThreads + threadIdx.x;
+  __shared__ int32_t total;
+  block_scan(i < s ? counts[i] : 0, &total);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+scan_tile_sums_kernel(int32_t* __restrict__ tile_sums, int64_t tiles,
+                      int32_t* __restrict__ row_ptr, int64_t s) {
+  __shared__ int32_t total;
+  int32_t carry = 0;
+  for (int64_t t0 = 0; t0 < tiles; t0 += kScanThreads) {  // in order
+    const int64_t t = t0 + threadIdx.x;
+    const int32_t v = t < tiles ? tile_sums[t] : 0;
+    const int32_t excl = block_scan(v, &total);
+    if (t < tiles) tile_sums[t] = carry + excl;
+    carry += total;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) row_ptr[s] = carry;
+}
+
+// Also clears counts: they become the placement's cursors.
+__global__ void __launch_bounds__(kScanThreads)
+scan_tiles_kernel(int32_t* __restrict__ counts, int64_t s,
+                  const int32_t* __restrict__ tile_offsets,
+                  int32_t* __restrict__ row_ptr) {
+  const int64_t i = (int64_t)blockIdx.x * kScanThreads + threadIdx.x;
+  __shared__ int32_t total;
+  const int32_t excl = block_scan(i < s ? counts[i] : 0, &total);
+  if (i < s) {
+    row_ptr[i] = tile_offsets[blockIdx.x] + excl;
+    counts[i] = 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+place_slots_kernel(const int32_t* __restrict__ adj, int64_t nf, int64_t s,
+                   const int32_t* __restrict__ row_ptr,
+                   int32_t* __restrict__ cursor,
+                   int32_t* __restrict__ placed) {
+  for (int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x; j < nf;
+       j += (int64_t)gridDim.x * kThreads) {
+    const int64_t r = adj[j];
+    if (!out_of_range(r, s))
+      placed[row_ptr[r] + atomicAdd(cursor + r, 1)] = static_cast<int32_t>(j);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+order_slots_kernel(const int32_t* __restrict__ adj, int64_t nf, int64_t s,
+                   const int32_t* __restrict__ row_ptr,
+                   const int32_t* __restrict__ placed,
+                   int32_t* __restrict__ slot) {
+  for (int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x; j < nf;
+       j += (int64_t)gridDim.x * kThreads) {
+    const int64_t r = adj[j];
+    if (out_of_range(r, s)) continue;
+    const int beg = row_ptr[r], end = row_ptr[r + 1];
+    int rank = 0;
+    for (int p = beg; p < end; ++p) rank += placed[p] < j;
+    slot[beg + rank] = static_cast<int32_t>(j);
   }
 }
 
@@ -266,8 +478,33 @@ int vec_bytes(int d, const void* a, const void* b = nullptr) {
   return vb;
 }
 
-inline int blocks_for(int n) {
-  return (n + kRowsPerBlock - 1) / kRowsPerBlock;
+// Lanes per row: the power of two at or above row_bytes / vb, at most a
+// block.
+int lanes_for(int64_t row_bytes, int vb) {
+  const int64_t need = (row_bytes + vb - 1) / vb;
+  int lanes = 1;
+  while (lanes < need && lanes < kThreads) lanes <<= 1;
+  return lanes;
+}
+
+unsigned group_blocks(int64_t rows, int lanes) {
+  const int64_t per = kThreads / lanes;
+  return static_cast<unsigned>((rows + per - 1) / per);
+}
+
+unsigned stride_blocks(int64_t items) {
+  const int64_t b = (items + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(b < 4096 ? (b > 0 ? b : 1) : 4096);
+}
+
+// Whether a grid of `blocks` is resident on the card at once (one wave).
+template <typename K>
+bool one_wave(K kernel, unsigned blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return blocks <= static_cast<unsigned>(per_sm) * sms;
 }
 
 template <typename T, int VB>
@@ -275,11 +512,19 @@ void forward_vb(const void* x, const void* scale, const void* adj,
                 const void* w, void* out, int64_t s, int n, int f, int d,
                 cudaStream_t stream) {
   if constexpr (VB >= (int)sizeof(T)) {
-    gather_spmm_kernel<T, VB><<<blocks_for(n), kWarp * kRowsPerBlock, 0,
-                                stream>>>(
+    const int lanes = lanes_for((int64_t)d * sizeof(T), VB);
+    const unsigned blocks = group_blocks(n, lanes);
+    // kBatch slots in flight, unless half as many (fewer registers, more
+    // blocks per SM) let the whole grid be resident where kBatch does not:
+    // then every row's chain of dependent reads is paid in one wave
+    auto kernel = gather_spmm_kernel<T, VB, kBatch>;
+    if (!one_wave(kernel, blocks) &&
+        one_wave(gather_spmm_kernel<T, VB, kBatch / 2>, blocks))
+      kernel = gather_spmm_kernel<T, VB, kBatch / 2>;
+    kernel<<<blocks, kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(scale),
         static_cast<const int32_t*>(adj), static_cast<const float*>(w),
-        static_cast<float*>(out), s, n, f, d);
+        static_cast<float*>(out), s, n, f, d, lanes);
   }
 }
 
@@ -303,8 +548,8 @@ template <typename T, int VB>
 void grad_w_vb(const void* x, const void* adj, const void* g, void* gw,
                int64_t s, int n, int f, int d, cudaStream_t stream) {
   if constexpr (VB >= (int)sizeof(T)) {
-    grad_w_kernel<T, VB><<<blocks_for(n), kWarp * kRowsPerBlock, 0,
-                           stream>>>(
+    grad_w_kernel<T, VB><<<(n + kRowsPerBlock - 1) / kRowsPerBlock,
+                           kWarp * kRowsPerBlock, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const int32_t*>(adj),
         static_cast<const float*>(g), static_cast<float*>(gw), s, n, f, d);
   }
@@ -335,16 +580,25 @@ int grad_w(const void* x, const void* adj, const void* g, void* gw,
 }
 
 template <int VB>
-void grad_x_vb(const void* adj, const void* w, const void* g, void* gx,
-               int64_t s, int n, int f, int d, cudaStream_t stream) {
-  grad_x_kernel<VB><<<blocks_for(n), kWarp * kRowsPerBlock, 0, stream>>>(
-      static_cast<const int32_t*>(adj), static_cast<const float*>(w),
-      static_cast<const float*>(g), static_cast<float*>(gx), s, n, f, d);
+void grad_x_vb(const void* row_ptr, const void* slot, const void* w,
+               const void* g, void* gx, int64_t s, int f, int d,
+               cudaStream_t stream) {
+  const int lanes = lanes_for((int64_t)d * 4, VB);
+  const int64_t groups = (s + kRowsPerGroup - 1) / kRowsPerGroup;
+  grad_x_kernel<VB><<<group_blocks(groups, lanes), kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(row_ptr),
+      static_cast<const int32_t*>(slot), static_cast<const float*>(w),
+      static_cast<const float*>(g), static_cast<float*>(gx), s, f, d, lanes);
 }
 
 }  // namespace
 
 extern "C" {
+
+// Scan tiles of the transpose over s rows (its scratch holds one int each).
+int64_t gather_spmm_transpose_tiles(int64_t s) {
+  return (s + kScanThreads - 1) / kScanThreads;
+}
 
 // x [s, d] f32, adj [n, f] int32, w [n, f] f32 -> out [n, d] f32.
 int gather_spmm_f32(const void* x, const void* adj, const void* w, void* out,
@@ -379,16 +633,52 @@ int gather_spmm_grad_w_bf16(const void* x, const void* adj, const void* g,
   return grad_w<uint16_t>(x, adj, g, gw, s, n, f, d, stream);
 }
 
-// gx [s, d] f32, zeroed by the caller: gx[adj[i, k]] += w[i, k] * g[i].
-int gather_spmm_grad_x(const void* adj, const void* w, const void* g,
-                       void* gx, int64_t s, int n, int f, int d,
+// The transpose of adj [nf] (int32, rows in [0, s)): row_ptr [s + 1] and
+// slot [nf] (each row's slots in slot order; -1 past row_ptr[s]). scratch
+// is int32 [s + nf + transpose_tiles(s)].
+int gather_spmm_adj_transpose(const void* adj, void* row_ptr, void* slot,
+                              void* scratch, int64_t s, int64_t nf,
+                              void* stream_p) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_p);
+  const int32_t* a = static_cast<const int32_t*>(adj);
+  int32_t* rp = static_cast<int32_t*>(row_ptr);
+  int32_t* counts = static_cast<int32_t*>(scratch);
+  int32_t* placed = counts + s;
+  int32_t* tile_sums = placed + nf;
+  const int64_t tiles = gather_spmm_transpose_tiles(s);
+  cudaMemsetAsync(counts, 0, s * sizeof(int32_t), st);
+  cudaMemsetAsync(slot, 0xff, nf * sizeof(int32_t), st);
+  const unsigned blocks = stride_blocks(nf);
+  if (nf > 0) count_rows_kernel<<<blocks, kThreads, 0, st>>>(a, nf, s, counts);
+  if (tiles > 0) {
+    tile_sums_kernel<<<static_cast<unsigned>(tiles), kScanThreads, 0, st>>>(
+        counts, s, tile_sums);
+  }
+  scan_tile_sums_kernel<<<1, kScanThreads, 0, st>>>(tile_sums, tiles, rp, s);
+  if (tiles > 0) {
+    scan_tiles_kernel<<<static_cast<unsigned>(tiles), kScanThreads, 0, st>>>(
+        counts, s, tile_sums, rp);
+  }
+  if (nf > 0) {
+    place_slots_kernel<<<blocks, kThreads, 0, st>>>(a, nf, s, rp, counts,
+                                                    placed);
+    order_slots_kernel<<<blocks, kThreads, 0, st>>>(
+        a, nf, s, rp, placed, static_cast<int32_t*>(slot));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gx [s, d] f32 = the gather over the transpose (row_ptr [s + 1], slot
+// [n * f]) of w[slot] * g[slot / f]; every row written.
+int gather_spmm_grad_x(const void* row_ptr, const void* slot, const void* w,
+                       const void* g, void* gx, int64_t s, int f, int d,
                        void* stream_p) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_p);
-  if (n > 0) {
+  if (s > 0) {
     switch (vec_bytes<float>(d, g, gx)) {
-      case 16: grad_x_vb<16>(adj, w, g, gx, s, n, f, d, st); break;
-      case 8: grad_x_vb<8>(adj, w, g, gx, s, n, f, d, st); break;
-      default: grad_x_vb<4>(adj, w, g, gx, s, n, f, d, st);
+      case 16: grad_x_vb<16>(row_ptr, slot, w, g, gx, s, f, d, st); break;
+      case 8: grad_x_vb<8>(row_ptr, slot, w, g, gx, s, f, d, st); break;
+      default: grad_x_vb<4>(row_ptr, slot, w, g, gx, s, f, d, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

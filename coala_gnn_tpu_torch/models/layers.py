@@ -21,7 +21,9 @@ heads stacked as rows: ``feat`` [cap_src, H, F] is viewed as
 with weight ``alpha[i, k, h]``, and one launch gives [cap_dst * H, F].
 The slot order (k = 0..F-1, f32) is the JAX plane FMAs' order; the
 backward (``grad_x`` into ``feat``, ``grad_w`` into ``alpha``) is the
-kernel's own.
+kernel's own. On the contiguous layout the stacked adj depends only on the
+shapes, so ``GATConv`` builds it and its transpose (for ``grad_x``) once
+per shape and keeps them.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from coala_gnn_tpu_torch.cache.feature_cache import dequantize_rows
 from coala_gnn_tpu_torch.ops.aggregate import (agg_mean, agg_sum,
                                                frontier_adj, neighbor_view,
                                                table_agg_mean, table_agg_sum)
-from coala_gnn_tpu_torch.ops.gather_spmm import gather_spmm
+from coala_gnn_tpu_torch.ops.gather_spmm import adj_transpose, gather_spmm
 
 
 class DeviceBlock(NamedTuple):
@@ -193,6 +195,7 @@ class GATConv(nn.Module):
         with torch.no_grad():
             glorot_uniform_(self.attn_l, generator)
             glorot_uniform_(self.attn_r, generator)
+        self._combines: dict = {}   # (n_src, shape, device) -> adj, adj_t
 
     def forward(self, block: DeviceBlock, x: LayerInput) -> torch.Tensor:
         # the score fold x @ (W . attn) equals feat . attn only while fc has
@@ -213,7 +216,25 @@ class GATConv(nn.Module):
         mask = block.mask[:, :, None]
         e = torch.where(mask > 0, e, torch.full_like(e, -1e9))
         alpha = torch.softmax(e, dim=1) * mask             # [cap_dst, F, H]
-        adj_h = head_stacked_adj(block.adj, n_src, shape, H, x.device)
+        adj_h, adj_t = self._combine_adj(block, n_src, shape, x.device)
         w_h = alpha.permute(0, 2, 1).reshape(cap_dst * H, fanout).contiguous()
-        out = gather_spmm(feat.reshape(n_src * H, Fh), adj_h, w_h)
+        out = gather_spmm(feat.reshape(n_src * H, Fh), adj_h, w_h,
+                          adj_t=adj_t)
         return out.view(cap_dst, H, Fh)
+
+    def _combine_adj(self, block: DeviceBlock, n_src: int, shape: tuple,
+                     device) -> tuple:
+        """(head-stacked adj, its transpose or None). The contiguous
+        layout's adj depends only on the shapes: it is built once per shape
+        with its transpose and kept, so a step launches no transpose. A
+        block's own adj is stacked per call; the backward transposes it."""
+        if block.adj is not None:
+            return head_stacked_adj(block.adj, n_src, shape, self.num_heads,
+                                    device), None
+        key = (n_src, shape, str(device))
+        if key not in self._combines:
+            adj_h = head_stacked_adj(None, n_src, shape, self.num_heads,
+                                     device)
+            self._combines[key] = (adj_h, adj_transpose(
+                adj_h, n_src * self.num_heads))
+        return self._combines[key]

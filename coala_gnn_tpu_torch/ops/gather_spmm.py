@@ -10,11 +10,16 @@ reads it); see the note there for what bounds it and how its design
 answers that.
 
 ``gather_spmm`` is differentiable in ``x`` and ``w`` (a
-``torch.autograd.Function``). Its backward is two more kernels of the same
+``torch.autograd.Function``). Its backward is more kernels of the same
 source: ``grad_w[n, k] = <g[n], x[adj[n, k]]>`` for every slot (w == 0
-included) and ``grad_x[adj[n, k]] += w[n, k] * g[n]`` by atomics into a
-zeroed table. Only the kernels whose input needs a gradient launch. An
-int8 table is constant: a call that would need its backward is refused.
+included), and ``grad_x[s] = sum of w[n, k] * g[n] over the slots with
+adj[n, k] = s`` in slot order, a gather over the transpose of ``adj``
+(``adj_transpose``: ``row_ptr`` [S + 1], ``slot`` [N * F]) that writes
+every table row once. A caller whose ``adj`` is fixed (GAT's contiguous
+layout) builds the transpose once and hands it in (``adj_t``); otherwise
+the backward builds it. Only the kernels whose input needs a gradient
+launch. An int8 table is constant: a call that would need its backward is
+refused.
 
 On the training step the forward computes layer 0's neighbour sum straight
 off the flat cache table (``x`` = table, ``adj`` = the sampled frontier
@@ -23,20 +28,20 @@ ids, ``w`` = the block mask), and GAT's attention combine on every layer
 
 Dispatch goes by the tensors' device: CPU tensors take the plain versions
 (``gather_spmm_reference``, ``gather_spmm_grad_w_reference``,
-``gather_spmm_grad_x_reference``); CUDA tensors launch the kernels or
-raise. There is no fallback from a kernel to its plain version.
-``LAUNCHES`` counts kernel launches per entry.
+``gather_spmm_grad_x_reference``, ``adj_transpose_reference``); CUDA
+tensors launch the kernels or raise. There is no fallback from a kernel to
+its plain version. ``LAUNCHES`` counts kernel launches per entry.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from coala_gnn_tpu_torch.utils.cuda_build import load_library
+from coala_gnn_tpu_torch.utils.build import load_library
 
 SOURCE = "gather_spmm.cu"
 _ENTRY = {torch.float32: "gather_spmm_f32", torch.bfloat16: "gather_spmm_bf16",
@@ -47,7 +52,12 @@ _GRAD_W_ENTRY = {torch.float32: "gather_spmm_grad_w_f32",
 #: kernel launches per entry; only a launch on the card adds one
 LAUNCHES = {"gather_spmm[float32]": 0, "gather_spmm[bfloat16]": 0,
             "gather_spmm[int8]": 0, "gather_spmm_grad_w": 0,
-            "gather_spmm_grad_x": 0}
+            "gather_spmm_grad_x": 0, "adj_transpose": 0}
+
+#: the transpose of an adj [N, F] over S table rows: (row_ptr int32
+#: [S + 1], slot int32 [N * F]); row s's slots n * F + k (adj[n, k] = s) in
+#: ascending order at slot[row_ptr[s]:row_ptr[s + 1]], -1 past row_ptr[S]
+Transpose = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _fwd_name(dtype: torch.dtype) -> str:
@@ -90,11 +100,48 @@ def gather_spmm_grad_w_reference(x: torch.Tensor, adj: torch.Tensor,
 def gather_spmm_grad_x_reference(adj: torch.Tensor, w: torch.Tensor,
                                  g: torch.Tensor, s: int) -> torch.Tensor:
     """Plain ``grad_x``: ``index_add_`` of ``w[n, k] * g[n]`` into row
-    ``adj[n, k]`` of a zeroed f32 [s, D]."""
+    ``adj[n, k]`` of a zeroed f32 [s, D]. On the CPU ``index_add_`` adds
+    in slot order, each product rounded before its sum."""
     d = g.shape[1]
     gx = torch.zeros(s, d, dtype=torch.float32, device=g.device)
     return gx.index_add_(0, adj.reshape(-1).long(),
                          (w[..., None] * g[:, None, :]).reshape(-1, d))
+
+
+def adj_transpose_reference(adj: torch.Tensor, s: int) -> Transpose:
+    """Plain transpose of ``adj`` [N, F] over ``s`` table rows (see
+    ``Transpose``): a bincount, a cumsum and a stable argsort. Indices
+    outside [0, s) are left out."""
+    flat = adj.reshape(-1).long()
+    ok = (flat >= 0) & (flat < s)
+    rows = flat[ok]
+    row_ptr = torch.zeros(s + 1, dtype=torch.int32, device=adj.device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=s), 0)
+    slot = torch.full((flat.numel(),), -1, dtype=torch.int32,
+                      device=adj.device)
+    order = torch.argsort(rows, stable=True)
+    slot[:rows.numel()] = torch.nonzero(ok).reshape(-1)[order].to(
+        torch.int32)
+    return row_ptr, slot
+
+
+def gather_spmm_grad_x_transposed_reference(
+        adj_t: Transpose, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain form of the grad_x kernel's algorithm: for every table row,
+    ``acc = acc + w[n, k] * g[n]`` over its slots in the transpose's
+    (slot) order, one slot position at a time across all rows. Equal bit
+    for bit to the CPU ``gather_spmm_grad_x_reference``."""
+    row_ptr, slot = adj_t
+    f = w.shape[1]
+    s = row_ptr.numel() - 1
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    gx = torch.zeros(s, g.shape[1], dtype=torch.float32, device=g.device)
+    w_flat = w.reshape(-1)
+    for p in range(int(counts.max()) if s else 0):
+        rows = torch.nonzero(counts > p).reshape(-1)
+        j = slot[row_ptr[rows].long() + p].long()
+        gx[rows] = gx[rows] + w_flat[j, None] * g[j // f]
+    return gx
 
 
 _UNIT_ROUNDOFF = 2.0 ** -24   # of f32
@@ -114,9 +161,10 @@ def grad_w_error_bound(x: torch.Tensor, adj: torch.Tensor,
 def grad_x_error_bound(adj: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                        s: int) -> torch.Tensor:
     """The same for grad_x, per entry [S, D]: a table row referenced m
-    times sums m products in an order that the atomics (or index_add_)
-    choose, within m * u * sum |w g| of the exact sum. m = 1 (every slot
-    row referenced once, the contiguous layout) makes both sides exact."""
+    times sums m products, the kernel in slot order, the plain version on
+    the card in the order its atomics meet, each within m * u * sum |w g|
+    of the exact sum. m = 1 (every slot row referenced once, the
+    contiguous layout) makes both sides exact."""
     m = torch.bincount(adj.reshape(-1).long(), minlength=s)
     return 2 * m[:, None] * _UNIT_ROUNDOFF * gather_spmm_grad_x_reference(
         adj, w.abs(), g.abs(), s)
@@ -178,6 +226,30 @@ def _check_grad(adj: torch.Tensor, g: torch.Tensor, **others) -> None:
                          "devices")
 
 
+def _check_transpose(adj_t: Transpose, adj: torch.Tensor, s: int) -> None:
+    """A transpose handed to grad_x: int32 row_ptr [s + 1] and slot
+    [N * F], contiguous, on adj's device (its contents are trusted)."""
+    if not (isinstance(adj_t, tuple) and len(adj_t) == 2):
+        raise TypeError("gather_spmm: adj_t must be (row_ptr, slot)")
+    row_ptr, slot = adj_t
+    if (row_ptr.dtype != torch.int32 or slot.dtype != torch.int32 or
+            row_ptr.shape != (s + 1,) or slot.shape != (adj.numel(),)):
+        raise ValueError(f"gather_spmm: adj_t must be int32 row_ptr [{s + 1}]"
+                         f" and slot [{adj.numel()}], got "
+                         f"{row_ptr.dtype} {tuple(row_ptr.shape)}, "
+                         f"{slot.dtype} {tuple(slot.shape)}")
+    if not (row_ptr.is_contiguous() and slot.is_contiguous()):
+        raise ValueError("gather_spmm: adj_t must be contiguous")
+    if row_ptr.device != adj.device or slot.device != adj.device:
+        raise ValueError("gather_spmm: adj_t on another device than adj")
+
+
+def _check_int32_rows(s: int, nf: int) -> None:
+    if max(s, nf) > torch.iinfo(torch.int32).max:
+        raise ValueError(f"gather_spmm: transpose of {nf} slots over {s} "
+                         "rows exceeds int32")
+
+
 def _launch(entry: str, counter: str, device: torch.device, *args) -> None:
     """Call a C entry point on the current stream of ``device``; raise if
     the launch failed, else count it."""
@@ -221,20 +293,45 @@ def gather_spmm_grad_w(x: torch.Tensor, adj: torch.Tensor,
     return gw
 
 
+def adj_transpose(adj: torch.Tensor, s: int) -> Transpose:
+    """The transpose of int32 ``adj`` [N, F] over ``s`` table rows (see
+    ``Transpose``): the plain version on the CPU, the kernels on the card
+    (count, scan, placement, slot order)."""
+    if adj.dtype != torch.int32 or adj.dim() != 2 or not adj.is_contiguous():
+        raise TypeError("adj_transpose: adj must be contiguous int32 [N, F]")
+    _check_int32_rows(s, adj.numel())
+    if adj.device.type == "cpu":
+        return adj_transpose_reference(adj, s)
+    nf = adj.numel()
+    row_ptr = torch.empty(s + 1, dtype=torch.int32, device=adj.device)
+    slot = torch.empty(nf, dtype=torch.int32, device=adj.device)
+    scratch = torch.empty(s + nf + _library().gather_spmm_transpose_tiles(s),
+                          dtype=torch.int32, device=adj.device)
+    _launch("gather_spmm_adj_transpose", "adj_transpose", adj.device,
+            adj.data_ptr(), row_ptr.data_ptr(), slot.data_ptr(),
+            scratch.data_ptr(), s, nf)
+    return row_ptr, slot
+
+
 def gather_spmm_grad_x(adj: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                       s: int) -> torch.Tensor:
+                       s: int, adj_t: Optional[Transpose] = None
+                       ) -> torch.Tensor:
     """grad_x [s, D] f32 for the upstream gradient g [N, D] f32
-    (contiguous): the plain version on the CPU, on the card the kernel's
-    atomics into a table zeroed here."""
+    (contiguous): the plain version on the CPU; on the card the gather over
+    the transpose ``adj_t`` of adj (built here, one more launch, when not
+    given), which writes every row once."""
     _check_grad(adj, g, w=w)
+    if adj_t is not None:
+        _check_transpose(adj_t, adj, s)
     if g.device.type == "cpu":
         return gather_spmm_grad_x_reference(adj, w, g, s)
-    n, f = adj.shape
-    d = g.shape[1]
-    gx = torch.zeros(s, d, dtype=torch.float32, device=g.device)
+    if adj_t is None:
+        adj_t = adj_transpose(adj, s)
+    f, d = adj.shape[1], g.shape[1]
+    gx = torch.empty(s, d, dtype=torch.float32, device=g.device)
     _launch("gather_spmm_grad_x", "gather_spmm_grad_x", g.device,
-            adj.data_ptr(), w.data_ptr(), g.data_ptr(), gx.data_ptr(), s, n,
-            f, d)
+            adj_t[0].data_ptr(), adj_t[1].data_ptr(), w.data_ptr(),
+            g.data_ptr(), gx.data_ptr(), s, f, d)
     return gx
 
 
@@ -242,8 +339,9 @@ class _GatherSpmm(torch.autograd.Function):
     """The f32 / bf16 table forms with their backward kernels."""
 
     @staticmethod
-    def forward(ctx, x, adj, w):
+    def forward(ctx, x, adj, w, adj_t):
         ctx.save_for_backward(x, adj, w)
+        ctx.adj_t = adj_t
         return _forward(x, adj, w, None)
 
     @staticmethod
@@ -252,17 +350,21 @@ class _GatherSpmm(torch.autograd.Function):
         g = g.contiguous()
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = gather_spmm_grad_x(adj, w, g, x.shape[0]).to(x.dtype)
+            gx = gather_spmm_grad_x(adj, w, g, x.shape[0],
+                                    ctx.adj_t).to(x.dtype)
         if ctx.needs_input_grad[2]:
             gw = gather_spmm_grad_w(x, adj, g)
-        return gx, None, gw
+        return gx, None, gw, None
 
 
 def gather_spmm(x: torch.Tensor, adj: torch.Tensor, w: torch.Tensor,
-                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                scale: Optional[torch.Tensor] = None,
+                adj_t: Optional[Transpose] = None) -> torch.Tensor:
     """x [S, D] f32|bf16|int8 (int8 with ``scale`` f32 [S]), adj int32
     [N, F] (entries in [0, S)), w f32 [N, F] (0 makes a slot a no-op in
-    the forward) -> f32 [N, D]. Any D.
+    the forward) -> f32 [N, D]. Any D. ``adj_t``: the transpose of adj
+    (``adj_transpose(adj, S)``) for the backward's grad_x, where the caller
+    keeps one.
 
     CPU tensors: the plain versions. CUDA tensors: the kernels, on the
     current stream, without synchronising. On the kernel path a dst row
@@ -271,8 +373,10 @@ def gather_spmm(x: torch.Tensor, adj: torch.Tensor, w: torch.Tensor,
     bf16 tables; with an int8 table a ``w`` or ``scale`` that requires
     grad is refused."""
     _check(x, adj, w, scale)
+    if adj_t is not None:
+        _check_transpose(adj_t, adj, x.shape[0])
     if scale is None:
-        return _GatherSpmm.apply(x, adj, w)
+        return _GatherSpmm.apply(x, adj, w, adj_t)
     if torch.is_grad_enabled() and (w.requires_grad or scale.requires_grad):
         raise ValueError("gather_spmm: an int8 table is constant; its form "
                          "has no backward (w and scale must not require "
@@ -292,11 +396,15 @@ def _library() -> ctypes.CDLL:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     sizes = [i64, i32, i32, i32, ptr]                 # s, n, f, d, stream
     for name in ("gather_spmm_f32", "gather_spmm_bf16",
-                 *_GRAD_W_ENTRY.values(), "gather_spmm_grad_x"):
+                 *_GRAD_W_ENTRY.values()):
         getattr(lib, name).argtypes = [ptr] * 4 + sizes
     lib.gather_spmm_i8.argtypes = [ptr] * 5 + sizes
+    lib.gather_spmm_adj_transpose.argtypes = [ptr] * 4 + [i64, i64, ptr]
+    lib.gather_spmm_transpose_tiles.argtypes = [i64]
+    lib.gather_spmm_transpose_tiles.restype = i64
+    lib.gather_spmm_grad_x.argtypes = [ptr] * 5 + [i64, i32, i32, ptr]
     for name in (*_ENTRY.values(), *_GRAD_W_ENTRY.values(),
-                 "gather_spmm_grad_x"):
+                 "gather_spmm_adj_transpose", "gather_spmm_grad_x"):
         getattr(lib, name).restype = ctypes.c_int
     lib.gather_spmm_error_string.argtypes = [ctypes.c_int]
     lib.gather_spmm_error_string.restype = ctypes.c_char_p

@@ -61,7 +61,6 @@ import copy
 import dataclasses
 import functools
 import math
-import subprocess
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -69,14 +68,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from coala_gnn_tpu.native import lib as native_lib
-from coala_gnn_tpu.sampling.neighbor import block_capacities
-from coala_gnn_tpu.utils.timers import PhaseTimers
 from coala_gnn_tpu_torch.cache import feature_cache as fc
 from coala_gnn_tpu_torch.models.layers import DeviceBlock, TableInput
+from coala_gnn_tpu_torch.native import lib as native_lib
 from coala_gnn_tpu_torch.sampling.device_sampler import (
     sample_blocks_device, to_device_graph)
+from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
 from coala_gnn_tpu_torch.utils.rng import DROPOUT, SAMPLE, step_generators
+from coala_gnn_tpu_torch.utils.timers import PhaseTimers
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -104,7 +103,7 @@ def _native() -> Optional[object]:
     once per process)."""
     try:
         return native_lib.get()
-    except (OSError, subprocess.CalledProcessError):
+    except (OSError, RuntimeError):
         return None
 
 
@@ -122,15 +121,12 @@ def encode_stage_rows(rows: np.ndarray, transport: str):
         if lib is None:
             return torch.from_numpy(rows).to(torch.bfloat16).view(
                 torch.int16).numpy().view(np.uint16), None
-        out = np.empty(rows.shape, np.uint16)
-        lib.cg_encode_bf16(rows.reshape(-1), rows.size, out.reshape(-1))
-        return out, None
+        return native_lib.encode_bf16(lib, rows), None
     if transport == "int8":
         if lib is None:
             q, scale = fc.quantize_rows(torch.from_numpy(rows))
             return q.numpy(), scale.numpy()
-        q, scale = native_lib.quantize_rows_native(rows)
-        return q, scale
+        return native_lib.quantize_rows(lib, rows)
     raise ValueError(f"unknown stage transport {transport!r}")
 
 
@@ -462,17 +458,11 @@ class ResidentTrainer:
                         scale: Optional[torch.Tensor]) -> None:
         """Fused native gather + encode straight into the (pinned) stage
         buffers; ids < 0 give zero rows (scale 1)."""
-        store, tr = self._store, self.stage_transport
-        if tr == "bfloat16":
-            # the native entry point itself: fetch_encoded's bf16 branch
-            # returns an ml_dtypes view, and ml_dtypes comes with JAX
-            _native().cg_gather_rows_bf16(store.features, store.dim, gid,
-                                          gid.size,
-                                          enc.numpy().view(np.uint16))
-        else:
-            store.fetch_encoded(gid, tr, enc_out=enc.numpy(),
-                                scale_out=None if scale is None
-                                else scale.numpy())
+        enc = enc.numpy()
+        self._store.fetch_encoded(
+            gid, self.stage_transport,
+            enc_out=enc.view(np.uint16) if enc.dtype == np.int16 else enc,
+            scale_out=None if scale is None else scale.numpy())
 
     def _stage_from_mids(self, mids: np.ndarray, evicted=None):
         """Host gather + transport encode + upload for a known miss-id set.

@@ -27,9 +27,9 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from coala_gnn_tpu.sampling.neighbor import block_capacities
 from coala_gnn_tpu_torch.cache.feature_cache import assert_ids_fit_int32
 from coala_gnn_tpu_torch.models.layers import DeviceBlock
+from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
 
 
 class DeviceGraph(NamedTuple):

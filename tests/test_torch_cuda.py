@@ -1,5 +1,5 @@
 """The CUDA gather-SpMM kernels (f32, bf16 and int8 forward, grad_w,
-grad_x) against their plain versions, on a card.
+grad_x and adj's transpose) against their plain versions, on a card.
 
 Needs a CUDA card and nvcc; skipped without a card. This file imports no
 JAX, so it runs on a machine that has none:
@@ -10,15 +10,17 @@ JAX, so it runs on a machine that has none:
 1e-5: both sides widen (or dequantise) the table rows exactly as the plain
 version does and sum them in the same slot order, apart only by fused vs
 separate multiply-add. The backward kernels sum in another order than
-their plain versions; they are held to the f32 error bound of those sums
-(``grad_w_error_bound``, ``grad_x_error_bound``), and grad_x is exact where
-no table row is referenced twice."""
+their plain versions on the card; they are held to the f32 error bound of
+those sums (``grad_w_error_bound``, ``grad_x_error_bound``), and grad_x is
+exact where no table row is referenced twice. The transpose is held to its
+plain version exactly."""
 
 import pytest
 import torch
 
 from coala_gnn_tpu_torch.ops.gather_spmm import (
-    LAUNCHES, gather_spmm, gather_spmm_grad_w_reference,
+    LAUNCHES, adj_transpose, adj_transpose_reference, gather_spmm,
+    gather_spmm_grad_w_reference, gather_spmm_grad_x,
     gather_spmm_grad_x_reference, gather_spmm_reference, grad_w_error_bound,
     grad_x_error_bound)
 
@@ -121,12 +123,13 @@ def _adj_w(gen, S, N, F):
 @pytest.mark.cuda
 def test_gat_training_on_card(cuda):
     """A small GAT run on the card: 6 kernel launches per step (forward,
-    grad_w and grad_x on each of 2 layers) and the same losses as the CPU
+    grad_w and grad_x on each of 2 layers), 2 transposes in the run (one
+    per layer, kept for the later steps) and the same losses as the CPU
     port (dropout 0; the CPU port is held to JAX by the CPU tests)."""
     import numpy as np
 
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
     from coala_gnn_tpu_torch.cache import feature_cache as fc
     from coala_gnn_tpu_torch.models.gnn import make_model
     from coala_gnn_tpu_torch.ops.gather_spmm import reset_launches
@@ -157,9 +160,90 @@ def test_gat_training_on_card(cuda):
     assert launches["gather_spmm[float32]"] == 2 * steps
     assert launches["gather_spmm_grad_w"] == 2 * steps
     assert launches["gather_spmm_grad_x"] == 2 * steps
+    assert launches["adj_transpose"] == 2     # once per layer's shape
     assert not any(out["cpu"][1].values())
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=2e-3,
                                atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_forward_at_training_shapes(cuda):
+    """Every table form at the training step's layer-0 shape (200,001-row
+    table, 6,144 dst rows, 10 slots, D = 256, ~20% masked slots pointing at
+    row 0), GAT layer 1's combine (D = 16: eight dst rows per warp), and
+    dst counts around the grids that fit the card in one wave at 4 or only
+    at 2 slots per batch (the launch picks between the two)."""
+    from coala_gnn_tpu_torch.cache.feature_cache import quantize_rows
+
+    for S, N, F, D in [(200_001, 6144, 10, 256), (24_576, 4096, 5, 16),
+                       (200_001, 2400, 10, 256), (200_001, 8000, 10, 256),
+                       (200_001, 12_000, 10, 256)]:
+        adj, w = _adj_w(cuda, S, N, F)
+        adj[w == 0] = 0
+        base = torch.randn(S, D, generator=cuda, device="cuda")
+        for x, scale in ((base, None), (base.to(torch.bfloat16), None),
+                         quantize_rows(base)):
+            out = gather_spmm(x, adj, w, scale)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                out, gather_spmm_reference(x, adj, w, scale), rtol=1e-5,
+                atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_transpose_kernel_equals_plain(cuda):
+    """Injective (GAT's contiguous layout), repeated, mostly empty rows,
+    out-of-range indices, one row named by a fifth of the slots: the
+    kernels' row_ptr and slot equal the plain version's exactly."""
+    from coala_gnn_tpu_torch.models.layers import head_stacked_adj
+
+    cases = [(head_stacked_adj(None, 6144, (1024, 5), 4, "cuda"), 6144 * 4),
+             (torch.randint(0, 50, (300, 7), generator=cuda, device="cuda",
+                            dtype=torch.int32), 50),
+             (torch.randint(900, 910, (40, 3), generator=cuda, device="cuda",
+                            dtype=torch.int32), 5000),
+             (torch.randint(-5, 105, (64, 9), generator=cuda, device="cuda",
+                            dtype=torch.int32), 100)]
+    skew, _ = _adj_w(cuda, 270_336, 24_576, 10)
+    skew[torch.rand(skew.shape, generator=cuda, device="cuda") < 0.2] = 0
+    cases.append((skew, 270_336))
+    for adj, s in cases:
+        before = LAUNCHES["adj_transpose"]
+        got = adj_transpose(adj, s)
+        torch.cuda.synchronize()
+        assert LAUNCHES["adj_transpose"] == before + 1
+        want = adj_transpose_reference(adj, s)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_grad_x_at_gat_combine_shapes(cuda):
+    """GAT's two head-stacked combine shapes at the flagship config (4
+    heads; layer 0: 67,584 src x 6,144 dst rows, F 10, D 256; layer 1:
+    6,144 x 1,024, F 5, D 16): exact against the plain version with the
+    transpose handed in (no transpose launch) and without it; with
+    repeated rows within the f32 sum bound."""
+    from coala_gnn_tpu_torch.models.layers import head_stacked_adj
+
+    for cap_src, cap_dst, F, D in [(67_584, 6144, 10, 256),
+                                   (6144, 1024, 5, 16)]:
+        S, N = cap_src * 4, cap_dst * 4
+        adj = head_stacked_adj(None, cap_src, (cap_dst, F), 4, "cuda")
+        _, w = _adj_w(cuda, S, N, F)
+        g = torch.randn(N, D, generator=cuda, device="cuda")
+        adj_t = adj_transpose(adj, S)
+        counts = dict(LAUNCHES)
+        gx = gather_spmm_grad_x(adj, w, g, S, adj_t)
+        torch.cuda.synchronize()
+        assert LAUNCHES["adj_transpose"] == counts["adj_transpose"]
+        want = gather_spmm_grad_x_reference(adj, w, g, S)
+        assert torch.equal(gx, want)
+        assert torch.equal(gather_spmm_grad_x(adj, w, g, S), want)
+        rand_adj, _ = _adj_w(cuda, S, N, F)
+        gx = gather_spmm_grad_x(rand_adj, w, g, S)
+        torch.cuda.synchronize()
+        err = (gx - gather_spmm_grad_x_reference(rand_adj, w, g, S)).abs()
+        assert (err <= grad_x_error_bound(rand_adj, w, g, S)).all()
 
 
 @pytest.mark.cuda
@@ -182,8 +266,8 @@ def test_staged_window_on_card(cuda):
     seeds and streams."""
     import numpy as np
 
-    from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-    from coala_gnn_tpu.graph.datasets import synthetic_graph
+    from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
     from coala_gnn_tpu_torch.cache import feature_cache as fc
     from coala_gnn_tpu_torch.models.gnn import make_model
     from coala_gnn_tpu_torch.parallel.resident import ResidentTrainer

@@ -299,3 +299,136 @@ def test_bf16_table_gradient_is_bf16(rng):
                                         torch.from_numpy(w),
                                         torch.from_numpy(g), x.shape[0])
     torch.testing.assert_close(xt.grad, want.to(torch.bfloat16))
+
+
+# ---- grad_x as a gather over the transpose of adj ---------------------------
+
+def _transpose_by_hand(adj, s):
+    """row_ptr, slot from Python lists: row r's slots in ascending order."""
+    per_row = [[] for _ in range(s)]
+    for j, r in enumerate(adj.reshape(-1).tolist()):
+        if 0 <= r < s:
+            per_row[r].append(j)
+    row_ptr = np.cumsum([0] + [len(p) for p in per_row]).astype(np.int32)
+    slot = np.full(adj.size, -1, np.int32)
+    flat = [j for p in per_row for j in p]
+    slot[:len(flat)] = flat
+    return row_ptr, slot
+
+
+def _adj_case(rng, case):
+    """(adj [N, F] int32, s) for the four kinds of adj the transpose
+    meets."""
+    if case == "injective":        # GAT's contiguous layout: a permutation
+        return rng.permutation(60)[:48].reshape(12, 4).astype(np.int32), 60
+    if case == "repeated":         # sampled ids: rows named many times
+        return rng.integers(0, 9, size=(15, 6)).astype(np.int32), 9
+    if case == "empty_rows":       # most table rows named by no slot
+        return rng.integers(40, 45, size=(7, 3)).astype(np.int32), 100
+    adj = rng.integers(0, 20, size=(10, 5)).astype(np.int32)
+    adj[[0, 3, 7], [1, 4, 0]] = [-1, 20, 99]            # out of range
+    return adj, 20
+
+
+@pytest.mark.parametrize("case", ["injective", "repeated", "empty_rows",
+                                  "out_of_range"])
+def test_adj_transpose_reference(rng, case):
+    from coala_gnn_tpu_torch.ops.gather_spmm import (adj_transpose,
+                                                     adj_transpose_reference)
+
+    adj, s = _adj_case(rng, case)
+    want = _transpose_by_hand(adj, s)
+    before = dict(LAUNCHES)
+    for fn in (adj_transpose_reference, adj_transpose):
+        row_ptr, slot = fn(torch.from_numpy(adj), s)
+        assert row_ptr.dtype == slot.dtype == torch.int32
+        np.testing.assert_array_equal(row_ptr.numpy(), want[0])
+        np.testing.assert_array_equal(slot.numpy(), want[1])
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", ["injective", "repeated", "empty_rows"])
+def test_grad_x_over_transpose_equals_index_add_bitwise(rng, case):
+    """The kernel's algorithm in plain torch (per table row, acc = acc +
+    w * g over its slots in slot order) equals the CPU index_add_ plain
+    version bit for bit, zero-weight slots and repeated rows included."""
+    from coala_gnn_tpu_torch.ops.gather_spmm import (
+        adj_transpose_reference, gather_spmm_grad_x_transposed_reference)
+
+    adj, s = _adj_case(rng, case)
+    n, f = adj.shape
+    w = rng.random((n, f)).astype(np.float32)
+    w[rng.random((n, f)) < 0.3] = 0.0
+    g = rng.normal(size=(n, 33)).astype(np.float32)
+    at, wt, gt = map(torch.from_numpy, (adj, w, g))
+    got = gather_spmm_grad_x_transposed_reference(
+        adj_transpose_reference(at, s), wt, gt)
+    want = gather_spmm_grad_x_reference(at, wt, gt, s)
+    assert torch.equal(got, want)
+    assert torch.equal(got, gather_spmm_grad_x(at, wt, gt, s,
+                                               adj_transpose_reference(at, s)))
+
+
+def test_grad_x_over_head_stacked_transpose(rng):
+    """GAT's combine layout: every feat row named by one slot, so the sums
+    are single products and all three forms agree exactly."""
+    from coala_gnn_tpu_torch.models.layers import head_stacked_adj
+    from coala_gnn_tpu_torch.ops.gather_spmm import (
+        adj_transpose, gather_spmm_grad_x_transposed_reference)
+
+    cap_dst, fan, heads = 6, 3, 4
+    n_src = cap_dst * (fan + 1)
+    adj = head_stacked_adj(None, n_src, (cap_dst, fan), heads, "cpu")
+    s = n_src * heads
+    row_ptr, slot = adj_transpose(adj, s)
+    counts = (row_ptr[1:] - row_ptr[:-1]).numpy()
+    assert set(counts.tolist()) == {0, 1}
+    assert counts[:cap_dst * heads].sum() == 0     # dst rows: no slot
+    w = torch.from_numpy(rng.random(adj.shape).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(adj.shape[0], 5)).astype(
+        np.float32))
+    assert torch.equal(
+        gather_spmm_grad_x_transposed_reference((row_ptr, slot), w, g),
+        gather_spmm_grad_x_reference(adj, w, g, s))
+
+
+def test_transpose_argument_is_checked(rng):
+    from coala_gnn_tpu_torch.ops.gather_spmm import (adj_transpose,
+                                                     adj_transpose_reference)
+
+    x, adj, w, g = map(torch.from_numpy, _grad_inputs(rng))
+    s = x.shape[0]
+    good = adj_transpose_reference(adj, s)
+    gather_spmm(x, adj, w, adj_t=good)
+    gather_spmm_grad_x(adj, w, g, s, good)
+    bad = [good[0],                                    # not a pair
+           (good[0][:-1], good[1]),                    # row_ptr length
+           (good[0], good[1][:-1]),                    # slot length
+           (good[0].long(), good[1]),                  # dtype
+           (good[0], good[1].view(adj.shape)),         # shape
+           (good[0], torch.stack([good[1]] * 2, 1)[:, 0])]   # contiguity
+    for adj_t in bad:
+        with pytest.raises((TypeError, ValueError)):
+            gather_spmm(x, adj, w, adj_t=adj_t)
+        with pytest.raises((TypeError, ValueError)):
+            gather_spmm_grad_x(adj, w, g, s, adj_t)
+    for bad_adj in (adj.long(), adj.reshape(-1), adj.T):
+        with pytest.raises(TypeError):
+            adj_transpose(bad_adj, s)
+    with pytest.raises(ValueError):
+        adj_transpose(adj, 2**31)
+
+
+def test_function_backward_with_transpose(rng):
+    """Handing the transpose in changes nothing of the gradients."""
+    from coala_gnn_tpu_torch.ops.gather_spmm import adj_transpose_reference
+
+    x, adj, w, g = _grad_inputs(rng)
+    want_x, want_w = _autograd_of_reference(x, adj, w, g)
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    at = torch.from_numpy(adj)
+    gather_spmm(xt, at, wt, adj_t=adj_transpose_reference(
+        at, x.shape[0])).backward(torch.from_numpy(g))
+    torch.testing.assert_close(xt.grad, want_x, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(wt.grad, want_w, rtol=TOL, atol=TOL)

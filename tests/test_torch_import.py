@@ -1,8 +1,10 @@
-"""The port runs where there is no JAX: in a fresh interpreter with jax,
-flax, optax and ml_dtypes blocked, every module of coala_gnn_tpu_torch and
-chip_smoke.py and chip_profile.py import, and a tiny ResidentTrainer trains one window at full
-coverage and staged windows under pressure with bf16 and int8 transport
-(fused native and gather + encode stores)."""
+"""The port stands alone: in a fresh interpreter with the JAX package
+(coala_gnn_tpu) and jax, flax, optax and ml_dtypes blocked, every module of
+coala_gnn_tpu_torch and the chip scripts (chip_smoke.py, chip_profile.py,
+chip_compare.py) import, and a
+tiny ResidentTrainer (on the port's own synthetic graph and host store)
+trains one window at full coverage and staged windows under pressure with
+bf16 and int8 transport (fused native and gather + encode stores)."""
 
 import os
 import subprocess
@@ -16,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "ml_dtypes"):
+for name in ("coala_gnn_tpu", "jax", "flax", "optax", "ml_dtypes"):
     sys.modules[name] = None
 import torch
 torch.set_num_threads(1)
@@ -28,8 +30,9 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 import chip_profile
-from coala_gnn_tpu.cache.host_tier import HostFeatureStore
-from coala_gnn_tpu.graph.datasets import synthetic_graph
+import chip_compare
+from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
 ds = synthetic_graph(num_nodes=200, avg_degree=4, feature_dim=8,
                      num_classes=4, seed=0)
 rt = chip_smoke.make_trainer(torch, ds, HostFeatureStore(ds.features,
@@ -48,7 +51,8 @@ for native in (True, False):
         losses, edges = rt.train_windows(grids, seed=0)
         assert torch.isfinite(losses).all() and rt.stats()["misses"] > 0
 jaxish = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+                if m.split(".")[0] in ("coala_gnn_tpu", "jax", "jaxlib",
+                                       "flax", "optax", "ml_dtypes")
                 and sys.modules[m] is not None)
 assert not jaxish, jaxish
 print("modules", len(mods))
@@ -67,7 +71,8 @@ def test_port_imports_and_trains_without_jax():
 def test_profile_busy_time_and_no_card():
     """chip_profile.py's device busy time is the union of the event
     intervals (overlaps counted once, gaps not at all), and without a card
-    the script exits with a non-zero code before it builds anything."""
+    the script (and chip_compare.py) exits with a non-zero code before it
+    builds anything."""
     sys.path.insert(0, ROOT)
     try:
         import chip_profile
@@ -78,3 +83,5 @@ def test_profile_busy_time_and_no_card():
     assert chip_profile.busy_us(iter([(0, 4), (1, 2)])) == 4.0
     if not torch.cuda.is_available():
         assert chip_profile.main() != 0
+        import chip_compare
+        assert chip_compare.main() != 0

@@ -374,3 +374,31 @@ def test_gat_layer_matches_dense_reference():
     want = spmm_coo(msg, torch.arange(src.numel()), dst, g.num_nodes)
     want = want.view(-1, H, Fh)[torch.from_numpy(seeds.astype(np.int64))]
     np.testing.assert_allclose(out, want.numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_gat_keeps_one_combine_transpose_per_shape():
+    """GATConv builds the contiguous layout's head-stacked adj and its
+    transpose once per shape and reuses them; a block with its own adj
+    builds neither (the backward transposes it)."""
+    from coala_gnn_tpu_torch.models.layers import (DeviceBlock, GATConv,
+                                                   head_stacked_adj)
+    from coala_gnn_tpu_torch.ops.gather_spmm import adj_transpose_reference
+
+    gen = torch.Generator().manual_seed(0)
+    conv = GATConv(6, 3, 2, gen)
+    cap_dst, fan = 4, 3
+    block = DeviceBlock(adj=None, mask=torch.ones(cap_dst, fan))
+    x = torch.randn(cap_dst * (fan + 1), 6, generator=gen)
+    out1, out2 = conv(block, x), conv(block, x)
+    assert torch.equal(out1, out2) and len(conv._combines) == 1
+    (adj_h, (row_ptr, slot)), = conv._combines.values()
+    want = adj_transpose_reference(adj_h, x.shape[0] * 2)
+    assert torch.equal(row_ptr, want[0]) and torch.equal(slot, want[1])
+    assert torch.equal(adj_h, head_stacked_adj(None, x.shape[0],
+                                               (cap_dst, fan), 2, "cpu"))
+    conv(block, torch.randn(cap_dst * (fan + 1) + 4, 6, generator=gen))
+    assert len(conv._combines) == 2
+    own = DeviceBlock(adj=torch.zeros(cap_dst, fan, dtype=torch.int32),
+                      mask=torch.ones(cap_dst, fan))
+    conv(own, x)
+    assert len(conv._combines) == 2
