@@ -60,7 +60,22 @@ same config, and the int8 cache lines on both tiers. Phases:
      measured K = 32 window; hits, misses, no replay; one staged step's
      frontier, int8 cache rows with int8 stage rows overlaid, held against
      the node features and fed to the f32 kernel against its plain
-     version).
+     version);
+ 10. the host pipeline (``parallel/host_pipeline.run_host``, bench.py's
+     run_host: host sampler, seed distribution, prefetching loader, one
+     request buffer per step, the one-device cache front with the probe
+     one batch ahead and speculative groups of 8): host-packed (dedup
+     layout, SAGE's aggregation through the kernel) and host-contig
+     (slot-major sentinel layout, no kernel) with a 1024 MB cache
+     prewarmed to full coverage, host-packed under pressure (phase 6's
+     97 MB cache, degree prewarm: misses, fills and replays on the card),
+     and uncached (host gather + upload every step); 4 warm-up + 16
+     measured steps (uncached 2 + 6); checks finite, falling losses and
+     the launches (per dedup step 2 forwards, 1 transpose, 1 grad_x; none
+     on the contiguous layout); prints ms/step, edges/s, hit ratio,
+     replays, launches per step and the host sampler's and packer's ms
+     per batch; holds the forward at layers 0 and 1 and grad_x at layer 1
+     against their plain versions on one real host-packed step's inputs.
 
 Every failure ends the script with a non-zero code. The line before the
 last two is a JSON object with the kernels' launches, errors, times,
@@ -1018,6 +1033,199 @@ def phase_int8(torch, ds, store, smi) -> tuple:
     return counts, err, err_staged
 
 
+HOST_ROWS = (  # tag, run_host arguments, warm-up steps, measured steps
+    ("host-packed", dict(cache_mb=1024), 4, 16),
+    ("host-contig", dict(cache_mb=1024, contiguous=True), 4, 16),
+    ("host-packed-pressure", dict(cache_mb=None, prewarm="degree"), 4, 16),
+    ("host-uncached", dict(cache_mb=0), 2, 6))
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_side_ms(ds, batches: int = 8) -> dict:
+    """The host sampler's (native) and the packer's ms per batch at the
+    flagship config, each layout, timed alone on this thread."""
+    from coala_gnn_tpu_torch.data.packing import (pack_request,
+                                                  pack_request_contig)
+    from coala_gnn_tpu_torch.sampling.neighbor import NeighborSampler
+
+    out = {}
+    for layout, contiguous in (("dedup", False), ("contig", True)):
+        sampler = NeighborSampler(ds.graph, FANOUTS, BATCH, seed=0,
+                                  contiguous=contiguous)
+        t_sample = t_pack = 0.0
+        for i in range(batches):
+            seeds = ds.train_idx[i * BATCH:(i + 1) * BATCH]
+            t0 = time.perf_counter()
+            sb = sampler.sample(seeds)
+            t1 = time.perf_counter()
+            ids = sb.input_ids.astype(np.int32)
+            labels = ds.labels[sb.seeds].astype(np.int32)
+            if contiguous:
+                pack_request_contig(ids, sb.num_input, labels)
+            else:
+                pack_request(ids, sb.num_input, [b.adj for b in sb.blocks],
+                             [b.mask for b in sb.blocks], labels)
+            t_sample += t1 - t0
+            t_pack += time.perf_counter() - t1
+        out[layout] = (1000 * t_sample / batches, 1000 * t_pack / batches)
+    return out
+
+
+def phase_host_step(torch, ds, device="cuda") -> dict:
+    """The kernels on one real host-packed step's inputs against their
+    plain versions: a sampled batch packed into its request buffer and
+    unpacked on the device, its input rows, SAGE's forward (layer 0 on the
+    features, layer 1 on layer 0's output) and backward; the forward at
+    both layers and grad_x at layer 1 (the upstream gradient its output
+    received; repeated rows, so within the f32 error bound). Returns
+    max_abs_err by kernel name."""
+    from coala_gnn_tpu_torch.data.packing import (batch_layout, pack_request,
+                                                  unpack_request_batch)
+    from coala_gnn_tpu_torch.models.gnn import make_model
+    from coala_gnn_tpu_torch.ops import aggregate
+    from coala_gnn_tpu_torch.ops.gather_spmm import (
+        adj_transpose, adj_transpose_reference, gather_spmm_grad_x,
+        gather_spmm_grad_x_reference, gather_spmm_reference,
+        grad_x_error_bound)
+    from coala_gnn_tpu_torch.sampling.neighbor import NeighborSampler
+
+    sampler = NeighborSampler(ds.graph, FANOUTS, BATCH, seed=5)
+    sb = sampler.sample(ds.train_idx[:BATCH])
+    n_req = sampler.caps[0][1]
+    vec = pack_request(sb.input_ids.astype(np.int32), sb.num_input,
+                       [b.adj for b in sb.blocks], [b.mask for b in sb.blocks],
+                       ds.labels[sb.seeds].astype(np.int32))
+    buf = torch.from_numpy(vec).to(device)
+    blocks, labels = unpack_request_batch(buf, n_req,
+                                          batch_layout(sampler.caps, FANOUTS),
+                                          BATCH)
+    x = torch.from_numpy(ds.features[sb.input_ids]).to(device)
+    model = make_model("sage", DIM, HIDDEN, CLASSES, len(FANOUTS), seed=1,
+                       dropout=0.0).to(device)
+    kernel, calls = aggregate.gather_spmm, []
+
+    def recording(x, adj, w):
+        out = kernel(x, adj, w)
+        rec = {"x": x.detach(), "adj": adj, "w": w, "out": out.detach()}
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.update(g=g.detach().contiguous()))
+        calls.append(rec)
+        return out
+
+    aggregate.gather_spmm = recording
+    try:
+        logits = model(blocks, x, train=False)[:BATCH]
+        torch.nn.functional.cross_entropy(logits, labels.long()).backward()
+    finally:
+        aggregate.gather_spmm = kernel
+    require(len(calls) == 2 and "g" in calls[1] and "g" not in calls[0],
+            "host-packed step: expected two forwards, a gradient at layer 1")
+    errs = {"gather_spmm[float32]": 0.0, "gather_spmm_grad_x": 0.0}
+    for layer, c in enumerate(calls):
+        x, adj, w = c["x"], c["adj"], c["w"]
+        e = max_err(torch, c["out"], gather_spmm_reference(x, adj, w),
+                    f"host-packed layer {layer} forward")
+        errs["gather_spmm[float32]"] = max(errs["gather_spmm[float32]"], e)
+        t = {}
+        timed(torch, t, lambda: kernel(x, adj, w),
+              lambda: gather_spmm_reference(x, adj, w),
+              forward_work(torch, x, None, adj, w), embedding_bag(torch, x,
+                                                                  adj, w))
+        print(f"phase 10: host-packed layer {layer} real step: x "
+              f"{tuple(x.shape)}, adj {tuple(adj.shape)}, "
+              f"{int((w == 0).sum())} masked slots: forward max_abs_err "
+              f"{e:.3g}; " + describe("forward", t))
+    c = calls[1]
+    adj, w, g, s = c["adj"], c["w"], c["g"], c["x"].shape[0]
+    e = within_bound(torch, gather_spmm_grad_x(adj, w, g, s),
+                     gather_spmm_grad_x_reference(adj, w, g, s),
+                     grad_x_error_bound(adj, w, g, s),
+                     "host-packed layer 1 grad_x")
+    sync(torch, device)
+    errs["gather_spmm_grad_x"] = e
+    adj_t = adj_transpose(adj, s)
+    t_t, t_x = {}, {}
+    timed(torch, t_t, lambda: adj_transpose(adj, s),
+          lambda: adj_transpose_reference(adj, s), transpose_work(adj, s))
+    timed(torch, t_x, lambda: gather_spmm_grad_x(adj, w, g, s, adj_t),
+          lambda: gather_spmm_grad_x_reference(adj, w, g, s),
+          grad_x_work(torch, adj, w, g, s))
+    print(f"phase 10: host-packed layer 1 grad_x over [{s}, {HIDDEN}]: "
+          f"max_abs_err {e:.3g} (within the f32 bound of its sums); "
+          f"transpose: " + describe("adj_transpose", t_t) + "; grad_x over "
+          "it: " + describe("grad_x", t_x))
+    return errs
+
+
+def phase_host(torch, ds, smi, device="cuda") -> tuple:
+    """bench.py's host rows through the port's run_host; returns (launches
+    by kernel over the rows, kernel errors on a real host-packed step)."""
+    from coala_gnn_tpu_torch.parallel.host_pipeline import run_host
+
+    for layout, (ms_s, ms_p) in host_side_ms(ds).items():
+        print(f"phase 10: host sampler (native, {layout} layout) "
+              f"{ms_s:.2f} ms per batch, pack_request {ms_p:.2f} ms per "
+              "batch (this thread, alone)")
+    total = {}
+    for tag, kw, warm, meas in HOST_ROWS:
+        kw = dict(kw)
+        if kw["cache_mb"] is None:
+            kw["cache_mb"] = pressure_mb(ds)
+        sync(torch, device)
+        reset_launches()
+        t0 = time.perf_counter()
+        r = run_host(ds, BATCH, FANOUTS, DIM, HIDDEN, bf16=False,
+                     warmup=warm, steps=meas, tag=tag, device=device, **kw)
+        sync(torch, device)
+        counts = launches()
+        wall = time.perf_counter() - t0
+        losses = np.asarray(r["losses"])
+        q = max(losses.size // 4, 1)
+        require(np.isfinite(losses).all() and
+                losses[-q:].mean() < losses[:q].mean(),
+                f"{tag}: losses not finite and falling {losses}")
+        steps = warm + meas
+        per_step = {k: v for k, v in r["launches_per_step"].items() if v}
+        if kw.get("contiguous"):
+            require(not any(counts.values()), f"{tag}: kernel launches "
+                    f"{counts} on the slot-plane layout")
+        else:
+            n_fwd = counts["gather_spmm[float32]"]
+            require(n_fwd >= 2 * steps and n_fwd % 2 == 0 and
+                    counts["adj_transpose"] == n_fwd // 2 ==
+                    counts["gather_spmm_grad_x"] and
+                    sum(counts.values()) == 2 * n_fwd,
+                    f"{tag}: launches {counts} for {steps} steps")
+            require(n_fwd == 2 * steps or r["replays"] > 0,
+                    f"{tag}: {n_fwd} forwards for {steps} steps, no replay")
+        if tag == "host-packed-pressure":
+            require(r["misses"] > 0 and r["hits"] > 0 and r["replays"] > 0,
+                    f"{tag}: no misses, hits or replays ({r['hits']}, "
+                    f"{r['misses']}, {r['replays']})")
+        elif kw["cache_mb"]:
+            require(r["misses"] == 0 and r["replays"] == 0,
+                    f"{tag}: misses {r['misses']} or replays at full "
+                    "coverage")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        some = losses[::max(losses.size // 10, 1)]
+        print(f"phase 10: {tag}: {r['ms_per_step']:.3f} ms/step, "
+              f"train_edges_per_s_per_chip {r['value']:.1f}, hit ratio "
+              f"{r['cache_hit_ratio']}, replays {r['replays']}, launches per "
+              f"measured step {per_step} ({meas} measured steps after "
+              f"{warm}, host clock, {smi}); {wall:.1f} s with set-up; "
+              f"losses {np.array2string(some, precision=4)}")
+        print(f"phase 10: {tag}: main-thread host ms per measured step: "
+              + ", ".join(f"{k} {1000 * v['total_s'] / meas:.3f}"
+                          for k, v in sorted(r["timers"].items(),
+                                             key=lambda kv: -kv[1]["total_s"])))
+    return total, phase_host_step(torch, ds, device)
+
+
 def main() -> int:
     import torch
 
@@ -1080,7 +1288,12 @@ def main() -> int:
     worst("gather_spmm[int8]", err9)
     worst("gather_spmm[float32]", err9_staged)
     print(f"phase 9: done in {time.perf_counter() - t0:.1f} s")
-    for counts in (gat_launches, int8_launches):
+    t0 = time.perf_counter()
+    host_launches, host_errs = phase_host(torch, ds, smi)
+    for name, err in host_errs.items():
+        worst(name, err)
+    print(f"phase 10: done in {time.perf_counter() - t0:.1f} s")
+    for counts in (gat_launches, int8_launches, host_launches):
         for name, n in counts.items():
             main_launches[name] = main_launches.get(name, 0) + n
 

@@ -20,15 +20,22 @@ ops       gather-SpMM (hand-written CUDA kernels: f32 / bf16 / int8 forward,
           the backward and adj's transpose, + plain versions),
           aggregation, COO oracles
 models    SAGE, GCN and GAT over sampled blocks
-sampling  on-device fanout neighbour sampling; block capacities
+sampling  on-device fanout neighbour sampling; the host sampler (dedup
+          and slot-major layouts); block capacities
+distribution  seed distributor (baseline, node_color greedy) and its
+          pipelined scheduler
+data      the host pipeline's prefetching loader and request packing
 cache     flat and set-associative device feature caches (f32, bf16 or
           int8 rows); the host feature tier
 graph     CSC graph and the synthetic dataset
-native    ctypes bindings of the native host row functions
-parallel  ResidentTrainer: the single-device resident training step
+native    ctypes bindings of the native host functions (sampler, greedy,
+          row gather and encode)
+parallel  ResidentTrainer (the resident training step); the host
+          pipeline's one-device cache front, train steps and run_host
 utils     flax->torch parameter conversion, per-window generators, phase
           timers, the nvcc / g++ build
 csrc      CUDA C++ (nvcc) and host C++ (g++) sources, built at first use
+train     the trainer CLI, ``python -m coala_gnn_tpu_torch.train``
 """
 
 __version__ = "0.1.0"

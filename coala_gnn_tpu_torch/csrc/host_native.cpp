@@ -1,12 +1,15 @@
-// Host tier row functions of the port: the staged miss path's gather and
-// transport encode, run on the host's cores with OpenMP.
+// Host functions of the port, run on the host's cores: the host sampler's
+// layer draw, the affinity-aware greedy seed distribution, and the staged
+// miss path's row gather and transport encode (OpenMP).
 //
-// A copy of the five row functions of the JAX package's native library
-// (coala_gnn_tpu/native/coala_native.cpp: cg_gather_rows_f32,
+// A copy of these functions of the JAX package's native library
+// (coala_gnn_tpu/native/coala_native.cpp: sample_layer_core and
+// cg_sample_layer, cg_distribute_affinity, cg_gather_rows_f32,
 // cg_quantize_rows, cg_encode_bf16, cg_gather_rows_bf16,
-// cg_gather_quantize_rows), with the same arithmetic, so both give the same
-// bytes. Built with g++ at first use into coala_gnn_tpu_torch/_build/
-// (utils/build.py) and called through ctypes (native/lib.py).
+// cg_gather_quantize_rows), with the same arithmetic and the same random
+// streams, so both give the same bytes. Built with g++ at first use into
+// coala_gnn_tpu_torch/_build/ (utils/build.py) and called through ctypes
+// (native/lib.py).
 //
 // ids < 0 are sentinels: zero rows (int8: scale 1). int8 is symmetric per
 // row: scale = absmax / 127 (1 for an all-zero row), q = round(v / scale)
@@ -17,8 +20,24 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <random>
+#include <vector>
 
 namespace {
+
+// indices[i] of an int32 or int64 index array
+inline int64_t idx_at(const void* indices, int width, int64_t i) {
+  return width == 4 ? (int64_t)((const int32_t*)indices)[i]
+                    : ((const int64_t*)indices)[i];
+}
+
+// splitmix64 finalizer: the per-row stream seeds
+inline uint64_t mix64(uint64_t x) {
+  x += 0x9e3779b97f4a7c15ull;
+  x = (x ^ (x >> 30)) * 0xbf58476d1ce4e5b9ull;
+  x = (x ^ (x >> 27)) * 0x94d049bb133111ebull;
+  return x ^ (x >> 31);
+}
 
 inline uint16_t f32_to_bf16(float f) {
   uint32_t x;
@@ -49,6 +68,93 @@ inline void quantize_row(const float* r, int64_t dim, float s, int8_t* o) {
 }  // namespace
 
 extern "C" {
+
+// One layer of fanout sampling: for each dst, `fanout` slots of in-neighbour
+// ids. deg == 0: every slot masked (holding the dst id); deg <= fanout:
+// every neighbour once, in CSC order; deg > fanout: `fanout` draws without
+// replacement (Floyd's algorithm) from row i's own mt19937_64 stream,
+// seeded mix64(seed ^ mix64(i)), so the result does not depend on the
+// thread count. Typed (hetero) sampling is not ported.
+void cg_sample_layer(const int64_t* indptr, const void* indices, int idx_width,
+                     const int64_t* dst_ids, int64_t n_dst, int fanout,
+                     uint64_t seed, int64_t* nbr_out, float* mask_out) {
+#pragma omp parallel for schedule(dynamic, 256)
+  for (int64_t i = 0; i < n_dst; i++) {
+    const int64_t v = dst_ids[i];
+    const int64_t start = indptr[v];
+    const int64_t deg = indptr[v + 1] - start;
+    int64_t* nbr = nbr_out + i * fanout;
+    float* mask = mask_out + i * fanout;
+    if (deg <= (int64_t)fanout) {
+      int64_t k = 0;
+      for (; k < deg; k++) {
+        nbr[k] = idx_at(indices, idx_width, start + k);
+        mask[k] = 1.0f;
+      }
+      for (; k < fanout; k++) {
+        nbr[k] = v;
+        mask[k] = 0.0f;
+      }
+    } else {
+      std::mt19937_64 rng(mix64(seed ^ mix64((uint64_t)i)));
+      static thread_local std::vector<int64_t> chosen;
+      chosen.clear();
+      for (int64_t j = deg - fanout; j < deg; j++) {
+        int64_t t = (int64_t)(rng() % (uint64_t)(j + 1));
+        bool dup = false;
+        for (size_t c = 0; c < chosen.size(); c++)
+          if (chosen[c] == t) { dup = true; break; }
+        chosen.push_back(dup ? j : t);
+      }
+      for (int k = 0; k < fanout; k++) {
+        nbr[k] = idx_at(indices, idx_width, start + chosen[k]);
+        mask[k] = 1.0f;
+      }
+    }
+  }
+}
+
+// Greedy affinity-aware seed distribution, sequential (every part computes
+// the same assignment). For each seed in order: score(part j) = sum over k
+// of meta[j][topk[c][k]] * affinity[c][k] (colors 0 and empty counts
+// skipped; an uncolored seed scores 0); a part at capacity scores -1; the
+// first part with the highest score wins. meta int32 [num_parts,
+// num_colors + 1] by 1-based color.
+void cg_distribute_affinity(const int64_t* item, int64_t offset,
+                            int64_t item_len, int num_parts, int64_t capacity,
+                            const int64_t* color, const int64_t* topk_colors,
+                            const double* affinity, int topk,
+                            int64_t num_colors, const int32_t* meta,
+                            int32_t* out_assign) {
+  std::vector<int64_t> bucket_len(num_parts, 0);
+  const int64_t meta_stride = num_colors + 1;
+  for (int64_t i = 0; i < item_len; i++) {
+    const int64_t c = color[item[offset + i]];
+    int best = 0;
+    double best_score = -1.0;
+    for (int j = 0; j < num_parts; j++) {
+      double score = 0.0;
+      if (c != 0) {
+        const int32_t* m = meta + (int64_t)j * meta_stride;
+        const int64_t row = (c - 1) * topk;
+        for (int k = 0; k < topk; k++) {
+          const int64_t nc = topk_colors[row + k];
+          if (nc == 0) continue;
+          const int32_t cnt = m[nc];
+          if (cnt == 0) continue;
+          score += (double)cnt * affinity[row + k];
+        }
+      }
+      if (bucket_len[j] >= capacity) score = -1.0;
+      if (score > best_score) {
+        best = j;
+        best_score = score;
+      }
+    }
+    out_assign[i] = best;
+    bucket_len[best]++;
+  }
+}
 
 // out[i, :] = features[ids[i], :]
 void cg_gather_rows_f32(const float* features, int64_t dim, const int64_t* ids,

@@ -2,9 +2,11 @@
 (``csrc/host_native.cpp``), built with g++ at first use into
 ``coala_gnn_tpu_torch/_build/`` (``utils/build.py``).
 
-Port of the five row functions of ``coala_gnn_tpu/native/lib.py`` that the
-staged miss path calls. bf16 comes back as its uint16 bit pattern (numpy
-has no bf16 type, and the card's machine has no ``ml_dtypes``).
+Port of the functions of ``coala_gnn_tpu/native/lib.py`` that the port
+calls: the host sampler's ``sample_layer``, the greedy
+``distribute_affinity``, and the five row functions of the staged miss
+path. bf16 comes back as its uint16 bit pattern (numpy has no bf16 type,
+and the card's machine has no ``ml_dtypes``).
 """
 
 from __future__ import annotations
@@ -20,10 +22,13 @@ from coala_gnn_tpu_torch.utils.build import load_library
 SOURCE = "host_native.cpp"
 
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
+_i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
+_f64p = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 _u16p = np.ctypeslib.ndpointer(dtype=np.uint16, flags="C_CONTIGUOUS")
 _i8p = np.ctypeslib.ndpointer(dtype=np.int8, flags="C_CONTIGUOUS")
 _i64 = ctypes.c_int64
+_int = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
@@ -31,16 +36,69 @@ def get() -> ctypes.CDLL:
     """Build (at first use), load and type the library; raises
     ``RuntimeError`` (no g++, or it failed) or ``OSError`` (load)."""
     lib = load_library(SOURCE)
+    lib.cg_sample_layer.argtypes = [_i64p, ctypes.c_void_p, _int, _i64p, _i64,
+                                    _int, ctypes.c_uint64, _i64p, _f32p]
+    lib.cg_distribute_affinity.argtypes = [_i64p, _i64, _i64, _int, _i64,
+                                           _i64p, _i64p, _f64p, _int, _i64,
+                                           _i32p, _i32p]
     lib.cg_gather_rows_f32.argtypes = [_f32p, _i64, _i64p, _i64, _f32p]
     lib.cg_quantize_rows.argtypes = [_f32p, _i64, _i64, _i8p, _f32p]
     lib.cg_encode_bf16.argtypes = [_f32p, _i64, _u16p]
     lib.cg_gather_rows_bf16.argtypes = [_f32p, _i64, _i64p, _i64, _u16p]
     lib.cg_gather_quantize_rows.argtypes = [_f32p, _i64, _i64p, _i64, _i8p,
                                             _f32p]
-    for name in ("cg_gather_rows_f32", "cg_quantize_rows", "cg_encode_bf16",
+    for name in ("cg_sample_layer", "cg_distribute_affinity",
+                 "cg_gather_rows_f32", "cg_quantize_rows", "cg_encode_bf16",
                  "cg_gather_rows_bf16", "cg_gather_quantize_rows"):
         getattr(lib, name).restype = None
     return lib
+
+
+def sample_layer(lib: ctypes.CDLL, graph, dst_ids: np.ndarray, fanout: int,
+                 seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(nbr int64 [n, fanout], mask f32 [n, fanout]) of one layer for the
+    dst ids (see ``cg_sample_layer``); ``graph.indices`` int32 or int64."""
+    dst_ids = np.ascontiguousarray(dst_ids, dtype=np.int64)
+    indices = graph.indices
+    if indices.dtype not in (np.int32, np.int64):
+        raise TypeError(f"indices dtype {indices.dtype} unsupported")
+    indptr = np.ascontiguousarray(graph.indptr, dtype=np.int64)
+    n = dst_ids.shape[0]
+    nbr = np.empty((n, fanout), dtype=np.int64)
+    mask = np.empty((n, fanout), dtype=np.float32)
+    lib.cg_sample_layer(indptr, indices.ctypes.data_as(ctypes.c_void_p),
+                        indices.dtype.itemsize, dst_ids, n, fanout,
+                        seed & (2**64 - 1), nbr, mask)
+    return nbr, mask
+
+
+def distribute_affinity(lib: ctypes.CDLL, item: np.ndarray, offset: int,
+                        item_len: int, num_parts: int, capacity: int,
+                        color: np.ndarray, topk_colors: np.ndarray,
+                        affinity: np.ndarray, meta: np.ndarray) -> np.ndarray:
+    """Part of each of ``item[offset:offset + item_len]`` (int32
+    [item_len]), see ``cg_distribute_affinity``; meta int32 [num_parts,
+    num_colors + 1]."""
+    item = np.ascontiguousarray(item, dtype=np.int64)
+    if not 0 <= offset <= offset + item_len <= item.shape[0]:
+        raise ValueError(f"items [{offset}, {offset + item_len}) out of "
+                         f"range of {item.shape[0]}")
+    color = np.ascontiguousarray(color, dtype=np.int64)
+    topk_colors = np.ascontiguousarray(topk_colors, dtype=np.int64)
+    affinity = np.ascontiguousarray(affinity, dtype=np.float64)
+    meta = np.ascontiguousarray(meta, dtype=np.int32)
+    num_colors, topk = topk_colors.shape
+    if meta.shape != (num_parts, num_colors + 1):
+        raise ValueError(f"meta shape {meta.shape} != "
+                         f"({num_parts}, {num_colors + 1})")
+    if affinity.shape != topk_colors.shape:
+        raise ValueError("affinity and topk_colors differ in shape")
+    out = np.empty(item_len, dtype=np.int32)
+    lib.cg_distribute_affinity(item, offset, item_len, num_parts, capacity,
+                               color, topk_colors.reshape(-1),
+                               affinity.reshape(-1), topk, num_colors,
+                               meta.reshape(-1), out)
+    return out
 
 
 def gather_rows(lib: ctypes.CDLL, features: np.ndarray, ids: np.ndarray,

@@ -2,12 +2,18 @@
 coala_gnn_tpu/ops/aggregate.py).
 
 Two block layouts, as in the JAX package:
-  - ``adj`` given: int32 [n_dst, fanout] local indices into the layer input;
-    aggregation is ``fanout`` row gathers with f32 accumulation.
+  - ``adj`` given (the host sampler's dedup layout): int32 [n_dst, fanout]
+    local indices into the layer input; aggregation is ``fanout`` row
+    gathers with f32 accumulation. On a CUDA tensor that is the
+    gather-SpMM kernel's contract, so ``padded_gather_sum`` launches it
+    (and through it ``padded_mean``, ``agg_sum`` and ``agg_mean`` with an
+    adj); its backward is the kernel's ``grad_x`` over a transpose of adj
+    built per call (adj changes every step). On a CPU tensor it is the
+    slot-order loop, the kernel's plain version.
   - ``adj is None``: the device sampler's contiguous SLOT-major layout, where
     the neighbour in slot (i, k) sits at input row ``cap_dst + k*cap_dst + i``;
     aggregation is ``fanout`` multiply-adds over contiguous [cap_dst, dim]
-    planes, with no gather at all.
+    planes, with no gather at all (torch ops, as JAX leaves them to XLA).
 
 bf16 inputs accumulate in f32 and round back to the input dtype at the end,
 and slots are summed in order k = 0..F-1, exactly as the JAX functions do.
@@ -28,7 +34,13 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def padded_gather_sum(x_src: torch.Tensor, adj: torch.Tensor,
                       weights: torch.Tensor) -> torch.Tensor:
-    """out[i] = sum_k weights[i, k] * x_src[adj[i, k]] -> [n_dst, dim]."""
+    """out[i] = sum_k weights[i, k] * x_src[adj[i, k]] -> [n_dst, dim]:
+    the gather-SpMM kernel on a CUDA tensor, the slot-order loop on the
+    CPU."""
+    if x_src.is_cuda:
+        return gather_spmm(x_src.contiguous(), adj.to(torch.int32).contiguous(),
+                           weights.to(torch.float32).contiguous()
+                           ).to(x_src.dtype)
     acc_t = _acc_dtype(x_src.dtype)
     acc = torch.zeros(adj.shape[0], x_src.shape[1], dtype=acc_t,
                       device=x_src.device)

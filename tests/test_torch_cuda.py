@@ -306,3 +306,34 @@ def test_staged_window_on_card(cuda):
     assert flat.direct and flat.full_coverage
     assert torch.isfinite(l_staged).all()
     torch.testing.assert_close(l_staged, l_flat, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_padded_mean_with_adj_launches_the_kernel(cuda):
+    """The dedup layout's aggregation (``ops.aggregate.padded_mean`` with
+    an adj, the host pipeline's SAGE layers) goes through the kernel on the
+    card: one forward launch, and for an input that needs a gradient one
+    transpose and one grad_x; the result and the gradient into x agree
+    with the CPU plain version (the slot-order loop and its autograd)."""
+    from coala_gnn_tpu_torch.ops import gather_spmm as ops
+    from coala_gnn_tpu_torch.ops.aggregate import padded_mean
+
+    S, N, F, D = 6144, 1024, 5, 256
+    adj, w = _adj_w(cuda, S, N, F)
+    mask = (w > 0).float()
+    x = torch.randn(S, D, generator=cuda, device="cuda", requires_grad=True)
+    g = torch.randn(N, D, generator=cuda, device="cuda")
+    ops.reset_launches()
+    out = padded_mean(x, adj, mask)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {**{k: 0 for k in LAUNCHES},
+                              "gather_spmm[float32]": 1, "adj_transpose": 1,
+                              "gather_spmm_grad_x": 1}
+    x_cpu = x.detach().cpu().requires_grad_(True)
+    ref = padded_mean(x_cpu, adj.cpu(), mask.cpu())
+    (ref * g.cpu()).sum().backward()
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-5)
+    count = mask.sum(dim=1).clamp_min(1.0)
+    bound = grad_x_error_bound(adj, mask / count[:, None], g, S)
+    assert ((x.grad.cpu() - x_cpu.grad).abs() <= bound.cpu() + 1e-6).all()

@@ -1,10 +1,12 @@
 """The port stands alone: in a fresh interpreter with the JAX package
 (coala_gnn_tpu) and jax, flax, optax and ml_dtypes blocked, every module of
 coala_gnn_tpu_torch and the chip scripts (chip_smoke.py, chip_profile.py,
-chip_compare.py) import, and a
+chip_compare.py) import, a
 tiny ResidentTrainer (on the port's own synthetic graph and host store)
 trains one window at full coverage and staged windows under pressure with
-bf16 and int8 transport (fused native and gather + encode stores)."""
+bf16 and int8 transport (fused native and gather + encode stores), and
+the host pipeline runs (``run_host`` under pressure, the CLI with a cache
+and eval)."""
 
 import os
 import subprocess
@@ -50,6 +52,14 @@ for native in (True, False):
         assert not rt.direct and (rt._store is not None) == native
         losses, edges = rt.train_windows(grids, seed=0)
         assert torch.isfinite(losses).all() and rt.stats()["misses"] > 0
+from coala_gnn_tpu_torch import train as cli
+from coala_gnn_tpu_torch.parallel.host_pipeline import run_host
+r = run_host(ds, 8, [3, 2], 8, 8, 1, False, 1, 2, device="cpu",
+             prewarm="degree")
+assert np.isfinite(r["losses"]).all() and len(r["losses"]) == 3
+cli.main(["--device", "cpu", "--num_nodes", "300", "--feature_dim", "8",
+          "--batch_size", "8", "--fan_out", "3,2", "--hidden_channels", "8",
+          "--max_steps", "2", "--cache_size", "1", "--eval"])
 jaxish = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("coala_gnn_tpu", "jax", "jaxlib",
                                        "flax", "optax", "ml_dtypes")
