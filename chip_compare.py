@@ -13,10 +13,19 @@ flushed, median of 25, after a warm-up) on the same inputs:
   - grad_x at GAT's two head-stacked combine shapes: a checkout whose
     library has ``gather_spmm_adj_transpose`` runs its gather over the
     transpose (built once beforehand, as the GAT layer keeps it); an older
-    one zeroes the table and adds into it (its wrapper's fill included).
+    one zeroes the table and adds into it (its wrapper's fill included);
+  - grad_w (f32 table) at GAT's two combine shapes;
+  - adj's transpose at the host-packed step's layer-1 shape and at GAT's
+    two combine shapes, each checkout allocating as its wrapper does
+    (row_ptr, slot and, where its form needs it, scratch), and the device
+    operations one call issues (torch.profiler), counted after every
+    timing, with this checkout's transposes timed once more after that
+    (a profiler session slows the card's later launches).
 
-Checks that both checkouts' forward outputs are equal bit for bit and
-their grad_x equal the plain version. Prints one line per entry and a
+Checks that both checkouts' forward outputs are equal bit for bit, their
+grad_w within its f32 bound of the plain version (and reports whether the
+two are equal bit for bit), their grad_x and transposes equal to the
+plain versions. Prints one line per entry and a
 JSON line; needs one card, and exits with a non-zero code without one.
 """
 
@@ -47,12 +56,20 @@ def load(src: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(out)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     sizes = [i64, i32, i32, i32, ptr]
-    for name in ("gather_spmm_f32", "gather_spmm_bf16"):
+    for name in ("gather_spmm_f32", "gather_spmm_bf16",
+                 "gather_spmm_grad_w_f32"):
         getattr(lib, name).argtypes = [ptr] * 4 + sizes
     lib.gather_spmm_i8.argtypes = [ptr] * 5 + sizes
     lib.transposed = hasattr(lib, "gather_spmm_adj_transpose")
     lib.gather_spmm_grad_x.argtypes = ([ptr] * 5 + [i64, i32, i32, ptr]
                                        if lib.transposed else [ptr] * 4 + sizes)
+    if lib.transposed:
+        lib.gather_spmm_adj_transpose.argtypes = [ptr] * 4 + [i64, i64, ptr]
+    for name, args in (("gather_spmm_transpose_scratch", [i64, i64]),
+                       ("gather_spmm_transpose_tiles", [i64])):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = i64
     return lib
 
 
@@ -89,6 +106,47 @@ def grad_x(torch, lib, adj, adj_t, w, g, s):
     return gx
 
 
+def grad_w(torch, lib, x, adj, g):
+    """grad_w [N, F] of an f32 table through ``lib``."""
+    (s, d), (n, f) = x.shape, adj.shape
+    gw = torch.empty(n, f, device="cuda")
+    if lib.gather_spmm_grad_w_f32(x.data_ptr(), adj.data_ptr(), g.data_ptr(),
+                                  gw.data_ptr(), s, n, f, d,
+                                  torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("grad_w launch failed")
+    return gw
+
+
+def transpose(torch, lib, adj, s):
+    """adj's transpose (row_ptr, slot) through ``lib``, allocated as that
+    checkout's wrapper does: a library that can say which form a shape
+    takes gets scratch only for the multi-pass form, an older one always
+    (s + nf + its scan tiles)."""
+    nf = adj.numel()
+    if hasattr(lib, "gather_spmm_transpose_scratch"):
+        words = lib.gather_spmm_transpose_scratch(s, nf)
+        if words < 0:
+            raise RuntimeError("gather_spmm_transpose_scratch failed")
+    else:
+        words = s + nf + lib.gather_spmm_transpose_tiles(s)
+    row_ptr = torch.empty(s + 1, dtype=torch.int32, device="cuda")
+    slot = torch.empty(nf, dtype=torch.int32, device="cuda")
+    scratch = (torch.empty(words, dtype=torch.int32, device="cuda")
+               if words else None)
+    if lib.gather_spmm_adj_transpose(
+            adj.data_ptr(), row_ptr.data_ptr(), slot.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), s, nf,
+            torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("transpose launch failed")
+    return row_ptr, slot
+
+
+def bits(torch, t):
+    """A float tensor's bit patterns (NaNs and signed zeros compared as
+    bits)."""
+    return t.view(torch.int32)
+
+
 def turns(torch, median_ms, other, this) -> dict:
     """other, this, this, other -> the four medians and each side's mean."""
     t = [median_ms(torch, fn) for fn in (other, this, this, other)]
@@ -107,7 +165,8 @@ def main() -> int:
     import chip_smoke as cs
     from coala_gnn_tpu_torch.models.layers import head_stacked_adj
     from coala_gnn_tpu_torch.ops.gather_spmm import (
-        adj_transpose_reference, gather_spmm_grad_x_reference)
+        adj_transpose_reference, gather_spmm_grad_w_reference,
+        gather_spmm_grad_x_reference, grad_w_error_bound)
 
     smi = cs.smi_string()
     libs = {"other": load(os.path.join(sys.argv[1], SOURCE)),
@@ -144,10 +203,60 @@ def main() -> int:
                           *(lambda lib=libs[k]: grad_x(torch, lib, adj, adj_t,
                                                        w, g, S)
                             for k in libs))
+    for layer, (S, N, F, D, cap_src, cap_dst) in enumerate(gat):
+        adj = head_stacked_adj(None, cap_src, (cap_dst, F), cs.HEADS, "cuda")
+        x = torch.randn(S, D, generator=gen, device="cuda")
+        g = torch.randn(N, D, generator=gen, device="cuda")
+        name = f"grad_w GAT layer {layer} ({S}, {N}, {F}, {D})"
+        outs = [grad_w(torch, libs[k], x, adj, g) for k in libs]
+        bound = grad_w_error_bound(x, adj, g)
+        for k, out in zip(libs, outs):
+            err = (out - gather_spmm_grad_w_reference(x, adj, g)).abs()
+            cs.require(bool((err <= bound).all()),
+                       f"{name}: {k} outside the f32 bound of the plain "
+                       "version")
+        res[name] = turns(torch, cs.median_ms,
+                          *(lambda lib=libs[k]: grad_w(torch, lib, x, adj, g)
+                            for k in libs))
+        res[name]["bitwise_equal"] = bool(torch.equal(
+            *(bits(torch, o) for o in outs)))
+        print(f"{name}: outputs bitwise equal between the checkouts: "
+              f"{res[name]['bitwise_equal']}")
+    packed, s_packed = cs.host_packed_adj(torch, gen)
+    counted = []
+    for name, adj, s in [
+            ("adj_transpose host-packed layer 1", packed, s_packed),
+            *((f"adj_transpose GAT layer {layer}",
+               head_stacked_adj(None, cap_src, (cap_dst, F), cs.HEADS,
+                                "cuda"), S)
+              for layer, (S, N, F, D, cap_src, cap_dst) in enumerate(gat))]:
+        form = ("one-block" if libs["this"].gather_spmm_transpose_scratch(
+            s, adj.numel()) == 0 else "multi-pass")
+        name += f" (S {s}, N*F {adj.numel()}, this: {form})"
+        want = adj_transpose_reference(adj, s)
+        for k in libs:
+            got = transpose(torch, libs[k], adj, s)
+            cs.require(bool(torch.equal(got[0], want[0]) and
+                            torch.equal(got[1], want[1])),
+                       f"{name}: {k} differs from the plain version")
+        res[name] = turns(torch, cs.median_ms,
+                          *(lambda lib=libs[k]: transpose(torch, lib, adj, s)
+                            for k in libs))
+        counted.append((name, adj, s))
+    for name, adj, s in counted:      # last: a profiler session slows the
+        res[name]["device_ops"] = {   # card's later launches
+            k: len(cs.device_ops(torch, lambda lib=libs[k]: transpose(
+                torch, lib, adj, s))) for k in libs}
+    for name, adj, s in counted:      # which this shows
+        res[name]["this_ms_after_profiler"] = cs.median_ms(
+            torch, lambda: transpose(torch, libs["this"], adj, s))
     for name, r in res.items():
         print(f"{name}: other {r['other_ms'][0]:.4f} {r['other_ms'][1]:.4f}, "
               f"this {r['this_ms'][0]:.4f} {r['this_ms'][1]:.4f} ms "
-              f"(median of 25 each, L2 flushed; {smi})")
+              f"(median of 25 each, L2 flushed; {smi})"
+              + (f"; device operations per call {r['device_ops']}, this "
+                 f"after a profiler session {r['this_ms_after_profiler']:.4f}"
+                 " ms" if "device_ops" in r else ""))
     print(json.dumps({"card": smi, "entries": res}))
     return 0
 

@@ -18,7 +18,9 @@ same config, and the int8 cache lines on both tiers. Phases:
      shape, a ragged shape, widths 100, 16, 8 and 1, and GAT layer 1's
      combine (D = 16); adj's transpose, grad_w and grad_x (over the
      transpose) at GAT's two head-stacked combine shapes, and the
-     transpose and grad_x on an adj with repeated rows; prints each
+     transpose and grad_x on an adj with repeated rows; the transpose again
+     at the host-packed step's layer-1 shape, where it must take its
+     one-block form; prints the transpose's form at each shape, and each
      kernel's registers and spills; times each against its plain version,
      its bound (bytes or operations over the card's published peak) and,
      for the f32 forward, the one PyTorch call of the same function
@@ -74,8 +76,12 @@ same config, and the int8 cache lines on both tiers. Phases:
      the launches (per dedup step 2 forwards, 1 transpose, 1 grad_x; none
      on the contiguous layout); prints ms/step, edges/s, hit ratio,
      replays, launches per step and the host sampler's and packer's ms
-     per batch; holds the forward at layers 0 and 1 and grad_x at layer 1
-     against their plain versions on one real host-packed step's inputs.
+     per batch; holds the forward at layers 0 and 1, grad_x and adj's
+     transpose at layer 1 against their plain versions on one real
+     host-packed step's inputs (the transpose bitwise, in its one-block
+     form), and last counts the device operations of one transpose call
+     there with torch.profiler (must be one; last, because after a
+     profiler session the card's launches run slower).
 
 Every failure ends the script with a non-zero code. The line before the
 last two is a JSON object with the kernels' launches, errors, times,
@@ -296,6 +302,61 @@ def embedding_bag(torch, x, adj, w):
         adj, x, per_sample_weights=w, mode="sum")
 
 
+def host_packed_adj(torch, gen):
+    """(adj, S) of the host-packed step's layer 1 at the flagship config
+    (dedup layout: N 1,024 dst rows, F 5 slots into S 6,144 source rows,
+    ~20% of slots masked, pointing at their own dst row, as
+    ``sampling.neighbor`` pads them)."""
+    from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
+
+    n, s = block_capacities(BATCH, FANOUTS)[1]
+    f = FANOUTS[1]
+    adj = torch.randint(0, s, (n, f), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    own = torch.arange(n, device="cuda", dtype=torch.int32)[:, None]
+    masked = torch.rand(n, f, generator=gen, device="cuda") < 0.2
+    return torch.where(masked, own.expand(n, f), adj), s
+
+
+def transpose_form(adj, s) -> str:
+    """Which form the card's transpose takes for this shape (the C side's
+    choice, by shared memory)."""
+    from coala_gnn_tpu_torch.ops.gather_spmm import transpose_scratch
+
+    words = transpose_scratch(s, adj.numel(), adj.device)
+    return "one-block" if words == 0 else "multi-pass"
+
+
+def check_transpose(torch, adj, s, what: str) -> str:
+    """The kernel's transpose equal bit for bit to its plain version;
+    returns the form it took."""
+    from coala_gnn_tpu_torch.ops.gather_spmm import (adj_transpose,
+                                                     adj_transpose_reference)
+
+    got, want = adj_transpose(adj, s), adj_transpose_reference(adj, s)
+    require(bool(torch.equal(got[0], want[0]) and
+                 torch.equal(got[1], want[1])),
+            f"adj_transpose {what}: kernel differs from its plain version")
+    return transpose_form(adj, s)
+
+
+def device_ops(torch, fn) -> list:
+    """Names of the device operations (kernels, memsets, copies) that one
+    call of ``fn`` issues, read by torch.profiler after a call outside
+    it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "#" not in e.name and not e.name.startswith("ProfilerStep")]
+
+
 def gat_combine_shapes():
     """(S, N, F, D, cap_src, cap_dst) of GAT's head-stacked combine on each
     layer at the flagship config: S = cap_src * heads rows of feat, N =
@@ -393,12 +454,8 @@ def phase_kernels(torch) -> dict:
         rand_adj = torch.randint(0, S, (N, F), generator=gen, device="cuda",
                                  dtype=torch.int32)
         adj_t = adj_transpose(adj, S)
-        for a in (adj, rand_adj):
-            got, want = (adj_transpose(a, S) if a is rand_adj else adj_t,
-                         adj_transpose_reference(a, S))
-            require(bool(torch.equal(got[0], want[0]) and
-                         torch.equal(got[1], want[1])),
-                    "adj_transpose: kernel differs from its plain version")
+        form = check_transpose(torch, adj, S, f"GAT layer {layer}")
+        check_transpose(torch, rand_adj, S, f"GAT layer {layer}, random")
         gw = gather_spmm_grad_w(x, adj, g)
         err_w = within_bound(torch, gw, gather_spmm_grad_w_reference(
             x, adj, g), grad_w_error_bound(x, adj, g), "grad_w")
@@ -439,9 +496,23 @@ def phase_kernels(torch) -> dict:
                 r.update(times[n])
             print(f"phase 2: {n} GAT layer {layer} combine S,N,F,D="
                   f"({S},{N},{F},{D}): max_abs_err {err:.3g} "
+                  + (f"({form} form, bitwise equal to the plain version) "
+                     if n == "adj_transpose" else "")
                   + describe(n, times[n]))
         print(f"phase 2: gather_spmm[float32] GAT layer {layer} combine "
               f"S,N,F,D=({S},{N},{F},{D}): " + describe("forward", fwd))
+
+    adj, S = host_packed_adj(torch, gen)
+    form = check_transpose(torch, adj, S, "host-packed layer 1")
+    require(form == "one-block", f"adj_transpose host-packed layer 1: "
+            f"{form} form")
+    t = {}
+    timed(torch, t, lambda: adj_transpose(adj, S),
+          lambda: adj_transpose_reference(adj, S), transpose_work(adj, S))
+    print(f"phase 2: adj_transpose host-packed layer 1 S={S} "
+          f"N*F={adj.numel()}: {form} form, bitwise equal to the plain "
+          "version (its device operations per call: phase 10); "
+          + describe("adj_transpose", t))
     return res
 
 
@@ -1147,6 +1218,7 @@ def phase_host_step(torch, ds, device="cuda") -> dict:
                      "host-packed layer 1 grad_x")
     sync(torch, device)
     errs["gather_spmm_grad_x"] = e
+    form = check_transpose(torch, adj, s, "host-packed real step")
     adj_t = adj_transpose(adj, s)
     t_t, t_x = {}, {}
     timed(torch, t_t, lambda: adj_transpose(adj, s),
@@ -1156,8 +1228,16 @@ def phase_host_step(torch, ds, device="cuda") -> dict:
           grad_x_work(torch, adj, w, g, s))
     print(f"phase 10: host-packed layer 1 grad_x over [{s}, {HIDDEN}]: "
           f"max_abs_err {e:.3g} (within the f32 bound of its sums); "
-          f"transpose: " + describe("adj_transpose", t_t) + "; grad_x over "
-          "it: " + describe("grad_x", t_x))
+          f"transpose ({form} form, bitwise equal to the plain version): "
+          + describe("adj_transpose", t_t) + "; grad_x over it: "
+          + describe("grad_x", t_x))
+    # last: after a profiler session the card's launches run slower
+    ops = device_ops(torch, lambda: adj_transpose(adj, s))
+    print(f"phase 10: host-packed layer 1 real step: adj_transpose issues "
+          f"{len(ops)} device operation(s) per call (torch.profiler): {ops}")
+    require(form == "one-block" and len(ops) == 1,
+            f"host-packed real step: transpose in {form} form, device "
+            f"operations per call {ops}")
     return errs
 
 

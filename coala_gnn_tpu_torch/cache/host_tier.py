@@ -51,8 +51,11 @@ class HostFeatureStore:
         """The gather fused with the stage transport's encode, each row read
         once: (rows, None) for float32, (bf16 bits as uint16, None) for
         bfloat16, (int8 rows, f32 scales) for int8; ids < 0 give zero rows
-        (scale 1). None without the native library or for another
-        transport."""
+        (scale 1). None without the native library. Another transport
+        raises ``ValueError`` (the JAX store returns None for it; ROADMAP.md
+        section C)."""
+        if transport not in ("float32", "bfloat16", "int8"):
+            raise ValueError(f"unknown stage transport {transport!r}")
         if not self._native_ok:
             return None
         ids = np.asarray(ids, dtype=np.int64)
@@ -61,8 +64,5 @@ class HostFeatureStore:
         if transport == "bfloat16":
             return native_lib.gather_rows_bf16(self._lib, self.features, ids,
                                                out=enc_out), None
-        if transport == "int8":
-            return native_lib.gather_quantize_rows(
-                self._lib, self.features, ids, q_out=enc_out,
-                scale_out=scale_out)
-        return None
+        return native_lib.gather_quantize_rows(
+            self._lib, self.features, ids, q_out=enc_out, scale_out=scale_out)

@@ -53,11 +53,19 @@
 // group may span warps.
 //
 // grad_w[n, k] = <g[n, :], x[adj[n, k], :]>. Bound by bytes: it reads the
-// forward's rows again plus g (N x D x 4). One warp per dst row; each slot's
-// partial dot products are reduced by warp shuffles and written by lane 0.
-// It is computed for EVERY slot, w == 0 included: the forward may skip such
-// a slot because it contributes nothing, but the derivative with respect to
-// its weight is not zero.
+// forward's rows again plus g (N x D x 4). A row at least a warp's vectors
+// wide (f32 D >= 128 at 16-byte vectors; GAT layer 0) takes one warp per
+// dst row; each slot's partial dot products are reduced by warp shuffles
+// and written by lane 0. A narrower row would leave most of that warp's
+// lanes empty (GAT layer 1, f32 D = 16: 4 live lanes of 32, its F slots one
+// after another), so there each (dst row, slot) pair gets a lane group of
+// lanes_for(row bytes) lanes, 32 / lanes dots per warp at once, reduced
+// over the group's lanes only. The sums are bitwise the warp form's: a
+// lane's partial is the same fmaf chain in both, the group's xor levels
+// are the warp tree's lowest ones, and the warp tree's upper levels add
+// +0 from lanes that hold no data. It is computed for EVERY slot, w == 0
+// included: the forward may skip such a slot because it contributes
+// nothing, but the derivative with respect to its weight is not zero.
 //
 // grad_x[s, :] = sum over the slots (n, k) with adj[n, k] = s, in slot
 // order n * F + k, of w[n, k] * g[n, :]. Bound by bytes: it writes S x D x 4
@@ -80,13 +88,30 @@
 // (g finite) and is skipped.
 //
 // The transpose (gather_spmm_adj_transpose): count per row (atomics), an
-// exclusive scan (three coalesced passes), a placement by atomics, then an ordering
-// pass that puts each row's slots in slot order: slot j lands at
-// row_ptr[r] + #{slots of row r below j}, found by a walk over row r's
-// placed slots. That walk costs sum over rows of (slots per row)^2: one
-// per slot on GAT's contiguous layout, where every row is named by one
-// slot. Out-of-range indices are skipped; slot entries past row_ptr[S]
-// hold -1. GAT builds it once per shape (its adj depends only on shapes).
+// exclusive scan, a placement by atomics, then an ordering pass that puts
+// each row's slots in slot order: slot j lands at row_ptr[r] + #{slots of
+// row r below j}, found by a walk over row r's placed slots. That walk
+// costs sum over rows of (slots per row)^2: one per slot on GAT's
+// contiguous layout, where every row is named by one slot, a few on a
+// sampled layer's. Out-of-range indices are skipped; slot entries past
+// row_ptr[S] hold -1. Its work is a few int32 per slot, so what bounds it
+// is the chain of dependent passes, each a launch and a trip to device
+// memory. Two forms, chosen by the shape alone:
+//   - one launch, one block of kScanThreads, where the counts and the
+//     placed slots (S + N * F int32) fit the block's shared memory (227 KB
+//     on this card: the per-step adj of a sampled layer 1, S 6,144 x 5,120
+//     slots, and GAT layer 1's kept one, S 24,576 x 20,480): every pass
+//     runs in shared memory between barriers, and only adj (read once
+//     where it fits the registers), row_ptr and slot touch device memory.
+//     The placement's cursors are the scanned counts themselves: after it,
+//     count[r] holds row r's end, so no memset and no scratch. One SM does
+//     all of it, so the design counts its instructions and bank conflicts
+//     (see the kernel);
+//   - else (GAT layer 0: S 270,336 x 245,760 slots, 2 MB) the multi-pass
+//     form over device-memory scratch: two memsets, count, a three-pass
+//     scan over tiles, placement and ordering, each a grid of its own.
+// GAT builds it once per shape (its adj depends only on shapes); a sampled
+// layer whose input needs a gradient builds it every step.
 //
 // Vector width: each lane moves VB bytes per access, the largest of 16,
 // 8, 4, 2, 1 that divides both D * sizeof(T) and the base addresses, so any
@@ -97,21 +122,27 @@
 // passes 2^31 at 10M x 1024.
 //
 // The kernels allocate nothing, launch on the caller's stream and do not
-// synchronise (the transpose clears its scratch with cudaMemsetAsync on
-// that stream). Each entry point returns cudaGetLastError().
+// synchronise (the multi-pass transpose clears its scratch with
+// cudaMemsetAsync on that stream). Each entry point returns
+// cudaGetLastError(), or the error of a refused launch attribute.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kThreads = 256;     // forward, grad_x, transpose blocks
+constexpr int kThreads = 256;     // forward, narrow grad_w, grad_x and
+                                  // multi-pass transpose blocks
 constexpr int kBatch = 4;         // slots whose reads are in flight together
-constexpr int kRowsPerBlock = 8;  // grad_w: one warp per dst row
+constexpr int kRowsPerBlock = 8;  // grad_w, wide rows: one warp per dst row
 constexpr int kRowsPerGroup = 8;  // grad_x: table rows per lane group
 constexpr int kScanThreads = 1024;
+constexpr int kSlotBatch = 8;     // one-block transpose: slots per thread
+                                  // in registers (a sampled layer 1's all)
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // VB bytes of a row, as one load.
@@ -294,6 +325,36 @@ grad_w_kernel(const T* __restrict__ x, const int32_t* __restrict__ adj,
   }
 }
 
+// grad_w for rows narrower than a warp's vectors: a group of `lanes` (< 32)
+// lanes per (dst row, slot) pair q = n * F + k, one pass over the row
+// (lanes * E >= D). Every lane of a warp reaches the shuffles, pairs past
+// the end included.
+template <typename T, int VB>
+__global__ void __launch_bounds__(kThreads)
+grad_w_narrow_kernel(const T* __restrict__ x, const int32_t* __restrict__ adj,
+                     const float* __restrict__ g, float* __restrict__ gw,
+                     int64_t s, int64_t pairs, int f, int d, int lanes) {
+  constexpr int E = VB / sizeof(T);
+  const int64_t q =
+      (int64_t)blockIdx.x * (kThreads / lanes) + threadIdx.x / lanes;
+  const int sub = threadIdx.x % lanes;
+  const bool in = q < pairs;
+  const int64_t idx = in ? __ldg(adj + q) : 0;
+  const bool bad = in && out_of_range(idx, s);
+  const int c = sub * E;
+  float part = 0.f;
+  if (in && !bad && c < d) {
+    float v[E], gv[E];
+    widen_raw<T, VB>(load_raw<VB>(x + idx * d + c), v);
+    load_f32<E>(g + (q / f) * d + c, gv);
+#pragma unroll
+    for (int e = 0; e < E; ++e) part = fmaf(gv[e], v[e], part);
+  }
+  for (int off = lanes / 2; off > 0; off /= 2)
+    part += __shfl_xor_sync(kFullMask, part, off);
+  if (in && sub == 0) gw[q] = bad ? __int_as_float(0x7fc00000) : part;
+}
+
 template <int VB>
 __global__ void __launch_bounds__(kThreads)
 grad_x_kernel(const int32_t* __restrict__ row_ptr,
@@ -465,6 +526,95 @@ order_slots_kernel(const int32_t* __restrict__ adj, int64_t nf, int64_t s,
   }
 }
 
+// kSlotBatch slots of adj from j0 on, one per kScanThreads stride, into r
+// (-1 past nf): all reads in flight before any is used.
+__device__ __forceinline__ void load_slots(const int32_t* __restrict__ adj,
+                                           int j0, int nf, int32_t* r) {
+#pragma unroll
+  for (int b = 0; b < kSlotBatch; ++b) {
+    const int j = j0 + b * kScanThreads + threadIdx.x;
+    r[b] = j < nf ? __ldg(adj + j) : -1;
+  }
+}
+
+// The whole transpose in one block of kScanThreads, s + nf <= 2^16: dynamic
+// shared memory holds count [s] and placed [nf].
+//   - count goes through three lives: the rows' counts, their exclusive
+//     scan, and, as the placement's cursors advance, each row's end (row
+//     r's slots then lie at [r ? count[r - 1] : 0, count[r]), and
+//     row_ptr[r + 1] = count[r]).
+//   - The scan: thread t sums rows [t * per, t * per + per) alone, one
+//     block scan of those sums, then t writes its rows' prefixes. per is
+//     odd, so a warp's 32 reads fall in 32 banks.
+//   - A slot's row stays in registers from the count to the placement
+//     where every slot fits one batch (nf <= kScanThreads * kSlotBatch),
+//     else it is read again.
+//   - placed[p] packs (row << 16 | slot), so the last pass walks the
+//     positions p in order: it reads the row beside the slot, ranks the
+//     slot among its row's placed slots (none on a row named once), and
+//     its store lands at p itself where the row is named once: the stores
+//     are coalesced, and adj is not read a third time.
+__global__ void __launch_bounds__(kScanThreads)
+transpose_one_block_kernel(const int32_t* __restrict__ adj, int s, int nf,
+                           int32_t* __restrict__ row_ptr,
+                           int32_t* __restrict__ slot) {
+  extern __shared__ int32_t smem[];
+  __shared__ int32_t total;
+  int32_t* count = smem;
+  uint32_t* placed = reinterpret_cast<uint32_t*>(smem + s);
+  const int t = threadIdx.x;
+  constexpr int kStep = kScanThreads * kSlotBatch;
+  const bool held = nf <= kStep;
+
+  int32_t r[kSlotBatch];
+  load_slots(adj, 0, nf, r);            // in flight while count is zeroed
+  for (int i = t; i < s; i += kScanThreads) count[i] = 0;
+  __syncthreads();
+  for (int j0 = 0; j0 < nf; j0 += kStep) {
+    if (j0 > 0) load_slots(adj, j0, nf, r);
+#pragma unroll
+    for (int b = 0; b < kSlotBatch; ++b)
+      if (!out_of_range(r[b], s)) atomicAdd(count + r[b], 1);
+  }
+  __syncthreads();
+  const int per = ((s + kScanThreads - 1) / kScanThreads) | 1;
+  const int lo = min(t * per, s), hi = min(lo + per, s);
+  int32_t sum = 0;
+  for (int i = lo; i < hi; ++i) sum += count[i];
+  int32_t run = block_scan(sum, &total);
+  for (int i = lo; i < hi; ++i) {
+    const int32_t c = count[i];
+    count[i] = run;
+    run += c;
+  }
+  const int in_range = total;
+  __syncthreads();
+  for (int j0 = 0; j0 < nf; j0 += kStep) {   // placement, any order
+    if (!held) load_slots(adj, j0, nf, r);
+#pragma unroll
+    for (int b = 0; b < kSlotBatch; ++b)
+      if (!out_of_range(r[b], s))
+        placed[atomicAdd(count + r[b], 1)] =
+            static_cast<uint32_t>(r[b]) << 16 | (j0 + b * kScanThreads + t);
+  }
+  __syncthreads();
+  for (int i = t; i <= s; i += kScanThreads)
+    row_ptr[i] = i ? count[i - 1] : 0;
+  for (int p = t; p < nf; p += kScanThreads) {  // each slot to its rank
+    if (p >= in_range) {
+      slot[p] = -1;
+      continue;
+    }
+    const uint32_t v = placed[p];
+    const int row = static_cast<int>(v >> 16);
+    const int beg = row ? count[row - 1] : 0, end = count[row];
+    int rank = 0;
+    if (end - beg > 1)
+      for (int q = beg; q < end; ++q) rank += placed[q] < v;
+    slot[beg + rank] = static_cast<int32_t>(v & 0xffffu);
+  }
+}
+
 // Largest vector width (bytes, at least sizeof(T)) that divides both the
 // row's bytes and the base address of every row-major operand.
 template <typename T>
@@ -548,10 +698,20 @@ template <typename T, int VB>
 void grad_w_vb(const void* x, const void* adj, const void* g, void* gw,
                int64_t s, int n, int f, int d, cudaStream_t stream) {
   if constexpr (VB >= (int)sizeof(T)) {
-    grad_w_kernel<T, VB><<<(n + kRowsPerBlock - 1) / kRowsPerBlock,
-                           kWarp * kRowsPerBlock, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const int32_t*>(adj),
-        static_cast<const float*>(g), static_cast<float*>(gw), s, n, f, d);
+    const int lanes = lanes_for((int64_t)d * sizeof(T), VB);
+    if (lanes < kWarp) {
+      const int64_t pairs = (int64_t)n * f;
+      grad_w_narrow_kernel<T, VB><<<group_blocks(pairs, lanes), kThreads, 0,
+                                    stream>>>(
+          static_cast<const T*>(x), static_cast<const int32_t*>(adj),
+          static_cast<const float*>(g), static_cast<float*>(gw), s, pairs, f,
+          d, lanes);
+    } else {
+      grad_w_kernel<T, VB><<<(n + kRowsPerBlock - 1) / kRowsPerBlock,
+                             kWarp * kRowsPerBlock, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<const int32_t*>(adj),
+          static_cast<const float*>(g), static_cast<float*>(gw), s, n, f, d);
+    }
   }
 }
 
@@ -591,13 +751,54 @@ void grad_x_vb(const void* row_ptr, const void* slot, const void* w,
       static_cast<const float*>(g), static_cast<float*>(gx), s, f, d, lanes);
 }
 
+// The most int32 words (s + nf) the one-block transpose holds in one
+// block's shared memory on the current device, its static shared memory
+// left out, and at most 2^16 (a placed entry packs a row and a slot in 16
+// bits each). The first call on a device raises the kernel's dynamic
+// shared memory limit to that (above 48 KB it must be asked for) and keeps
+// the answer, so a launch pays for neither; -1 if the device refused.
+int64_t one_block_words() {
+  constexpr int kMaxDevices = 64;
+  static int64_t words[kMaxDevices] = {};   // 0: not asked yet
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return -1;
+  if (words[dev] == 0) {
+    int optin = 0;
+    cudaFuncAttributes attr;
+    if (cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess ||
+        cudaFuncGetAttributes(&attr, transpose_one_block_kernel) !=
+            cudaSuccess)
+      return -1;
+    const int bytes = optin - static_cast<int>(attr.sharedSizeBytes);
+    if (cudaFuncSetAttribute(transpose_one_block_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes) != cudaSuccess)
+      return -1;
+    words[dev] = std::min(bytes / static_cast<int>(sizeof(int32_t)), 1 << 16);
+  }
+  return words[dev];
+}
+
+// The error a failed query left, never cudaSuccess.
+int failed_query() {
+  const cudaError_t err = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Scan tiles of the transpose over s rows (its scratch holds one int each).
-int64_t gather_spmm_transpose_tiles(int64_t s) {
-  return (s + kScanThreads - 1) / kScanThreads;
+// int32 scratch words the transpose of nf slots over s rows needs on the
+// current device: 0 where one block holds it in shared memory (the
+// one-launch form), else s + nf + its scan tiles (the multi-pass form);
+// -1 if the device cannot be asked.
+int64_t gather_spmm_transpose_scratch(int64_t s, int64_t nf) {
+  const int64_t words = one_block_words();
+  if (words < 0) return -1;
+  return s + nf <= words ? 0 : s + nf + (s + kScanThreads - 1) / kScanThreads;
 }
 
 // x [s, d] f32, adj [n, f] int32, w [n, f] f32 -> out [n, d] f32.
@@ -635,17 +836,28 @@ int gather_spmm_grad_w_bf16(const void* x, const void* adj, const void* g,
 
 // The transpose of adj [nf] (int32, rows in [0, s)): row_ptr [s + 1] and
 // slot [nf] (each row's slots in slot order; -1 past row_ptr[s]). scratch
-// is int32 [s + nf + transpose_tiles(s)].
+// is int32 [gather_spmm_transpose_scratch(s, nf)], null where that is 0:
+// then one launch, else the multi-pass form's eight device operations.
 int gather_spmm_adj_transpose(const void* adj, void* row_ptr, void* slot,
                               void* scratch, int64_t s, int64_t nf,
                               void* stream_p) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_p);
   const int32_t* a = static_cast<const int32_t*>(adj);
   int32_t* rp = static_cast<int32_t*>(row_ptr);
+  const int64_t need = gather_spmm_transpose_scratch(s, nf);
+  if (need < 0) return failed_query();
+  if (need == 0) {
+    const int bytes = static_cast<int>((s + nf) * sizeof(int32_t));
+    transpose_one_block_kernel<<<1, kScanThreads, bytes, st>>>(
+        a, static_cast<int>(s), static_cast<int>(nf), rp,
+        static_cast<int32_t*>(slot));
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int32_t* counts = static_cast<int32_t*>(scratch);
   int32_t* placed = counts + s;
   int32_t* tile_sums = placed + nf;
-  const int64_t tiles = gather_spmm_transpose_tiles(s);
+  const int64_t tiles = (s + kScanThreads - 1) / kScanThreads;
   cudaMemsetAsync(counts, 0, s * sizeof(int32_t), st);
   cudaMemsetAsync(slot, 0xff, nf * sizeof(int32_t), st);
   const unsigned blocks = stride_blocks(nf);

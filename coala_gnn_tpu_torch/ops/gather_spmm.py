@@ -293,23 +293,40 @@ def gather_spmm_grad_w(x: torch.Tensor, adj: torch.Tensor,
     return gw
 
 
+def transpose_scratch(s: int, nf: int, device: torch.device) -> int:
+    """int32 scratch words the card's transpose of ``nf`` slots over ``s``
+    rows needs on ``device`` (the C side decides, by the shape alone): 0
+    where one thread block holds the whole transpose in shared memory (one
+    launch; row_ptr and slot are its only allocations), else
+    s + nf + scan tiles (the multi-pass form over device memory)."""
+    lib = _library()
+    with torch.cuda.device(device):
+        words = lib.gather_spmm_transpose_scratch(s, nf)
+    if words < 0:
+        raise RuntimeError("gather_spmm_transpose_scratch: the card's shared "
+                           "memory limit could not be read")
+    return words
+
+
 def adj_transpose(adj: torch.Tensor, s: int) -> Transpose:
     """The transpose of int32 ``adj`` [N, F] over ``s`` table rows (see
-    ``Transpose``): the plain version on the CPU, the kernels on the card
-    (count, scan, placement, slot order)."""
+    ``Transpose``): the plain version on the CPU, on the card one kernel
+    in one block's shared memory where the shape fits it, else the
+    multi-pass kernels (count, scan, placement, slot order)."""
     if adj.dtype != torch.int32 or adj.dim() != 2 or not adj.is_contiguous():
         raise TypeError("adj_transpose: adj must be contiguous int32 [N, F]")
     _check_int32_rows(s, adj.numel())
     if adj.device.type == "cpu":
         return adj_transpose_reference(adj, s)
     nf = adj.numel()
+    words = transpose_scratch(s, nf, adj.device)
     row_ptr = torch.empty(s + 1, dtype=torch.int32, device=adj.device)
     slot = torch.empty(nf, dtype=torch.int32, device=adj.device)
-    scratch = torch.empty(s + nf + _library().gather_spmm_transpose_tiles(s),
-                          dtype=torch.int32, device=adj.device)
+    scratch = (torch.empty(words, dtype=torch.int32, device=adj.device)
+               if words else None)
     _launch("gather_spmm_adj_transpose", "adj_transpose", adj.device,
             adj.data_ptr(), row_ptr.data_ptr(), slot.data_ptr(),
-            scratch.data_ptr(), s, nf)
+            None if scratch is None else scratch.data_ptr(), s, nf)
     return row_ptr, slot
 
 
@@ -400,8 +417,8 @@ def _library() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [ptr] * 4 + sizes
     lib.gather_spmm_i8.argtypes = [ptr] * 5 + sizes
     lib.gather_spmm_adj_transpose.argtypes = [ptr] * 4 + [i64, i64, ptr]
-    lib.gather_spmm_transpose_tiles.argtypes = [i64]
-    lib.gather_spmm_transpose_tiles.restype = i64
+    lib.gather_spmm_transpose_scratch.argtypes = [i64, i64]
+    lib.gather_spmm_transpose_scratch.restype = i64
     lib.gather_spmm_grad_x.argtypes = [ptr] * 5 + [i64, i32, i32, ptr]
     for name in (*_ENTRY.values(), *_GRAD_W_ENTRY.values(),
                  "gather_spmm_adj_transpose", "gather_spmm_grad_x"):

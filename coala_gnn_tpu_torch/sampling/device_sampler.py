@@ -55,7 +55,7 @@ def to_device_graph(graph, device) -> DeviceGraph:
     if getattr(graph, "edge_types", None) is not None:
         raise NotImplementedError(
             "typed (hetero) sampling is not ported yet: ROADMAP.md queue A, "
-            "\"GCN, GAT and hetero\"")
+            "\"hetero models and typed sampling\"")
     assert_ids_fit_int32(graph.num_nodes)
     indptr = np.asarray(graph.indptr, dtype=np.int64)
     indptr = np.concatenate([indptr, indptr[-1:]])

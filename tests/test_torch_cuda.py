@@ -20,9 +20,9 @@ import torch
 
 from coala_gnn_tpu_torch.ops.gather_spmm import (
     LAUNCHES, adj_transpose, adj_transpose_reference, gather_spmm,
-    gather_spmm_grad_w_reference, gather_spmm_grad_x,
+    gather_spmm_grad_w, gather_spmm_grad_w_reference, gather_spmm_grad_x,
     gather_spmm_grad_x_reference, gather_spmm_reference, grad_w_error_bound,
-    grad_x_error_bound)
+    grad_x_error_bound, transpose_scratch)
 
 torch.set_num_threads(1)
 
@@ -71,7 +71,26 @@ def test_int8_kernel_matches_plain(cuda):
 def test_grad_kernels_match_plain(cuda, dtype):
     """grad_w (every slot, w == 0 included) and grad_x, on random adj
     (repeated rows: within the bound) and on a permutation (each table row
-    referenced once: grad_x exact)."""
+    referenced once: grad_x exact); then grad_w at every width of
+    GRAD_W_WIDTHS (rows narrower than a warp's vectors take a lane group
+    per slot, wider ones a warp per dst row), out-of-range slots giving
+    NaN."""
+    for D in GRAD_W_WIDTHS:
+        S, N, F = 700, 300, 5
+        x = torch.randn(S, D, generator=cuda, device="cuda").to(dtype)
+        g = torch.randn(N, D, generator=cuda, device="cuda")
+        adj, w = _adj_w(cuda, S, N, F)
+        adj[3, 1], adj[7, 4], adj[N - 1, 0] = -1, S, 2**30
+        bad = (adj < 0) | (adj >= S)
+        before = LAUNCHES["gather_spmm_grad_w"]
+        gw = gather_spmm_grad_w(x, adj, g)
+        torch.cuda.synchronize()
+        assert LAUNCHES["gather_spmm_grad_w"] == before + 1
+        assert gw[bad].isnan().all() and not gw[~bad].isnan().any()
+        ok = torch.where(bad, torch.zeros_like(adj), adj)
+        err = (gw - gather_spmm_grad_w_reference(x, ok, g)).abs()
+        assert (err <= grad_w_error_bound(x, ok, g))[~bad].all(), D
+        assert (gw[(w == 0) & ~bad] != 0).any()
     for S, N, F, D in SHAPES:
         x = torch.randn(S, D, generator=cuda, device="cuda").to(dtype)
         g = torch.randn(N, D, generator=cuda, device="cuda")
@@ -108,6 +127,7 @@ def test_grad_kernels_match_plain(cuda, dtype):
 SHAPES = [(100, 40, 5, 128), (64, 300, 3, 256), (50, 17, 10, 128),
           (1000, 6144, 10, 256), (9, 3, 1, 8), (60, 20, 5, 100),
           (2000, 50, 7, 100), (300, 40, 5, 16), (61, 7, 3, 1)]
+GRAD_W_WIDTHS = [1, 2, 3, 8, 16, 31, 32, 64, 128, 256]
 
 
 def _adj_w(gen, S, N, F):
@@ -190,30 +210,71 @@ def test_forward_at_training_shapes(cuda):
                 atol=1e-5)
 
 
+def _one_block_words(device) -> int:
+    """The largest S + 1 + N * F whose transpose takes the one-block form
+    on ``device`` (the C side's shared-memory limit, found by bisection)."""
+    lo, hi = 1, 2**22                 # fits(lo), not fits(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = ((mid, hi) if transpose_scratch(0, mid - 1, device) == 0
+                  else (lo, mid))
+    return lo
+
+
 @pytest.mark.cuda
 def test_transpose_kernel_equals_plain(cuda):
-    """Injective (GAT's contiguous layout), repeated, mostly empty rows,
-    out-of-range indices, one row named by a fifth of the slots: the
-    kernels' row_ptr and slot equal the plain version's exactly."""
+    """Both forms of the transpose equal the plain version bit for bit:
+    the main path's shapes (a sampled layer 1's per-step adj, masked slots
+    naming their own dst row; GAT's layers 1 and 0, head-stacked), S and
+    N * F at the one-block limit and one past it, N * F = 0, every slot
+    naming one row (longer than a block), out-of-range entries and rows
+    named by no slot. Each small case runs again over S + the limit rows
+    (never named), which takes the multi-pass form."""
     from coala_gnn_tpu_torch.models.layers import head_stacked_adj
 
-    cases = [(head_stacked_adj(None, 6144, (1024, 5), 4, "cuda"), 6144 * 4),
-             (torch.randint(0, 50, (300, 7), generator=cuda, device="cuda",
-                            dtype=torch.int32), 50),
-             (torch.randint(900, 910, (40, 3), generator=cuda, device="cuda",
-                            dtype=torch.int32), 5000),
-             (torch.randint(-5, 105, (64, 9), generator=cuda, device="cuda",
-                            dtype=torch.int32), 100)]
+    words = _one_block_words(torch.device("cuda"))
+    assert 48 * 1024 // 4 < words < 232_448 // 4 + 1
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=cuda, device="cuda",
+                             dtype=torch.int32)
+
+    packed = ints(0, 6144, (1024, 5))
+    own = torch.arange(1024, device="cuda", dtype=torch.int32)[:, None]
+    packed = torch.where(torch.rand(1024, 5, generator=cuda, device="cuda")
+                         < 0.2, own.expand(1024, 5), packed)
+    s_lim = words // 3
+    nf_lim = words - 1 - s_lim
+    small = [(ints(0, 50, (300, 7)), 50),                   # repeated rows
+             (ints(900, 910, (40, 3)), 5000),               # unnamed rows
+             (ints(-5, 105, (64, 9)), 100),                 # out of range
+             (torch.zeros(0, 5, device="cuda", dtype=torch.int32), 100),
+             (torch.full((600, 5), 17, device="cuda", dtype=torch.int32),
+              50)]                                          # one long row
+    cases = [(packed, 6144, True),
+             (head_stacked_adj(None, 6144, (1024, 5), 4, "cuda"), 6144 * 4,
+              True),
+             (head_stacked_adj(None, 67_584, (6144, 10), 4, "cuda"),
+              67_584 * 4, False),
+             (ints(-3, s_lim + 3, (nf_lim, 1)), s_lim, True),
+             (ints(-3, s_lim + 3, (nf_lim, 1)), s_lim + 1, False),
+             (ints(0, s_lim, (nf_lim + 1, 1)), s_lim, False)]
+    cases += [(adj, s, True) for adj, s in small]
+    cases += [(adj, s + words, False) for adj, s in small]
     skew, _ = _adj_w(cuda, 270_336, 24_576, 10)
     skew[torch.rand(skew.shape, generator=cuda, device="cuda") < 0.2] = 0
-    cases.append((skew, 270_336))
-    for adj, s in cases:
+    cases.append((skew, 270_336, False))
+    for adj, s, one_block in cases:
+        nf = adj.numel()
+        assert (transpose_scratch(s, nf, adj.device) == 0) == one_block, \
+            (s, nf)
         before = LAUNCHES["adj_transpose"]
         got = adj_transpose(adj, s)
         torch.cuda.synchronize()
         assert LAUNCHES["adj_transpose"] == before + 1
         want = adj_transpose_reference(adj, s)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            (s, nf, one_block)
 
 
 @pytest.mark.cuda

@@ -325,13 +325,20 @@ def _adj_case(rng, case):
         return rng.integers(0, 9, size=(15, 6)).astype(np.int32), 9
     if case == "empty_rows":       # most table rows named by no slot
         return rng.integers(40, 45, size=(7, 3)).astype(np.int32), 100
+    if case == "no_slots":         # N * F = 0
+        return np.zeros((0, 4), np.int32), 10
+    if case == "one_long_row":     # every slot names one row, > a block
+        return np.full((300, 5), 4, np.int32), 10
     adj = rng.integers(0, 20, size=(10, 5)).astype(np.int32)
     adj[[0, 3, 7], [1, 4, 0]] = [-1, 20, 99]            # out of range
     return adj, 20
 
 
-@pytest.mark.parametrize("case", ["injective", "repeated", "empty_rows",
-                                  "out_of_range"])
+TRANSPOSE_CASES = ["injective", "repeated", "empty_rows", "out_of_range",
+                   "no_slots", "one_long_row"]
+
+
+@pytest.mark.parametrize("case", TRANSPOSE_CASES)
 def test_adj_transpose_reference(rng, case):
     from coala_gnn_tpu_torch.ops.gather_spmm import (adj_transpose,
                                                      adj_transpose_reference)
@@ -345,6 +352,64 @@ def test_adj_transpose_reference(rng, case):
         np.testing.assert_array_equal(row_ptr.numpy(), want[0])
         np.testing.assert_array_equal(slot.numpy(), want[1])
     assert LAUNCHES == before
+
+
+def _one_block_transpose(adj, s, rng):
+    """The one-block transpose kernel's algorithm in numpy, its placement
+    atomics in a random order: count; exclusive scan in place (= row_ptr);
+    the scanned counts as cursors, so each ends at its row's end; then each
+    slot to its rank among its row's placed slots."""
+    flat = adj.reshape(-1).astype(np.int64)
+    ok = (flat >= 0) & (flat < s)
+    count = np.zeros(s + 1, np.int64)
+    np.add.at(count, flat[ok], 1)
+    count[s] = count[:s].sum()
+    count[:s] = np.cumsum(count[:s]) - count[:s]
+    row_ptr = count.copy()
+    placed = np.empty(flat.size, np.int64)
+    for j in rng.permutation(np.flatnonzero(ok)):
+        placed[count[flat[j]]] = j
+        count[flat[j]] += 1
+    slot = np.full(flat.size, -1, np.int64)
+    for j in np.flatnonzero(ok):
+        r = flat[j]
+        beg, end = (count[r - 1] if r else 0), count[r]
+        slot[beg + int((placed[beg:end] < j).sum())] = j
+    return row_ptr, slot
+
+
+@pytest.mark.parametrize("case", TRANSPOSE_CASES)
+def test_one_block_transpose_algorithm(rng, case):
+    """The card's one-launch transpose, step by step in numpy, gives the
+    transpose by hand whatever order its placement atomics take."""
+    adj, s = _adj_case(rng, case)
+    want = _transpose_by_hand(adj, s)
+    for _ in range(3):
+        got = _one_block_transpose(adj, s, rng)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
+def test_grad_w_lane_group_sum_is_the_warp_tree(rng, lanes):
+    """grad_w's narrow form sums a dot's lane partials over a group of
+    ``lanes`` lanes (xor levels lanes / 2 .. 1); the warp form over 32
+    lanes (levels 16 .. 1), the lanes past the row holding 0. In f32 the
+    two are equal bit for bit: the warp tree's upper levels add +0."""
+    parts = (rng.standard_normal((2000, 32)) *
+             np.exp(rng.uniform(-40, 40, (2000, 32)))).astype(np.float32)
+    warp = parts.copy()
+    warp[:, lanes:] = 0
+    for off in (16, 8, 4, 2, 1):
+        warp = warp + warp[:, np.arange(32) ^ off]
+    group = parts[:, :lanes].copy()
+    off = lanes // 2
+    while off:
+        group = group + group[:, np.arange(lanes) ^ off]
+        off //= 2
+    assert warp.dtype == group.dtype == np.float32
+    np.testing.assert_array_equal(warp[:, 0].view(np.int32),
+                                  group[:, 0].view(np.int32))
 
 
 @pytest.mark.parametrize("case", ["injective", "repeated", "empty_rows"])

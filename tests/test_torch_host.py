@@ -140,7 +140,21 @@ def test_fetch_encoded_equals_jax_store(rng, transport, use_native):
     if got[1] is not None:
         _equal(got[1], want[1])
         assert got[1][0] == 1.0 and not got[0][0].any()   # id -1
-    assert ours.fetch_encoded(ids, "float16") is None
+    with pytest.raises(ValueError, match="float16"):
+        ours.fetch_encoded(ids, "float16")
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_fetch_encoded_refuses_an_unknown_transport(rng, use_native):
+    """The port raises where the JAX store returns None (ROADMAP.md
+    section C), with or without the native library."""
+    x = _features(rng)
+    ours, ref = (HostFeatureStore(x, use_native=use_native),
+                 JaxStore(x, use_native=use_native))
+    ids = _ids(rng, x.shape[0])
+    assert ref.fetch_encoded(ids, "float16") is None
+    with pytest.raises(ValueError, match="'float16'"):
+        ours.fetch_encoded(ids, "float16")
 
 
 def test_fetch_encoded_fills_caller_buffers(rng):
