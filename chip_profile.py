@@ -1,12 +1,13 @@
 """Device profile of one training window of the port on one CUDA card.
 
-    python3 chip_profile.py [sage|gcn|gat ...]      (default: gat)
+    python3 chip_profile.py [sage|gcn|gat|sage-bf16|gat-bf16 ...]
+                                                    (default: gat)
 
-For each model type: builds ``chip_smoke.py``'s trainer at the flagship
-config (200k-node synthetic graph, feature dim 256, hidden 256, fanout
-[10, 5], batch 1024, flat f32 table at full coverage, Adam 1e-3; GAT with
-4 heads), trains one K = 8 warm-up window, then traces one K = 8 window
-with ``torch.profiler`` and prints:
+For each row: builds ``chip_smoke.py``'s trainer at the flagship config
+(200k-node synthetic graph, feature dim 256, hidden 256, fanout [10, 5],
+batch 1024, flat table at full coverage, Adam 1e-3; GAT with 4 heads),
+trains one K = 8 warm-up window, then traces one K = 8 window with
+``torch.profiler`` and prints:
 
   - host wall time of the traced window (profiler on);
   - device busy time: the union of the intervals of every device event
@@ -16,17 +17,48 @@ with ``torch.profiler`` and prints:
     which a steady window should not launch) share of the summed device
     time, each kernel's time, and the 14 largest device events.
 
+    python3 chip_profile.py --turns ROW ROW ...
+
+times the rows' K = 8 windows instead, without the profiler, in turns on
+one card (a b b a, three rounds, each trainer built and warmed first;
+host clock ending in a synchronize) and prints each row's ms/step per
+window and their median: the way to compare rows whose ms/step spreads
+~2x between calls.
+
+The rows: sage, gcn and gat on the f32 table with an f32 model;
+sage-bf16 is ``chip_smoke.py``'s resident-bf16 (bf16 table, bf16 model)
+and gat-bf16 its phase 12 (f32 table, bf16 model).
+
+    python3 chip_profile.py --against OTHER_CHECKOUT ROW ...
+
+times the same f32 rows of this checkout and of OTHER_CHECKOUT (an older
+tree, unpacked with ``git archive``) in turns: one process per turn,
+other, this, this, other, each importing its own checkout's package and
+``chip_smoke.py``; per turn the resident rows (sage, gcn, gat) train three
+K = 8 windows after a warm-up one, and host-packed is one ``run_host`` of
+``chip_smoke.py``'s phase 10 (4 + 16 steps, 1024 MB cache). Prints each
+side's ms/step per window and the medians, and a JSON line.
+
 Needs one card; exits with a non-zero code without one.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
 import sys
 import time
 
 import numpy as np
 
 STEPS = 8
+#: row -> (model type, table dtype, model dtype), dtypes by torch name
+ROWS = {"sage": ("sage", "float32", "float32"),
+        "gcn": ("gcn", "float32", "float32"),
+        "gat": ("gat", "float32", "float32"),
+        "sage-bf16": ("sage", "bfloat16", "bfloat16"),
+        "gat-bf16": ("gat", "float32", "bfloat16")}
 OURS = ("gather_spmm_kernel", "grad_w_kernel", "grad_x_kernel",
         "count_rows_kernel", "scan_rows_kernel", "place_slots_kernel",
         "order_slots_kernel")
@@ -63,6 +95,100 @@ def profile_window(torch, rt, grid) -> tuple:
     return wall, events
 
 
+def make_row(torch, cs, ds, store, row):
+    kind, table, model = ROWS[row]
+    return cs.make_trainer(torch, ds, store, getattr(torch, table), "cuda",
+                           model_type=kind, model_dtype=getattr(torch, model))
+
+
+def time_turns(torch, cs, ds, store, rows, rng, rounds: int = 3) -> None:
+    """ms/step of each row's K = STEPS windows, in turns (a b b a per
+    round) after one warm-up window each."""
+    trainers = {}
+    for row in rows:
+        trainers[row] = make_row(torch, cs, ds, store, row)
+        trainers[row].train_windows(cs.make_grids(ds, 1, STEPS, cs.BATCH,
+                                                  rng), seed=0)
+    torch.cuda.synchronize()
+    times = {row: [] for row in rows}
+    for r in range(rounds):
+        for row in rows + rows[::-1]:
+            grid = cs.make_grids(ds, 1, STEPS, cs.BATCH, rng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses, _ = trainers[row].train_windows(grid, seed=r + 1)
+            torch.cuda.synchronize()
+            times[row].append(1000 * (time.perf_counter() - t0) / STEPS)
+            cs.require(bool(torch.isfinite(losses).all()),
+                       f"{row}: non-finite loss")
+    for row in rows:
+        print(f"turns {row}: ms/step per window "
+              f"{[round(t, 3) for t in times[row]]}, median "
+              f"{float(np.median(times[row])):.3f}")
+
+
+def child_times(torch, cs, ds, store, rows, rng, rounds: int = 3) -> dict:
+    """ms/step of each f32 row in this process's checkout: ``rounds`` K =
+    STEPS windows after a warm-up one (resident rows), or one host-packed
+    run_host (the measured steps after its warm-up)."""
+    out = {}
+    for row in rows:
+        if row == "host-packed":
+            from coala_gnn_tpu_torch.parallel.host_pipeline import run_host
+
+            r = run_host(ds, cs.BATCH, cs.FANOUTS, cs.DIM, cs.HIDDEN,
+                         cache_mb=1024, bf16=False, warmup=4, steps=16,
+                         tag=row, device="cuda")
+            cs.require(bool(np.isfinite(r["losses"]).all()),
+                       f"{row}: non-finite loss")
+            out[row] = [r["ms_per_step"]]
+            continue
+        kind, table, model = ROWS[row]
+        cs.require(table == model == "float32", f"{row}: --against times "
+                   "the f32 rows, which both checkouts run")
+        rt = cs.make_trainer(torch, ds, store, torch.float32, "cuda",
+                             model_type=kind)
+        rt.train_windows(cs.make_grids(ds, 1, STEPS, cs.BATCH, rng), seed=0)
+        out[row] = []
+        for r in range(rounds):
+            grid = cs.make_grids(ds, 1, STEPS, cs.BATCH, rng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses, _ = rt.train_windows(grid, seed=r + 1)
+            torch.cuda.synchronize()
+            out[row].append(1000 * (time.perf_counter() - t0) / STEPS)
+            cs.require(bool(torch.isfinite(losses).all()),
+                       f"{row}: non-finite loss")
+        del rt
+    return out
+
+
+def against(other: str, rows) -> int:
+    """The f32 rows of OTHER_CHECKOUT and of this one in turns, one process
+    per turn (other, this, this, other)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    times = {"other": {r: [] for r in rows}, "this": {r: [] for r in rows}}
+    for side, path in (("other", other), ("this", here), ("this", here),
+                       ("other", other)):
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--child", os.path.abspath(path), *rows],
+                           capture_output=True, text=True, timeout=1200)
+        if p.returncode:
+            print(p.stdout[-3000:] + p.stderr[-3000:], file=sys.stderr)
+            return p.returncode
+        for row, ts in json.loads(p.stdout.strip().splitlines()[-1]).items():
+            times[side][row].extend(ts)
+    for row in rows:
+        med = {k: float(np.median(times[k][row])) for k in times}
+        shown = {k: [round(t, 3) for t in times[k][row]] for k in times}
+        print(f"against {row}: other ms/step {shown['other']} median "
+              f"{med['other']:.3f}; this {shown['this']} median "
+              f"{med['this']:.3f}; this / other "
+              f"{med['this'] / med['other']:.3f}")
+    print(json.dumps({"other": os.path.abspath(other), "ms_per_step": times}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -70,6 +196,11 @@ def main() -> int:
         print("chip_profile: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    if args[:1] == ["--against"]:
+        return against(args[1], args[2:])
+    if args[:1] == ["--child"]:           # one turn of --against
+        sys.path.insert(0, args[1])
     import chip_smoke as cs
     from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
     from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
@@ -82,9 +213,14 @@ def main() -> int:
                          feature_dim=cs.DIM, num_classes=cs.CLASSES, seed=0)
     store = HostFeatureStore(ds.features, use_native=False)
     rng = np.random.default_rng(0)
-    for model_type in sys.argv[1:] or ["gat"]:
-        rt = cs.make_trainer(torch, ds, store, torch.float32, "cuda",
-                             model_type=model_type)
+    if args[:1] == ["--child"]:
+        print(json.dumps(child_times(torch, cs, ds, store, args[2:], rng)))
+        return 0
+    if args[:1] == ["--turns"]:
+        time_turns(torch, cs, ds, store, args[1:], rng)
+        return 0
+    for model_type in args or ["gat"]:
+        rt = make_row(torch, cs, ds, store, model_type)
         rt.train_windows(cs.make_grids(ds, 1, STEPS, cs.BATCH, rng), seed=0)
         torch.cuda.synchronize()
         wall, events = profile_window(

@@ -9,15 +9,18 @@ batch 1024, dropout 0.5, Adam 1e-3): the flagship row (flat f32 table at
 full coverage, K = 8), its bf16-table row, and the pressure row (a
 set-associative f32 cache of ~50% of the rows, degree priorities, staged
 windows of K = 32 through the native host tier); then GAT and GCN at the
-same config, and the int8 cache lines on both tiers. Phases:
+same config, the int8 cache lines on both tiers, and the bf16 model dtype
+(resident-bf16, a bf16 GAT and GCN, int8 lines on a bf16 table). Phases:
 
   1. device: a CUDA card must be present; prints its name and power limit;
   2. kernels vs plain: builds the gather-SpMM kernels from the checkout and
      holds each against its plain PyTorch version on the card: the f32,
-     bf16 and int8 (+ row scales) forward at the training step's layer-0
-     shape, a ragged shape, widths 100, 16, 8 and 1, and GAT layer 1's
-     combine (D = 16); adj's transpose, grad_w and grad_x (over the
-     transpose) at GAT's two head-stacked combine shapes, and the
+     bf16 and int8 (+ row scales) forward and the f32 and int8 tables read
+     as bf16 at the training step's layer-0 shape, a ragged shape, widths
+     100, 16, 8 and 1, and GAT layer 1's combine (D = 16); adj's
+     transpose, grad_w and grad_x (over the transpose) at GAT's two
+     head-stacked combine shapes (grad_w and the forward also on bf16
+     feat, a bf16 model's combine), and the
      transpose and grad_x on an adj with repeated rows; the transpose again
      at the host-packed step's layer-1 shape, where it must take its
      one-block form; prints the transpose's form at each shape, and each
@@ -81,7 +84,26 @@ same config, and the int8 cache lines on both tiers. Phases:
      host-packed step's inputs (the transpose bitwise, in its one-block
      form), and last counts the device operations of one transpose call
      there with torch.profiler (must be one; last, because after a
-     profiler session the card's launches run slower).
+     profiler session the card's launches run slower); host-packed-bf16
+     (bf16 lines, f32 model: bench.py's run_host(bf16=True)) beside
+     host-packed;
+ 11. resident-bf16 (bench.py's row: bf16 flat table at full coverage, a
+     bf16 SAGE, K = 8, 1 warm-up + 2 measured windows): finite, falling
+     losses, one bf16 forward per step and nothing else; the kernel on one
+     real step's layer-0 inputs;
+ 12. a bf16 GAT at grid-gat-10x5's shapes on the f32 table, 1 + 1 windows:
+     per step the bf16 combine, grad_w on bf16 feat and grad_x on each
+     layer (layer 0's frontier rows gathered and rounded to bf16 by
+     PyTorch), 2 transposes per run; each kernel on one real step's
+     inputs; then one K = 8 window of a bf16 GCN on the f32 table: one
+     f32-as-bf16 launch per step and nothing else, the kernel on one real
+     step's layer-0 inputs;
+ 13. int8 lines on a bf16 flat table (phase 9's 97 MB), bf16 SAGE, 1 + 1
+     windows: one int8-as-bf16 launch per step (the neighbour sum; the dst
+     rows are gathered and rounded by PyTorch), held to the plain version
+     on one real step;
+ 14. small bf16 SAGE and GAT runs (SGD) on the card against the same runs
+     of the port on the CPU (rtol = atol = 2e-2).
 
 Every failure ends the script with a non-zero code. The line before the
 last two is a JSON object with the kernels' launches, errors, times,
@@ -120,6 +142,12 @@ KERNEL_TOL = 1e-5   # forward, rtol = atol: kernel and plain version both sum
 SMALL_RTOL, SMALL_ATOL = 2e-3, 2e-4   # losses, card vs CPU (Adam amplifies
                                       # rounding; the JAX parity tolerance)
 SMALL_P_RTOL, SMALL_P_ATOL = 5e-3, 5e-4
+BF16_RTOL, BF16_ATOL = 2e-2, 2e-2     # a bf16 model, card vs CPU, losses and
+                                      # params: cuBLAS and the CPU sum a bf16
+                                      # matmul in other orders, and a last-bit
+                                      # f32 difference flips a bf16 rounding
+                                      # (tests/test_torch_bf16.py's tolerance
+                                      # against JAX)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peaks at 700 W: HBM3,
 F32_OPS_PER_S = 67e12        # and f32 outside the tensor cores
 
@@ -199,6 +227,14 @@ def masked_slots(torch, S, N, F, gen):
     w = torch.where(live, torch.rand(N, F, generator=gen, device="cuda"),
                     torch.zeros(N, F, device="cuda"))
     return torch.where(live, adj, torch.zeros_like(adj)), w
+
+
+#: the forward forms: (table dtype, read_as) by LAUNCHES name
+FORMS = {"gather_spmm[float32]": ("float32", None),
+         "gather_spmm[bfloat16]": ("bfloat16", None),
+         "gather_spmm[int8]": ("int8", None),
+         "gather_spmm[float32_as_bf16]": ("float32", "bfloat16"),
+         "gather_spmm[int8_as_bf16]": ("int8", "bfloat16")}
 
 
 def kernel_inputs(torch, S, N, F, D, dtype, gen):
@@ -413,19 +449,21 @@ def phase_kernels(torch) -> dict:
     floor = median_ms(torch, lambda: torch.zeros(1, device="cuda"))
     print(f"phase 2: timing floor, median_ms of a one-element fill: "
           f"{floor:.4f} ms")
-    for dtype in (torch.float32, torch.bfloat16, torch.int8):
-        name = f"gather_spmm[{str(dtype).split('.')[-1]}]"
+    for name, (stored, read) in FORMS.items():
+        dtype = getattr(torch, stored)
+        read_as = None if read is None else getattr(torch, read)
         x, scale, adj, w = kernel_inputs(torch, *shape, dtype, gen)
-        out = gather_spmm(x, adj, w, scale)
-        ref = gather_spmm_reference(x, adj, w, scale)
+        out = gather_spmm(x, adj, w, scale, read_as=read_as)
+        ref = gather_spmm_reference(x, adj, w, scale, read_as)
         torch.cuda.synchronize()
         res[name] = {"max_abs_err": max_err(torch, out, ref,
                                             f"{name} {shape}")}
-        timed(torch, res[name], lambda: gather_spmm(x, adj, w, scale),
-              lambda: gather_spmm_reference(x, adj, w, scale),
+        timed(torch, res[name],
+              lambda: gather_spmm(x, adj, w, scale, read_as=read_as),
+              lambda: gather_spmm_reference(x, adj, w, scale, read_as),
               forward_work(torch, x, scale, adj, w),
-              embedding_bag(torch, x, adj, w) if dtype == torch.float32
-              else None)
+              embedding_bag(torch, x, adj, w) if name ==
+              "gather_spmm[float32]" else None)
         print(f"phase 2: {name} S,N,F,D={shape}: max_abs_err "
               f"{res[name]['max_abs_err']:.3g} (tol {KERNEL_TOL}), "
               + describe(name, res[name]))
@@ -433,8 +471,8 @@ def phase_kernels(torch) -> dict:
                            (3000, 500, 10, 16), (3000, 500, 10, 8),
                            (3000, 500, 10, 1), (24_576, 4096, 5, 16)]:
             x, scale, adj, w = kernel_inputs(torch, S, N, F, D, dtype, gen)
-            out = gather_spmm(x, adj, w, scale)
-            ref = gather_spmm_reference(x, adj, w, scale)
+            out = gather_spmm(x, adj, w, scale, read_as=read_as)
+            ref = gather_spmm_reference(x, adj, w, scale, read_as)
             torch.cuda.synchronize()
             err = max_err(torch, out, ref, f"{name} ({S},{N},{F},{D})")
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
@@ -443,7 +481,7 @@ def phase_kernels(torch) -> dict:
     ptxas_report()
 
     names = ("gather_spmm_grad_w", "gather_spmm_grad_x", "adj_transpose")
-    for n in names:
+    for n in names + ("gather_spmm_grad_w[bfloat16]",):
         res[n] = {"max_abs_err": 0.0}
     for layer, (S, N, F, D, cap_src, cap_dst) in enumerate(
             gat_combine_shapes()):
@@ -501,6 +539,31 @@ def phase_kernels(torch) -> dict:
                   + describe(n, times[n]))
         print(f"phase 2: gather_spmm[float32] GAT layer {layer} combine "
               f"S,N,F,D=({S},{N},{F},{D}): " + describe("forward", fwd))
+        # a bf16 model's combine: the same shapes on a bf16 feat
+        xb = x.to(torch.bfloat16)
+        e_b = within_bound(torch, gather_spmm_grad_w(xb, adj, g),
+                           gather_spmm_grad_w_reference(xb, adj, g),
+                           grad_w_error_bound(xb, adj, g), "grad_w bf16")
+        e_fb = max_err(torch, gather_spmm(xb, adj, w),
+                       gather_spmm_reference(xb, adj, w), "bf16 combine")
+        torch.cuda.synchronize()
+        r = res["gather_spmm_grad_w[bfloat16]"]
+        r["max_abs_err"] = max(r["max_abs_err"], e_b)
+        t_wb, t_fb = {}, {}
+        timed(torch, t_wb, lambda: gather_spmm_grad_w(xb, adj, g),
+              lambda: gather_spmm_grad_w_reference(xb, adj, g),
+              grad_w_work(torch, xb, adj, g))
+        timed(torch, t_fb, lambda: gather_spmm(xb, adj, w),
+              lambda: gather_spmm_reference(xb, adj, w),
+              forward_work(torch, xb, None, adj, w))
+        if layer == 0:
+            r.update(t_wb)
+        print(f"phase 2: gather_spmm_grad_w[bfloat16] GAT layer {layer} "
+              f"combine S,N,F,D=({S},{N},{F},{D}): max_abs_err {e_b:.3g} "
+              + describe("grad_w bf16", t_wb))
+        print(f"phase 2: gather_spmm[bfloat16] GAT layer {layer} combine "
+              f"S,N,F,D=({S},{N},{F},{D}): max_abs_err {e_fb:.3g} "
+              + describe("forward bf16", t_fb))
 
     adj, S = host_packed_adj(torch, gen)
     form = check_transpose(torch, adj, S, "host-packed layer 1")
@@ -519,9 +582,11 @@ def phase_kernels(torch) -> dict:
 def make_trainer(torch, ds, store, dtype, device, dropout=0.5, lr=1e-3,
                  fanouts=FANOUTS, batch=BATCH, hidden=HIDDEN, cache_mb=1024,
                  model_type="sage", num_heads=HEADS, quantize=False,
-                 sgd=False, **trainer_kw):
-    """bench.py run_resident's trainer: every row prewarmed when the cache
-    covers the graph, else (capacity pressure) the highest-degree nodes."""
+                 sgd=False, model_dtype=None, **trainer_kw):
+    """bench.py run_resident's trainer (cache lines of ``dtype``, a model
+    computing in ``model_dtype``, f32 by default): every row prewarmed when
+    the cache covers the graph, else (capacity pressure) the
+    highest-degree nodes."""
     from coala_gnn_tpu_torch.cache import feature_cache as fc
     from coala_gnn_tpu_torch.models.gnn import make_model
     from coala_gnn_tpu_torch.parallel.resident import ResidentTrainer
@@ -530,7 +595,7 @@ def make_trainer(torch, ds, store, dtype, device, dropout=0.5, lr=1e-3,
                          quantize=quantize)
     model = make_model(model_type, ds.feature_dim, hidden, ds.num_classes,
                        len(fanouts), num_heads=num_heads, dropout=dropout,
-                       seed=1).to(device)
+                       seed=1, dtype=model_dtype or torch.float32).to(device)
     opt = (torch.optim.SGD(model.parameters(), lr=lr) if sgd else
            torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
                             eps=1e-8))
@@ -626,7 +691,10 @@ def phase_slice(torch, ds, store, smi) -> dict:
 
 
 def phase_step_inputs(torch, rt, gather_spmm, gather_spmm_reference,
-                      ds) -> float:
+                      ds, label="phase 4", read_as=None) -> float:
+    """The layer-0 neighbour sum on one real step's inputs (the flat table
+    and its scales, the frontier's slot ids, the block mask), read as
+    ``read_as``, against its plain version; returns the max abs error."""
     from coala_gnn_tpu_torch.ops.aggregate import frontier_adj
     from coala_gnn_tpu_torch.sampling.device_sampler import \
         sample_blocks_device
@@ -638,27 +706,35 @@ def phase_step_inputs(torch, rt, gather_spmm, gather_spmm_reference,
     safe = torch.where(ids != rt.g.num_nodes, ids, torch.zeros_like(ids))
     mask = blocks[0].mask
     adj = frontier_adj(safe, tuple(mask.shape))
-    out = gather_spmm(rt.cache.data, adj, mask)
-    ref = gather_spmm_reference(rt.cache.data, adj, mask)
+    table, scale = rt.cache.data, rt.cache.scale
+    out = gather_spmm(table, adj, mask, scale, read_as=read_as)
+    ref = gather_spmm_reference(table, adj, mask, scale, read_as)
     torch.cuda.synchronize()
-    err = max_err(torch, out, ref, "one step's layer-0 inputs")
-    print(f"phase 4: kernel on a step's layer-0 inputs (table "
-          f"{tuple(rt.cache.data.shape)}, adj {tuple(adj.shape)}): "
-          f"max_abs_err {err:.3g}")
+    err = max_err(torch, out, ref, f"{label}: one step's layer-0 inputs")
+    print(f"{label}: kernel on a step's layer-0 inputs (table "
+          f"{tuple(table.shape)} {table.dtype}, read as {read_as}, adj "
+          f"{tuple(adj.shape)}): max_abs_err {err:.3g}")
     return err
 
 
-def phase_small(torch) -> None:
+def phase_small(torch, model_dtype=None, label="phase 5") -> None:
     """The port's small training runs on the card vs on the CPU (the CPU
-    port is held against the JAX package by tests/test_torch_resident.py):
-    SAGE with Adam, and GAT (2 heads) with SGD, whose backward runs the
-    grad_w and grad_x kernels. SGD because the softmax over the slots
-    cancels the last layer's attn_r wherever its scores stay on one side
-    of the leaky ReLU: that gradient is rounding noise, which Adam would
-    turn into lr-sized steps of random sign."""
+    port is held against the JAX package by tests/test_torch_resident.py
+    and, in bf16, tests/test_torch_bf16.py): SAGE with Adam, and GAT (2
+    heads) with SGD, whose backward runs the grad_w and grad_x kernels.
+    SGD because the softmax over the slots cancels the last layer's attn_r
+    wherever its scores stay on one side of the leaky ReLU: that gradient
+    is rounding noise, which Adam would turn into lr-sized steps of random
+    sign. A bf16 model (``model_dtype``) trains both with SGD, on an f32
+    table (layer 0 reads it as bf16), at the bf16 tolerances."""
     from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
     from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
 
+    bf16 = model_dtype == torch.bfloat16
+    rtol, atol, p_rtol, p_atol = ((BF16_RTOL, BF16_ATOL) * 2 if bf16 else
+                                  (SMALL_RTOL, SMALL_ATOL, SMALL_P_RTOL,
+                                   SMALL_P_ATOL))
+    grad_w = "gather_spmm_grad_w[bfloat16]" if bf16 else "gather_spmm_grad_w"
     ds = synthetic_graph(num_nodes=250, avg_degree=4, feature_dim=8,
                          num_classes=4, seed=5)
     fan = int(ds.graph.in_degrees().max())
@@ -670,29 +746,29 @@ def phase_small(torch) -> None:
             rt = make_trainer(torch, ds, store, torch.float32, device,
                               dropout=0.0, lr=1e-2, fanouts=[fan, fan],
                               batch=16, hidden=8, model_type=model_type,
-                              num_heads=2, sgd=model_type == "gat")
+                              num_heads=2, sgd=bf16 or model_type == "gat",
+                              model_dtype=model_dtype)
             reset_launches()
             losses, _ = rt.train_windows(grids, seed=7)
             out[device] = (losses.cpu().numpy(),
-                           [p.detach().cpu().numpy()
+                           [p.detach().cpu().float().numpy()
                             for p in rt.model.parameters()], launches())
         card, host = out["cuda"], out["cpu"]
-        np.testing.assert_allclose(card[0], host[0], rtol=SMALL_RTOL,
-                                   atol=SMALL_ATOL)
+        np.testing.assert_allclose(card[0], host[0], rtol=rtol, atol=atol)
         for a, b in zip(card[1], host[1]):
-            np.testing.assert_allclose(a, b, rtol=SMALL_P_RTOL,
-                                       atol=SMALL_P_ATOL)
+            np.testing.assert_allclose(a, b, rtol=p_rtol, atol=p_atol)
         steps = grids.shape[0] * grids.shape[1]
         if model_type == "gat":
-            require(card[2]["gather_spmm_grad_w"] == 2 * steps and
+            require(card[2][grad_w] == 2 * steps and
                     card[2]["gather_spmm_grad_x"] == 2 * steps and
                     card[2]["adj_transpose"] == 2,
                     f"small GAT run: backward launches {card[2]}")
-        print(f"phase 5: small {model_type} run (250 nodes, {steps} steps) "
-              f"card vs CPU: losses max diff "
-              f"{np.abs(card[0] - host[0]).max():.3g}, within rtol "
-              f"{SMALL_RTOL} atol {SMALL_ATOL}; params within rtol "
-              f"{SMALL_P_RTOL} atol {SMALL_P_ATOL}; card launches {card[2]}")
+        print(f"{label}: small {model_type} run (250 nodes, {steps} steps, "
+              f"model {model_dtype or torch.float32}) card vs CPU: losses "
+              f"max diff {np.abs(card[0] - host[0]).max():.3g}, within rtol "
+              f"{rtol} atol {atol}; params within rtol {p_rtol} atol "
+              f"{p_atol}; card launches "
+              f"{ {k: v for k, v in card[2].items() if v} }")
 
 
 def phase_staged_step(torch, rt, ds, gather_spmm, gather_spmm_reference,
@@ -893,11 +969,11 @@ def report_row(label: str, losses, edges, dt, n_meas, smi) -> None:
           f"{np.array2string(some, precision=4)}")
 
 
-def phase_gat_step(torch, rt, ds) -> dict:
-    """The three kernels on one real GAT step against their plain versions:
-    the head-stacked feat, adjacency and attention each layer hands the
-    forward kernel, and the upstream gradient its output receives. Returns
-    max_abs_err by kernel name."""
+def phase_gat_step(torch, rt, ds, label="phase 8") -> dict:
+    """The kernels on one real GAT step against their plain versions: the
+    head-stacked feat, adjacency and attention each layer hands the
+    forward kernel, and the upstream gradient its output receives.
+    Returns max_abs_err by kernel name."""
     from coala_gnn_tpu_torch.models import layers
     from coala_gnn_tpu_torch.models.layers import TableInput
     from coala_gnn_tpu_torch.ops.gather_spmm import (
@@ -913,11 +989,12 @@ def phase_gat_step(torch, rt, ds) -> dict:
     blocks, _, _, safe = rt._sample(seeds, gen)
     kernel, calls = layers.gather_spmm, []
 
-    def recording(x, adj, w, adj_t=None):
-        out = kernel(x, adj, w, adj_t=adj_t)
-        rec = {"x": x.detach(), "adj": adj, "w": w.detach(),
-               "adj_t": adj_t, "out": out.detach()}
-        out.register_hook(lambda g: rec.update(g=g.detach().contiguous()))
+    def recording(x, adj, w, scale=None, adj_t=None, read_as=None):
+        out = kernel(x, adj, w, scale, adj_t=adj_t, read_as=read_as)
+        rec = {"x": x.detach(), "adj": adj, "w": w.detach(), "scale": scale,
+               "read_as": read_as, "adj_t": adj_t, "out": out.detach()}
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.update(g=g.detach().contiguous()))
         calls.append(rec)
         return out
 
@@ -930,10 +1007,12 @@ def phase_gat_step(torch, rt, ds) -> dict:
     finally:
         layers.gather_spmm = kernel
     rt.optimizer.zero_grad(set_to_none=True)
+    bf16 = rt.model.dtype == torch.bfloat16
+    fwd = "gather_spmm[bfloat16]" if bf16 else "gather_spmm[float32]"
+    grad_w = "gather_spmm_grad_w[bfloat16]" if bf16 else "gather_spmm_grad_w"
+    errs = {fwd: 0.0, grad_w: 0.0, "gather_spmm_grad_x": 0.0}
     require(len(calls) == 2 and all("g" in c for c in calls),
             "GAT step: expected two combines with upstream gradients")
-    errs = {"gather_spmm[float32]": 0.0, "gather_spmm_grad_w": 0.0,
-            "gather_spmm_grad_x": 0.0}
     for layer, c in enumerate(calls):
         x, adj, w, g, adj_t = c["x"], c["adj"], c["w"], c["g"], c["adj_t"]
         s = x.shape[0]
@@ -952,9 +1031,10 @@ def phase_gat_step(torch, rt, ds) -> dict:
         require(bool(torch.equal(gx, ref)), f"GAT layer {layer} grad_x not "
                 "exact (each feat row is read by one slot)")
         torch.cuda.synchronize()
-        for name, e in zip(errs, (e_f, e_w, 0.0)):
+        for name, e in zip((fwd, grad_w), (e_f, e_w)):
             errs[name] = max(errs[name], e)
-        print(f"phase 8: GAT layer {layer} real step: feat {tuple(x.shape)}, "
+        print(f"{label}: GAT layer {layer} real step: feat {tuple(x.shape)} "
+              f"{x.dtype}, "
               f"adj {tuple(adj.shape)}, alpha zero slots "
               f"{int((w == 0).sum())}: forward max_abs_err {e_f:.3g}, grad_w "
               f"{e_w:.3g} (within bound), grad_x exact over the kept "
@@ -1104,8 +1184,123 @@ def phase_int8(torch, ds, store, smi) -> tuple:
     return counts, err, err_staged
 
 
+def phase_bf16(torch, ds, store, smi) -> tuple:
+    """The bf16 model dtype's rows (phases 11-13): resident-bf16 (bench.py's
+    row: SAGE, bf16 flat table at full coverage, bf16 model, K = 8, 1
+    warm-up + 2 measured windows); a bf16 GAT at grid-gat-10x5's shapes on
+    the f32 table (layer 0 gathers its frontier rows and rounds them to
+    bf16, the combines and their backward run on bf16 feat), 1 + 1
+    windows, then one window of a bf16 GCN on the f32 table (its layer-0
+    sum reads the table as bf16); int8 lines on a bf16 flat table under a
+    bf16 model (phase 9's 97 MB, which holds every row), 1 + 1 windows.
+    Each: finite, falling losses, exact launch counts, its kernels on one
+    real step's inputs against their plain versions. Returns (launches by
+    kernel, kernel errors by name)."""
+    from coala_gnn_tpu_torch.ops.gather_spmm import (gather_spmm,
+                                                     gather_spmm_reference)
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(8)
+    total, errs = {}, {}
+
+    def tally(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def worst(found):
+        for k, v in found.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    rt = make_trainer(torch, ds, store, bf16, "cuda", model_dtype=bf16)
+    require(rt.direct and rt.full_coverage and rt.cache.data.dtype == bf16,
+            "resident-bf16: not a bf16 flat table at full coverage")
+    losses, edges, dt, counts, stats = run_row(torch, rt, ds, 1, 2, K,
+                                               BATCH, 50, rng)
+    steps = losses.size
+    check_falling(losses, K, "resident-bf16")
+    n = counts["gather_spmm[bfloat16]"]
+    require(n == steps and sum(counts.values()) == n,
+            f"resident-bf16: launches {counts} for {steps} steps")
+    require(stats["misses"] == 0 and stats["hits"] > 0, f"bf16 {stats}")
+    require(on_card(torch, rt), "resident-bf16 state off the card")
+    report_row("phase 11: resident-bf16", losses, edges, dt, steps - K, smi)
+    worst({"gather_spmm[bfloat16]": phase_step_inputs(
+        torch, rt, gather_spmm, gather_spmm_reference, ds,
+        label="phase 11", read_as=bf16)})
+    tally(counts)
+    del rt
+
+    rt = make_trainer(torch, ds, store, torch.float32, "cuda",
+                      model_type="gat", model_dtype=bf16)
+    require(rt.direct and rt.full_coverage, "bf16 GAT: not at full coverage")
+    losses, edges, dt, counts, stats = run_row(torch, rt, ds, 1, 1, K,
+                                               BATCH, 52, rng)
+    peak = torch.cuda.max_memory_allocated()
+    steps = losses.size
+    check_falling(losses, K, "bf16 GAT")
+    want = {"gather_spmm[bfloat16]": 2 * steps,
+            "gather_spmm_grad_w[bfloat16]": 2 * steps,
+            "gather_spmm_grad_x": 2 * steps, "adj_transpose": 2}
+    require({k: v for k, v in counts.items() if v} == want,
+            f"bf16 GAT: launches {counts}, expected {want}")
+    require(stats["misses"] == 0 and on_card(torch, rt), "bf16 GAT state")
+    report_row("phase 12: bf16 GAT", losses, edges, dt, steps - K, smi)
+    print(f"phase 12: bf16 GAT ({HEADS} heads x {HIDDEN}, f32 table) peak "
+          f"device memory over the measured window {peak / 2**30:.3f} GiB; "
+          f"launches per step {({k: v / steps for k, v in want.items()})} "
+          "(the transposes once per run)")
+    worst(phase_gat_step(torch, rt, ds, "phase 12"))
+    tally(counts)
+    del rt
+
+    rt = make_trainer(torch, ds, store, torch.float32, "cuda",
+                      model_type="gcn", model_dtype=bf16)
+    grid = make_grids(ds, 1, K, BATCH, rng)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    lg, eg = rt.train_windows(grid, seed=53)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = only_launches("gather_spmm[float32_as_bf16]")
+    lg = lg.cpu().numpy()
+    require(np.isfinite(lg).all() and lg[-K // 2:].mean() < lg[:K // 2].mean(),
+            f"bf16 GCN: losses not finite and falling {lg}")
+    require(n == K, f"bf16 GCN: {n} f32-as-bf16 launches for {K} steps")
+    report_row("phase 12: bf16 GCN on the f32 table (one window, warm-up "
+               "included)", lg, float(eg.sum()), dt, K, smi)
+    worst({"gather_spmm[float32_as_bf16]": phase_step_inputs(
+        torch, rt, gather_spmm, gather_spmm_reference, ds,
+        label="phase 12", read_as=bf16)})
+    tally({"gather_spmm[float32_as_bf16]": n})
+    del rt
+
+    rt = make_trainer(torch, ds, store, bf16, "cuda", cache_mb=pressure_mb(ds),
+                      quantize=True, model_dtype=bf16)
+    require(rt.direct and rt.full_coverage and
+            rt.cache.data.dtype == torch.int8 and
+            rt.cache_cfg.dtype == bf16, "int8 lines on a bf16 flat table: "
+            "not int8 lines of a bf16 config at full coverage")
+    losses, edges, dt, counts, stats = run_row(torch, rt, ds, 1, 1, K,
+                                               BATCH, 54, rng)
+    steps = losses.size
+    check_falling(losses, K, "int8 lines, bf16")
+    n = counts["gather_spmm[int8_as_bf16]"]
+    require(n == steps and sum(counts.values()) == n,
+            f"int8 lines, bf16: launches {counts} for {steps} steps")
+    report_row("phase 13: int8 lines on a bf16 flat table, bf16 model",
+               losses, edges, dt, steps - K, smi)
+    worst({"gather_spmm[int8_as_bf16]": phase_step_inputs(
+        torch, rt, gather_spmm, gather_spmm_reference, ds,
+        label="phase 13", read_as=bf16)})
+    tally(counts)
+    del rt
+    return total, errs
+
+
 HOST_ROWS = (  # tag, run_host arguments, warm-up steps, measured steps
     ("host-packed", dict(cache_mb=1024), 4, 16),
+    ("host-packed-bf16", dict(cache_mb=1024, bf16=True), 4, 16),
     ("host-contig", dict(cache_mb=1024, contiguous=True), 4, 16),
     ("host-packed-pressure", dict(cache_mb=None, prewarm="degree"), 4, 16),
     ("host-uncached", dict(cache_mb=0), 2, 6))
@@ -1258,8 +1453,9 @@ def phase_host(torch, ds, smi, device="cuda") -> tuple:
         sync(torch, device)
         reset_launches()
         t0 = time.perf_counter()
-        r = run_host(ds, BATCH, FANOUTS, DIM, HIDDEN, bf16=False,
-                     warmup=warm, steps=meas, tag=tag, device=device, **kw)
+        kw.setdefault("bf16", False)
+        r = run_host(ds, BATCH, FANOUTS, DIM, HIDDEN, warmup=warm,
+                     steps=meas, tag=tag, device=device, **kw)
         sync(torch, device)
         counts = launches()
         wall = time.perf_counter() - t0
@@ -1373,7 +1569,14 @@ def main() -> int:
     for name, err in host_errs.items():
         worst(name, err)
     print(f"phase 10: done in {time.perf_counter() - t0:.1f} s")
-    for counts in (gat_launches, int8_launches, host_launches):
+    t0 = time.perf_counter()
+    bf16_launches, bf16_errs = phase_bf16(torch, ds, store, smi)
+    for name, err in bf16_errs.items():
+        worst(name, err)
+    phase_small(torch, model_dtype=torch.bfloat16, label="phase 14")
+    print(f"phase 11-14: done in {time.perf_counter() - t0:.1f} s")
+    for counts in (gat_launches, int8_launches, host_launches,
+                   bf16_launches):
         for name, n in counts.items():
             main_launches[name] = main_launches.get(name, 0) + n
 
@@ -1382,7 +1585,13 @@ def main() -> int:
                 "gather_spmm[bfloat16]":
                     "coala_gnn_tpu/ops/pallas_gather.py:77",
                 "gather_spmm[int8]": "coala_gnn_tpu/ops/pallas_spmm.py:82",
+                "gather_spmm[float32_as_bf16]":
+                    "coala_gnn_tpu/ops/pallas_spmm.py:82",
+                "gather_spmm[int8_as_bf16]":
+                    "coala_gnn_tpu/ops/pallas_spmm.py:82",
                 "gather_spmm_grad_w": "coala_gnn_tpu/models/layers.py:143",
+                "gather_spmm_grad_w[bfloat16]":
+                    "coala_gnn_tpu/models/layers.py:143",
                 "gather_spmm_grad_x": "coala_gnn_tpu/models/layers.py:143",
                 "adj_transpose": "coala_gnn_tpu/models/layers.py:143"}
     kernels = [{"name": name, "route": "cuda", "source": src,

@@ -13,6 +13,13 @@
 //   - the int8 instantiation: the table's rows dequantised as they are read,
 //     v = float(q) * scale[idx], the JAX order of dequantize_rows
 //     (coala_gnn_tpu/cache/feature_cache.py) followed by the plane FMAs;
+//   - the bf16-rounding reads of an f32 or int8 table (kRound): each widened
+//     (int8: dequantised, q * scale in f32 first) element rounded to bf16,
+//     round to nearest even, and widened back before its FMA. That is what
+//     layer 0 of a bf16 model reads where JAX rounds the rows it gathered
+//     (an f32 table under a bf16 model, int8 lines dequantised to a bf16
+//     table); rounding inside the kernel keeps the [cap_src, dim] frontier
+//     from being built and rounded in a pass of its own;
 //   - gather_spmm_grad_w / gather_spmm_grad_x (with its transpose kernels):
 //     the backward. Neither Pallas kernel has one; the JAX GAT
 //     differentiates its XLA plane FMAs (coala_gnn_tpu/models/layers.py:143),
@@ -126,6 +133,7 @@
 // cudaMemsetAsync on that stream). Each entry point returns
 // cudaGetLastError(), or the error of a refused launch attribute.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -229,7 +237,12 @@ __device__ __forceinline__ bool out_of_range(int64_t idx, int64_t s) {
   return idx < 0 || idx >= s;
 }
 
-template <typename T, int VB, int KB>
+// f32 -> the nearest bf16 (ties to even) -> f32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T, int VB, int KB, bool kRound>
 __global__ void __launch_bounds__(kThreads)
 gather_spmm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                    const int32_t* __restrict__ adj,
@@ -279,6 +292,10 @@ gather_spmm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
         if constexpr (sizeof(T) == 1) {           // int8: dequantise first
 #pragma unroll
           for (int e = 0; e < E; ++e) v[e] = v[e] * sc[j];
+        }
+        if constexpr (kRound) {                   // read as bf16
+#pragma unroll
+          for (int e = 0; e < E; ++e) v[e] = round_bf16(v[e]);
         }
 #pragma unroll
         for (int e = 0; e < E; ++e) acc[e] = fmaf(wk[j], v[e], acc[e]);
@@ -657,7 +674,7 @@ bool one_wave(K kernel, unsigned blocks) {
   return blocks <= static_cast<unsigned>(per_sm) * sms;
 }
 
-template <typename T, int VB>
+template <typename T, bool kRound, int VB>
 void forward_vb(const void* x, const void* scale, const void* adj,
                 const void* w, void* out, int64_t s, int n, int f, int d,
                 cudaStream_t stream) {
@@ -667,10 +684,10 @@ void forward_vb(const void* x, const void* scale, const void* adj,
     // kBatch slots in flight, unless half as many (fewer registers, more
     // blocks per SM) let the whole grid be resident where kBatch does not:
     // then every row's chain of dependent reads is paid in one wave
-    auto kernel = gather_spmm_kernel<T, VB, kBatch>;
+    auto kernel = gather_spmm_kernel<T, VB, kBatch, kRound>;
     if (!one_wave(kernel, blocks) &&
-        one_wave(gather_spmm_kernel<T, VB, kBatch / 2>, blocks))
-      kernel = gather_spmm_kernel<T, VB, kBatch / 2>;
+        one_wave(gather_spmm_kernel<T, VB, kBatch / 2, kRound>, blocks))
+      kernel = gather_spmm_kernel<T, VB, kBatch / 2, kRound>;
     kernel<<<blocks, kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(scale),
         static_cast<const int32_t*>(adj), static_cast<const float*>(w),
@@ -678,17 +695,26 @@ void forward_vb(const void* x, const void* scale, const void* adj,
   }
 }
 
-template <typename T>
+template <typename T, bool kRound = false>
 int forward(const void* x, const void* scale, const void* adj, const void* w,
             void* out, int64_t s, int n, int f, int d, void* stream_p) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_p);
   if (n > 0) {
     switch (vec_bytes<T>(d, x)) {
-      case 16: forward_vb<T, 16>(x, scale, adj, w, out, s, n, f, d, st); break;
-      case 8: forward_vb<T, 8>(x, scale, adj, w, out, s, n, f, d, st); break;
-      case 4: forward_vb<T, 4>(x, scale, adj, w, out, s, n, f, d, st); break;
-      case 2: forward_vb<T, 2>(x, scale, adj, w, out, s, n, f, d, st); break;
-      default: forward_vb<T, 1>(x, scale, adj, w, out, s, n, f, d, st);
+      case 16:
+        forward_vb<T, kRound, 16>(x, scale, adj, w, out, s, n, f, d, st);
+        break;
+      case 8:
+        forward_vb<T, kRound, 8>(x, scale, adj, w, out, s, n, f, d, st);
+        break;
+      case 4:
+        forward_vb<T, kRound, 4>(x, scale, adj, w, out, s, n, f, d, st);
+        break;
+      case 2:
+        forward_vb<T, kRound, 2>(x, scale, adj, w, out, s, n, f, d, st);
+        break;
+      default:
+        forward_vb<T, kRound, 1>(x, scale, adj, w, out, s, n, f, d, st);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -818,6 +844,21 @@ int gather_spmm_i8(const void* x, const void* scale, const void* adj,
                    const void* w, void* out, int64_t s, int n, int f, int d,
                    void* stream) {
   return forward<int8_t>(x, scale, adj, w, out, s, n, f, d, stream);
+}
+
+// x [s, d] f32 read as bf16: each element rounded to bf16 before its FMA.
+int gather_spmm_f32_as_bf16(const void* x, const void* adj, const void* w,
+                            void* out, int64_t s, int n, int f, int d,
+                            void* stream) {
+  return forward<float, true>(x, nullptr, adj, w, out, s, n, f, d, stream);
+}
+
+// int8 x with scale [s], each element dequantised (q * scale, f32) and then
+// rounded to bf16 before its FMA.
+int gather_spmm_i8_as_bf16(const void* x, const void* scale, const void* adj,
+                           const void* w, void* out, int64_t s, int n, int f,
+                           int d, void* stream) {
+  return forward<int8_t, true>(x, scale, adj, w, out, s, n, f, d, stream);
 }
 
 // grad_w [n, f] f32 from x [s, d] f32 and g [n, d] f32 (16-byte aligned).

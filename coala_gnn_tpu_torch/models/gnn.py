@@ -2,8 +2,11 @@
 
 Forward contract as in the JAX package: per layer ``h = conv(block, h)``
 with ReLU + dropout between layers, logits in f32. GAT flattens its heads
-between layers and takes their mean at the output. Models are f32; the
-bf16 model dtype and the hetero models are queued in ROADMAP.md.
+between layers and takes their mean at the output. ``dtype`` is the JAX
+models' compute type (float32 or bfloat16): the stack casts its input to
+it, ReLU, dropout and GAT's head mean run in it, and the logits come back
+in f32; the layers keep f32 weights (``models/layers.py``). The hetero
+models are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -38,10 +41,12 @@ class _Stack(nn.Module):
     ``seed`` (the same weights on every device); move the model with
     ``.to(device)``."""
 
-    def __init__(self, convs: Sequence[nn.Module], dropout: float):
+    def __init__(self, convs: Sequence[nn.Module], dropout: float,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = len(convs)
         self.dropout = dropout
+        self.dtype = dtype
         for i, conv in enumerate(convs):
             self.add_module(f"layer_{i}", conv)
 
@@ -58,7 +63,7 @@ class _Stack(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if train and self.dropout > 0 and generator is None:
             raise ValueError("training with dropout needs a generator")
-        h = x if isinstance(x, TableInput) else x.float()
+        h = x if isinstance(x, TableInput) else x.to(self.dtype)
         for i, block in enumerate(blocks):
             h = self._post(i, getattr(self, f"layer_{i}")(block, h), train,
                            generator)
@@ -66,33 +71,36 @@ class _Stack(nn.Module):
 
 
 def _convs(make_conv, in_dim: int, hidden: int, num_classes: int,
-           num_layers: int, seed: int, widen: int = 1) -> list:
-    """``make_conv(d_in, d_out, generator)`` per layer, drawn in layer
-    order from one generator seeded with ``seed``; a layer's input is the
-    previous output times ``widen`` (GAT's flattened heads)."""
+           num_layers: int, seed: int, dtype: torch.dtype,
+           widen: int = 1) -> list:
+    """``make_conv(d_in, d_out, generator, dtype)`` per layer, drawn in
+    layer order from one generator seeded with ``seed``; a layer's input is
+    the previous output times ``widen`` (GAT's flattened heads)."""
     gen = torch.Generator().manual_seed(seed)
     outs = [num_classes if i == num_layers - 1 else hidden
             for i in range(num_layers)]
     ins = [in_dim] + [o * widen for o in outs[:-1]]
-    return [make_conv(d, o, gen) for d, o in zip(ins, outs)]
+    return [make_conv(d, o, gen, dtype) for d, o in zip(ins, outs)]
 
 
 class SAGE(_Stack):
     """GraphSAGE (mean)."""
 
     def __init__(self, in_dim: int, hidden: int, num_classes: int,
-                 num_layers: int = 2, dropout: float = 0.5, seed: int = 0):
+                 num_layers: int = 2, dropout: float = 0.5, seed: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(_convs(SAGEConv, in_dim, hidden, num_classes,
-                                num_layers, seed), dropout)
+                                num_layers, seed, dtype), dropout, dtype)
 
 
 class GCN(_Stack):
     """GCN (GraphConv, right-normalised)."""
 
     def __init__(self, in_dim: int, hidden: int, num_classes: int,
-                 num_layers: int = 2, dropout: float = 0.5, seed: int = 0):
+                 num_layers: int = 2, dropout: float = 0.5, seed: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(_convs(GraphConv, in_dim, hidden, num_classes,
-                                num_layers, seed), dropout)
+                                num_layers, seed, dtype), dropout, dtype)
 
 
 class GAT(_Stack):
@@ -101,10 +109,12 @@ class GAT(_Stack):
 
     def __init__(self, in_dim: int, hidden: int, num_classes: int,
                  num_layers: int = 2, num_heads: int = 4,
-                 dropout: float = 0.5, seed: int = 0):
+                 dropout: float = 0.5, seed: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(_convs(
-            lambda d, o, gen: GATConv(d, o, num_heads, gen), in_dim, hidden,
-            num_classes, num_layers, seed, widen=num_heads), dropout)
+            lambda d, o, gen, dt: GATConv(d, o, num_heads, gen, dtype=dt),
+            in_dim, hidden, num_classes, num_layers, seed, dtype,
+            widen=num_heads), dropout, dtype)
 
     def _post(self, i, h, train, generator):
         if i == self.num_layers - 1:
@@ -114,16 +124,20 @@ class GAT(_Stack):
 
 def make_model(model_type: str, in_dim: int, hidden: int, num_classes: int,
                num_layers: int, num_heads: int = 4, dropout: float = 0.5,
-               seed: int = 0) -> nn.Module:
+               seed: int = 0, dtype: torch.dtype = torch.float32
+               ) -> nn.Module:
     """Model switch, the JAX package's make_model (sage | gcn | gat); flax
-    infers ``in_dim`` at init, torch needs it here. f32 only so far."""
+    infers ``in_dim`` at init, torch needs it here. ``dtype``: float32 or
+    bfloat16, the compute type (weights stay f32, GAT's attention params
+    take ``dtype``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"make_model: dtype must be float32 or bfloat16, "
+                         f"got {dtype}")
+    kw = dict(num_layers=num_layers, dropout=dropout, seed=seed, dtype=dtype)
     if model_type in ("sage", "distsage"):
-        return SAGE(in_dim, hidden, num_classes, num_layers=num_layers,
-                    dropout=dropout, seed=seed)
+        return SAGE(in_dim, hidden, num_classes, **kw)
     if model_type == "gcn":
-        return GCN(in_dim, hidden, num_classes, num_layers=num_layers,
-                   dropout=dropout, seed=seed)
+        return GCN(in_dim, hidden, num_classes, **kw)
     if model_type == "gat":
-        return GAT(in_dim, hidden, num_classes, num_layers=num_layers,
-                   num_heads=num_heads, dropout=dropout, seed=seed)
+        return GAT(in_dim, hidden, num_classes, num_heads=num_heads, **kw)
     raise ValueError(f"unknown model_type {model_type!r}")

@@ -24,6 +24,16 @@ backward (``grad_x`` into ``feat``, ``grad_w`` into ``alpha``) is the
 kernel's own. On the contiguous layout the stacked adj depends only on the
 shapes, so ``GATConv`` builds it and its transpose (for ``grad_x``) once
 per shape and keeps them.
+
+``dtype`` is the JAX modules' ``dtype``: the compute type of a layer.
+With ``torch.bfloat16`` the linear layers keep f32 weights (flax
+``Dense`` keeps its ``param_dtype`` f32) and cast input, weight and bias
+to bf16 in the forward (``_dense``); GAT's ``attn_l`` / ``attn_r`` are
+bf16 params, as flax creates them in ``dtype``, and its scores, leaky
+ReLU and softmax run in bf16. Aggregations sum in f32 and round once to
+bf16. The casts are explicit (no ``torch.autocast``, whose op lists run
+the softmax in f32 where JAX runs it in bf16). Layer 0 of a bf16 model
+reads rows rounded to bf16 (``TableInput.read_form``).
 """
 
 from __future__ import annotations
@@ -62,19 +72,40 @@ class TableInput(NamedTuple):
     """Layer-0 input read straight from a constant feature table: the flat
     cache table with the frontier's node ids, or a window's frontier
     features [cap_src, dim] with their slot positions ``arange(cap_src)``.
-    An int8 table comes with its per-row f32 ``scale``."""
+    An int8 table comes with its per-row f32 ``scale`` and the dtype its
+    rows are served in (``row_dtype``, the cache's ``cfg.dtype``: JAX
+    dequantises int8 lines to it)."""
 
     table: torch.Tensor   # [rows, dim] f32|bf16|int8, constant
     ids: torch.Tensor     # int32 [cap_src] rows of the frontier, invalid -> 0
     scale: Optional[torch.Tensor] = None   # f32 [rows] for an int8 table
+    row_dtype: Optional[torch.dtype] = None   # int8 rows served as this
+                                              # (None: f32)
 
-    def rows(self, n: Optional[int] = None) -> torch.Tensor:
-        """The first ``n`` (default all) frontier rows as f32 [n, dim]
-        (int8 rows dequantised)."""
+    def read_form(self, dtype: torch.dtype) -> Optional[torch.dtype]:
+        """How a layer computing in ``dtype`` reads the table (the kernel's
+        ``read_as``): JAX's layer 0 sees ``round(dtype, round(served
+        dtype, row))``, one bf16 rounding where either is bf16, else the
+        row as stored (None)."""
+        served = (self.table.dtype if self.scale is None
+                  else self.row_dtype or torch.float32)
+        return (torch.bfloat16 if torch.bfloat16 in (dtype, served)
+                else None)
+
+    def rows(self, n: Optional[int] = None,
+             read_as: torch.dtype = torch.float32) -> torch.Tensor:
+        """The first ``n`` (default all) frontier rows [n, dim] as a layer
+        computing in ``read_as`` reads them (``read_form``): gathered, int8
+        rows dequantised, rounded to bf16 where the read form is bf16, then
+        cast to ``read_as``."""
         ids = self.ids if n is None else self.ids[:n]
-        if self.scale is None:
-            return self.table[ids].float()
-        return dequantize_rows(self.table[ids], self.scale[ids])
+        rows = self.table[ids]
+        if self.scale is not None:
+            rows = dequantize_rows(rows, self.scale[ids])
+        form = self.read_form(read_as)
+        if form is not None:
+            rows = rows.to(form)
+        return rows.to(read_as)
 
 
 LayerInput = Union[torch.Tensor, TableInput]
@@ -101,12 +132,27 @@ def _linear(d_in: int, d_out: int, bias: bool,
     return lin
 
 
+def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: input, f32 weight and bias cast to
+    ``dtype``, the product in ``dtype``."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
 def glorot_uniform_(param: torch.Tensor, generator: torch.Generator
                     ) -> torch.Tensor:
     """flax's ``glorot_uniform`` on a 2-D param: uniform on +-sqrt(6 /
     (fan_in + fan_out)), fan_in = shape[0], fan_out = shape[1]."""
     limit = math.sqrt(6.0 / (param.shape[0] + param.shape[1]))
     return nn.init.uniform_(param, -limit, limit, generator=generator)
+
+
+def _attention_param(shape: tuple, generator: torch.Generator,
+                     dtype: torch.dtype) -> nn.Parameter:
+    """A GAT attention param in ``dtype``, drawn in f32."""
+    a = glorot_uniform_(torch.empty(shape), generator)
+    return nn.Parameter(a.to(dtype))
 
 
 def head_stacked_adj(adj: Optional[torch.Tensor], n_src: int, shape: tuple,
@@ -137,20 +183,24 @@ class SAGEConv(nn.Module):
     """GraphSAGE 'mean': fc_self(h_dst) + fc_neigh(mean of neighbours),
     fc_neigh without bias."""
 
-    def __init__(self, d_in: int, d_out: int, generator: torch.Generator):
+    def __init__(self, d_in: int, d_out: int, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.fc_self = _linear(d_in, d_out, True, generator)
         self.fc_neigh = _linear(d_in, d_out, False, generator)
 
     def forward(self, block: DeviceBlock, x: LayerInput) -> torch.Tensor:
         if isinstance(x, TableInput):
             _needs_contiguous(block)
-            h_dst = x.rows(block.cap_dst)
-            h_neigh = table_agg_mean(x.table, x.ids, block.mask, x.scale)
+            h_dst = x.rows(block.cap_dst, self.dtype)
+            h_neigh = table_agg_mean(x.table, x.ids, block.mask, x.scale,
+                                     x.read_form(self.dtype), self.dtype)
         else:
             h_dst = x[:block.cap_dst]
             h_neigh = agg_mean(x, block.adj, block.mask)
-        return self.fc_self(h_dst) + self.fc_neigh(h_neigh)
+        return (_dense(self.fc_self, h_dst, self.dtype)
+                + _dense(self.fc_neigh, h_neigh, self.dtype))
 
 
 class GraphConv(nn.Module):
@@ -160,8 +210,10 @@ class GraphConv(nn.Module):
     norm='both'). Layer 0 with a ``TableInput`` sums straight off the
     table (``table_agg_sum``); layers above 0 use ``agg_sum``."""
 
-    def __init__(self, d_in: int, d_out: int, generator: torch.Generator):
+    def __init__(self, d_in: int, d_out: int, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.fc = _linear(d_in, d_out, True, generator)
 
     def forward(self, block: DeviceBlock, x: LayerInput) -> torch.Tensor:
@@ -170,10 +222,11 @@ class GraphConv(nn.Module):
         w = block.mask * norm[:, None]
         if isinstance(x, TableInput):
             _needs_contiguous(block)
-            agg = table_agg_sum(x.table, x.ids, w, x.scale)
+            agg = table_agg_sum(x.table, x.ids, w, x.scale,
+                                x.read_form(self.dtype), self.dtype)
         else:
             agg = agg_sum(x, block.adj, w)
-        return self.fc(agg)
+        return _dense(self.fc, agg, self.dtype)
 
 
 class GATConv(nn.Module):
@@ -182,19 +235,22 @@ class GATConv(nn.Module):
     @ (W . attn_r)``, a leaky ReLU, a softmax over the fanout axis with
     masked slots at -1e9, ``alpha * mask`` (all-masked rows -> 0), then the
     combine through the gather-SpMM kernel, heads stacked (module
-    docstring)."""
+    docstring). In bf16 the scores and the softmax are bf16, ``alpha *
+    mask`` is f32 (bf16 times the f32 mask promotes, as in JAX), and the
+    combine sums in f32 and rounds once to bf16."""
 
     def __init__(self, d_in: int, features: int, num_heads: int,
-                 generator: torch.Generator, negative_slope: float = 0.2):
+                 generator: torch.Generator, negative_slope: float = 0.2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads, self.features = num_heads, features
         self.negative_slope = negative_slope
+        self.dtype = dtype
         self.fc = _linear(d_in, num_heads * features, False, generator)
-        self.attn_l = nn.Parameter(torch.empty(num_heads, features))
-        self.attn_r = nn.Parameter(torch.empty(num_heads, features))
-        with torch.no_grad():
-            glorot_uniform_(self.attn_l, generator)
-            glorot_uniform_(self.attn_r, generator)
+        self.attn_l = _attention_param((num_heads, features), generator,
+                                       dtype)
+        self.attn_r = _attention_param((num_heads, features), generator,
+                                       dtype)
         self._combines: dict = {}   # (n_src, shape, device) -> adj, adj_t
 
     def forward(self, block: DeviceBlock, x: LayerInput) -> torch.Tensor:
@@ -202,15 +258,15 @@ class GATConv(nn.Module):
         # no bias
         assert self.fc.bias is None, "GATConv's score fold needs fc " \
             "without bias"
-        if isinstance(x, TableInput):
-            x = x.rows()
+        dt = self.dtype
+        x = x.rows(read_as=dt) if isinstance(x, TableInput) else x.to(dt)
         H, Fh = self.num_heads, self.features
         n_src, cap_dst, fanout = x.shape[0], block.cap_dst, block.fanout
         shape = (cap_dst, fanout)
-        feat = self.fc(x)                                  # [n_src, H * F]
-        W = self.fc.weight.T.reshape(-1, H, Fh)            # [d_in, H, F]
-        el = x @ torch.einsum("dhf,hf->dh", W, self.attn_l)
-        er = x[:cap_dst] @ torch.einsum("dhf,hf->dh", W, self.attn_r)
+        feat = _dense(self.fc, x, dt)                      # [n_src, H * F]
+        W = self.fc.weight.T.reshape(-1, H, Fh).to(dt)     # [d_in, H, F]
+        el = x @ torch.einsum("dhf,hf->dh", W, self.attn_l.to(dt))
+        er = x[:cap_dst] @ torch.einsum("dhf,hf->dh", W, self.attn_r.to(dt))
         e = neighbor_view(el, block.adj, shape) + er[:, None, :]
         e = F.leaky_relu(e, self.negative_slope)
         mask = block.mask[:, :, None]
@@ -220,7 +276,7 @@ class GATConv(nn.Module):
         w_h = alpha.permute(0, 2, 1).reshape(cap_dst * H, fanout).contiguous()
         out = gather_spmm(feat.reshape(n_src * H, Fh), adj_h, w_h,
                           adj_t=adj_t)
-        return out.view(cap_dst, H, Fh)
+        return out.to(dt).view(cap_dst, H, Fh)
 
     def _combine_adj(self, block: DeviceBlock, n_src: int, shape: tuple,
                      device) -> tuple:

@@ -119,22 +119,32 @@ def frontier_adj(ids: torch.Tensor, shape: tuple) -> torch.Tensor:
 
 def table_agg_sum(table: torch.Tensor, ids: torch.Tensor,
                   weights: torch.Tensor,
-                  scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  scale: Optional[torch.Tensor] = None,
+                  read_as: Optional[torch.dtype] = None,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``agg_sum(rows, None, weights)`` of the frontier rows ``table[ids]``
-    (widened to f32, or for an int8 table dequantised with ``scale``)
-    without building them: the weighted sum runs in the gather-SpMM kernel
-    straight off the table at the slots' ids (``frontier_adj``). GCN's
-    layer 0, whose weights are the block mask times 1 / degree.
-    -> f32 [cap_dst, dim]."""
+    (widened to f32, or for an int8 table dequantised with ``scale``;
+    ``read_as=torch.bfloat16``: each element then rounded to bf16, the
+    rows a bf16 model reads) without building them: the weighted sum runs
+    in the gather-SpMM kernel straight off the table at the slots' ids
+    (``frontier_adj``), in f32, and is rounded once to ``out_dtype``.
+    GCN's layer 0, whose weights are the block mask times 1 / degree.
+    -> [cap_dst, dim] ``out_dtype``."""
     adj = frontier_adj(ids, tuple(weights.shape))
-    return gather_spmm(table, adj, weights.contiguous(), scale)
+    return gather_spmm(table, adj, weights.contiguous(), scale,
+                       read_as=read_as).to(out_dtype)
 
 
 def table_agg_mean(table: torch.Tensor, ids: torch.Tensor,
                    mask: torch.Tensor,
-                   scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   scale: Optional[torch.Tensor] = None,
+                   read_as: Optional[torch.dtype] = None,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``agg_mean`` of the frontier rows ``table[ids]`` through
-    ``table_agg_sum``: sum, then divide by the clamped count, the JAX
-    order of operations. -> f32 [cap_dst, dim]."""
+    ``table_agg_sum``: the sum in ``out_dtype``, then the division by the
+    clamped count in ``out_dtype``, the JAX order of operations (a bf16
+    model rounds the f32 sum, then divides in bf16).
+    -> [cap_dst, dim] ``out_dtype``."""
     count = mask.sum(dim=1).clamp_min(1.0)
-    return table_agg_sum(table, ids, mask, scale) / count[:, None]
+    s = table_agg_sum(table, ids, mask, scale, read_as, out_dtype)
+    return s / count[:, None].to(s.dtype)

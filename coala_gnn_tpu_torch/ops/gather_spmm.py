@@ -7,7 +7,11 @@ table). On Hopper both become one hand-written CUDA kernel,
 ``csrc/gather_spmm.cu``, instantiated for f32, bf16 and int8 tables (the
 int8 form takes a per-row f32 ``scale`` and dequantises each row as it
 reads it); see the note there for what bounds it and how its design
-answers that.
+answers that. ``read_as=torch.bfloat16`` reads an f32 or int8 table as a
+bf16 model's layer 0 sees it: each element (int8: ``q * scale`` in f32
+first) rounded to bf16, ties to even, before its multiply-add; two more
+instantiations, ``gather_spmm_f32_as_bf16`` and
+``gather_spmm_i8_as_bf16``. A bf16 table read as bf16 is the bf16 form.
 
 ``gather_spmm`` is differentiable in ``x`` and ``w`` (a
 ``torch.autograd.Function``). Its backward is more kernels of the same
@@ -18,8 +22,8 @@ adj[n, k] = s`` in slot order, a gather over the transpose of ``adj``
 every table row once. A caller whose ``adj`` is fixed (GAT's contiguous
 layout) builds the transpose once and hands it in (``adj_t``); otherwise
 the backward builds it. Only the kernels whose input needs a gradient
-launch. An int8 table is constant: a call that would need its backward is
-refused.
+launch. An int8 table, and a table read as bf16 that is not stored so, is
+constant: a call that would need its backward is refused.
 
 On the training step the forward computes layer 0's neighbour sum straight
 off the flat cache table (``x`` = table, ``adj`` = the sampled frontier
@@ -44,14 +48,20 @@ import torch
 from coala_gnn_tpu_torch.utils.build import load_library
 
 SOURCE = "gather_spmm.cu"
-_ENTRY = {torch.float32: "gather_spmm_f32", torch.bfloat16: "gather_spmm_bf16",
-          torch.int8: "gather_spmm_i8"}
+#: forward form (``_form``) -> C entry; the counter of a form is
+#: ``gather_spmm[<form>]``
+_ENTRY = {"float32": "gather_spmm_f32", "bfloat16": "gather_spmm_bf16",
+          "int8": "gather_spmm_i8",
+          "float32_as_bf16": "gather_spmm_f32_as_bf16",
+          "int8_as_bf16": "gather_spmm_i8_as_bf16"}
 _GRAD_W_ENTRY = {torch.float32: "gather_spmm_grad_w_f32",
                  torch.bfloat16: "gather_spmm_grad_w_bf16"}
+_GRAD_W_COUNTER = {torch.float32: "gather_spmm_grad_w",
+                   torch.bfloat16: "gather_spmm_grad_w[bfloat16]"}
 
 #: kernel launches per entry; only a launch on the card adds one
-LAUNCHES = {"gather_spmm[float32]": 0, "gather_spmm[bfloat16]": 0,
-            "gather_spmm[int8]": 0, "gather_spmm_grad_w": 0,
+LAUNCHES = {**{f"gather_spmm[{form}]": 0 for form in _ENTRY},
+            **{name: 0 for name in _GRAD_W_COUNTER.values()},
             "gather_spmm_grad_x": 0, "adj_transpose": 0}
 
 #: the transpose of an adj [N, F] over S table rows: (row_ptr int32
@@ -60,8 +70,13 @@ LAUNCHES = {"gather_spmm[float32]": 0, "gather_spmm[bfloat16]": 0,
 Transpose = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _fwd_name(dtype: torch.dtype) -> str:
-    return f"gather_spmm[{str(dtype).split('.')[-1]}]"
+def _form(x: torch.Tensor, read_as: Optional[torch.dtype]) -> str:
+    """The forward form of a table of ``x.dtype`` read as ``read_as``
+    (None: as stored, widened to f32)."""
+    stored = str(x.dtype).split(".")[-1]
+    if read_as == torch.bfloat16 and x.dtype != torch.bfloat16:
+        return f"{stored}_as_bf16"
+    return stored
 
 
 def reset_launches() -> None:
@@ -70,23 +85,31 @@ def reset_launches() -> None:
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor,
-          scale: Optional[torch.Tensor]) -> torch.Tensor:
+          scale: Optional[torch.Tensor],
+          read_as: Optional[torch.dtype] = None) -> torch.Tensor:
     """Rows ``x[idx]`` widened to f32 (int8: times their scale, the order
-    of ``dequantize_rows``)."""
+    of ``dequantize_rows``); with ``read_as=torch.bfloat16`` each element
+    then rounded to bf16 (ties to even) and widened back."""
     rows = x[idx].float()
-    return rows if scale is None else rows * scale[idx][..., None]
+    if scale is not None:
+        rows = rows * scale[idx][..., None]
+    if read_as == torch.bfloat16:
+        rows = rows.to(torch.bfloat16).float()
+    return rows
 
 
 def gather_spmm_reference(x: torch.Tensor, adj: torch.Tensor,
                           w: torch.Tensor,
-                          scale: Optional[torch.Tensor] = None
+                          scale: Optional[torch.Tensor] = None,
+                          read_as: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
     """Plain version: an explicit k loop in the kernel's order (k = 0..F-1,
-    f32 accumulation). Returns f32 [N, D]."""
+    f32 accumulation) over the rows as ``_rows`` reads them. Returns f32
+    [N, D]."""
     acc = torch.zeros(adj.shape[0], x.shape[1], dtype=torch.float32,
                       device=x.device)
     for k in range(adj.shape[1]):
-        acc = acc + _rows(x, adj[:, k], scale) * w[:, k, None]
+        acc = acc + _rows(x, adj[:, k], scale, read_as) * w[:, k, None]
     return acc
 
 
@@ -171,10 +194,14 @@ def grad_x_error_bound(adj: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
 
 def _check(x: torch.Tensor, adj: torch.Tensor, w: torch.Tensor,
-           scale: Optional[torch.Tensor]) -> None:
-    if x.dtype not in _ENTRY:
+           scale: Optional[torch.Tensor],
+           read_as: Optional[torch.dtype] = None) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise TypeError(f"gather_spmm: x must be float32, bfloat16 or int8, "
                         f"got {x.dtype}")
+    if read_as not in (None, torch.float32, torch.bfloat16):
+        raise TypeError(f"gather_spmm: read_as must be None, float32 or "
+                        f"bfloat16, got {read_as}")
     if (x.dtype == torch.int8) != (scale is not None):
         raise TypeError("gather_spmm: an int8 table needs its f32 row "
                         "scales (scale=...), and only an int8 table takes "
@@ -264,14 +291,16 @@ def _launch(entry: str, counter: str, device: torch.device, *args) -> None:
 
 
 def _forward(x: torch.Tensor, adj: torch.Tensor, w: torch.Tensor,
-             scale: Optional[torch.Tensor]) -> torch.Tensor:
+             scale: Optional[torch.Tensor],
+             read_as: Optional[torch.dtype] = None) -> torch.Tensor:
     if x.device.type == "cpu":
-        return gather_spmm_reference(x, adj, w, scale)
+        return gather_spmm_reference(x, adj, w, scale, read_as)
     n, f = adj.shape
     s, d = x.shape
     out = torch.empty(n, d, dtype=torch.float32, device=x.device)
     ptrs = [x.data_ptr()] + ([] if scale is None else [scale.data_ptr()])
-    _launch(_ENTRY[x.dtype], _fwd_name(x.dtype), x.device, *ptrs,
+    form = _form(x, read_as)
+    _launch(_ENTRY[form], f"gather_spmm[{form}]", x.device, *ptrs,
             adj.data_ptr(), w.data_ptr(), out.data_ptr(), s, n, f, d)
     return out
 
@@ -287,7 +316,7 @@ def gather_spmm_grad_w(x: torch.Tensor, adj: torch.Tensor,
     n, f = adj.shape
     s, d = x.shape
     gw = torch.empty(n, f, dtype=torch.float32, device=x.device)
-    _launch(_GRAD_W_ENTRY[x.dtype], "gather_spmm_grad_w", x.device,
+    _launch(_GRAD_W_ENTRY[x.dtype], _GRAD_W_COUNTER[x.dtype], x.device,
             x.data_ptr(), adj.data_ptr(), g.data_ptr(), gw.data_ptr(), s, n,
             f, d)
     return gw
@@ -376,29 +405,35 @@ class _GatherSpmm(torch.autograd.Function):
 
 def gather_spmm(x: torch.Tensor, adj: torch.Tensor, w: torch.Tensor,
                 scale: Optional[torch.Tensor] = None,
-                adj_t: Optional[Transpose] = None) -> torch.Tensor:
+                adj_t: Optional[Transpose] = None,
+                read_as: Optional[torch.dtype] = None) -> torch.Tensor:
     """x [S, D] f32|bf16|int8 (int8 with ``scale`` f32 [S]), adj int32
     [N, F] (entries in [0, S)), w f32 [N, F] (0 makes a slot a no-op in
     the forward) -> f32 [N, D]. Any D. ``adj_t``: the transpose of adj
     (``adj_transpose(adj, S)``) for the backward's grad_x, where the caller
-    keeps one.
+    keeps one. ``read_as``: None (or float32) reads each element as
+    stored, widened to f32; ``torch.bfloat16`` rounds each widened (int8:
+    dequantised) element to bf16 first, the rows a bf16 model reads.
 
     CPU tensors: the plain versions. CUDA tensors: the kernels, on the
     current stream, without synchronising. On the kernel path a dst row
     whose slots hold an index outside [0, S) comes out NaN (the plain
     version raises instead). Differentiable in ``x`` and ``w`` for f32 and
-    bf16 tables; with an int8 table a ``w`` or ``scale`` that requires
-    grad is refused."""
-    _check(x, adj, w, scale)
+    bf16 tables read as stored; the int8 forms and an f32 table read as
+    bf16 are constant, and an input of theirs that requires grad is
+    refused."""
+    _check(x, adj, w, scale, read_as)
     if adj_t is not None:
         _check_transpose(adj_t, adj, x.shape[0])
-    if scale is None:
+    form = _form(x, read_as)
+    if form in ("float32", "bfloat16"):
         return _GatherSpmm.apply(x, adj, w, adj_t)
-    if torch.is_grad_enabled() and (w.requires_grad or scale.requires_grad):
-        raise ValueError("gather_spmm: an int8 table is constant; its form "
-                         "has no backward (w and scale must not require "
-                         "grad)")
-    return _forward(x, adj, w, scale)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, scale)):
+        raise ValueError(f"gather_spmm: the {form} form reads a constant "
+                         "table and has no backward (x, w and scale must "
+                         "not require grad)")
+    return _forward(x, adj, w, scale, read_as)
 
 
 # The JAX package's second kernel (VMEM-resident table, f32 or bf16) has the
@@ -413,9 +448,10 @@ def _library() -> ctypes.CDLL:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     sizes = [i64, i32, i32, i32, ptr]                 # s, n, f, d, stream
     for name in ("gather_spmm_f32", "gather_spmm_bf16",
-                 *_GRAD_W_ENTRY.values()):
+                 "gather_spmm_f32_as_bf16", *_GRAD_W_ENTRY.values()):
         getattr(lib, name).argtypes = [ptr] * 4 + sizes
-    lib.gather_spmm_i8.argtypes = [ptr] * 5 + sizes
+    for name in ("gather_spmm_i8", "gather_spmm_i8_as_bf16"):
+        getattr(lib, name).argtypes = [ptr] * 5 + sizes
     lib.gather_spmm_adj_transpose.argtypes = [ptr] * 4 + [i64, i64, ptr]
     lib.gather_spmm_transpose_scratch.argtypes = [i64, i64]
     lib.gather_spmm_transpose_scratch.restype = i64

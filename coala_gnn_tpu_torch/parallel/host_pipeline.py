@@ -73,9 +73,10 @@ def run_host(ds, B: int, fanouts, dim: int, hidden: int, cache_mb: int,
              state_dict: Optional[dict] = None) -> dict:
     """``warmup`` + ``steps`` steps of SAGE (``hidden`` wide, Adam 1e-3,
     dropout ``dropout``, weights from seed 1 or ``state_dict``) through
-    the host pipeline on ``device``; the measured steps are those after
-    the warm-up. ``prewarm``: "arange" (the first ``capacity`` node ids,
-    bench.py's) or "degree" (the highest in-degree nodes).
+    the host pipeline on ``device``; the measured steps are those after the
+    warm-up. ``bf16``: bf16 cache lines (the model stays f32, as bench.py's
+    run_host builds it). ``prewarm``: "arange" (the first ``capacity`` node
+    ids, bench.py's) or "degree" (the highest in-degree nodes).
 
     Returns bench.py's keys (``value`` = train edges per second over the
     measured steps, ``unit``, ``cache_hit_ratio`` of the measured probes,
@@ -88,10 +89,6 @@ def run_host(ds, B: int, fanouts, dim: int, hidden: int, cache_mb: int,
     (uncached gather + upload), ``snapshot``, ``step_dispatch``,
     ``spec_check`` (reading the miss counts, and replays), ``drain`` (the
     final wait for the device)."""
-    if bf16:
-        raise NotImplementedError(
-            "a bf16 host pipeline needs the bf16 model dtype: ROADMAP.md "
-            "queue A, \"the bf16 model dtype\"")
     if warmup < 1 or steps < 1:
         raise ValueError("run_host needs warmup >= 1 and steps >= 1")
     device = torch.device(device)
@@ -121,7 +118,8 @@ def run_host(ds, B: int, fanouts, dim: int, hidden: int, cache_mb: int,
     store = HostFeatureStore(ds.features)
     cache = None
     if cache_mb > 0:
-        cfg = fc.make_config(cache_mb=cache_mb, dim=dim)
+        cfg = fc.make_config(cache_mb=cache_mb, dim=dim,
+                             dtype=torch.bfloat16 if bf16 else torch.float32)
         cache = ShardedFeatureCache(cfg, [device], mode="isolated")
         log(f"host[{tag}]: cache {cfg.num_sets} sets x {cfg.ways} ways "
             f"({cfg.size_mb:.0f} MB, capacity {cfg.capacity} lines)")
@@ -277,6 +275,8 @@ def run_host(ds, B: int, fanouts, dim: int, hidden: int, cache_mb: int,
                    "hidden": hidden, "nodes": ds.graph.num_nodes,
                    "cache_mb": cache_mb, "model": "sage", "mode": tag,
                    "layout": "contig" if contiguous else "dedup",
-                   "feature_dtype": "float32", "prewarm": prewarm,
+                   "feature_dtype": "bfloat16" if bf16 and cache_mb
+                   else "float32",
+                   "prewarm": prewarm,
                    "device": str(device)},
     }

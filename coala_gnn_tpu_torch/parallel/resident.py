@@ -11,8 +11,12 @@ kernels.
 
 The cache holds f32, bf16 or int8 rows (``cfg.quantize``, both tiers).
 The flat tier hands its table to the model as it is stored
-(``TableInput(table, ids, scale)``); an int8 table is read by the kernel's
-int8 form, which dequantises each row as it reads it.
+(``TableInput(table, ids, scale, cfg.dtype)``); an int8 table is read by
+the kernel's int8 form, which dequantises each row as it reads it (and
+rounds it to bf16 where ``cfg.dtype`` or the model's dtype is bf16). The
+model may compute in f32 or bf16 (``models.gnn.make_model(dtype=...)``):
+every schedule below hands it rows in ``cfg.dtype`` and it casts them, as
+JAX's model does.
 
 Two cache tiers, picked as in JAX (``direct``): the flat table when it
 holds every node, the set-associative cache otherwise. Three window
@@ -51,8 +55,7 @@ Host syncs of the serial staged schedule: one probe readback per window
 fold; stages upload from pinned buffers without blocking.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``dedup=True`` and ``nbr_cap`` sampling, and int8 lines
-on a bf16 flat table (JAX dequantises them to bf16, the kernel to f32).
+ROADMAP.md item: ``dedup=True`` and ``nbr_cap`` sampling.
 """
 
 from __future__ import annotations
@@ -246,10 +249,6 @@ class ResidentTrainer:
         n = self.graph.num_nodes
         if self.direct is None:
             self.direct = cfg.capacity >= n
-        if self.direct and cfg.quantize and cfg.dtype != torch.float32:
-            raise NotImplementedError(
-                "int8 lines on a bf16 flat table are not ported yet: "
-                "ROADMAP.md queue A, \"the bf16 model dtype\"")
         self._use_prio = self.priorities is not None and not self.direct
         self.g = to_device_graph(self.graph, self.device)
         self.labels_dev = torch.as_tensor(
@@ -621,7 +620,8 @@ class ResidentTrainer:
             blocks, _, valid, safe = self._sample(seeds, g_sample)
             n_valid = valid.sum(dtype=torch.int32)
             if self.direct:
-                x = TableInput(self.cache.data, safe, self.cache.scale)
+                x = TableInput(self.cache.data, safe, self.cache.scale,
+                               self.cache_cfg.dtype)
                 n_hit, n_unres = n_valid, torch.zeros_like(n_valid)
             else:
                 feats, n_hit, n_unres = self._frontier(safe, valid, stage,

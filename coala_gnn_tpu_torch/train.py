@@ -27,7 +27,6 @@ import torch
 #: the ROADMAP.md items that the flags not ported yet name
 _ROADMAP = {
     "hetero": "ROADMAP.md queue A, \"hetero models and typed sampling\"",
-    "bf16": "ROADMAP.md queue A, \"the bf16 model dtype\"",
     "nbr_cap": "ROADMAP.md queue A, \"dedup=True and nbr_cap sampling\"",
     "multi": "ROADMAP.md queue A, \"multi-GPU\"",
     "ckpt": "ROADMAP.md queue A, \"checkpoint and rng\"",
@@ -117,7 +116,6 @@ def refuse_unported(args) -> None:
         (args.model_type in ("rsage", "rgcn", "rgat"),
          f"--model_type {args.model_type}", "hetero"),
         (args.num_edge_types > 1, "--num_edge_types > 1", "hetero"),
-        (args.dtype == "bfloat16", "--dtype bfloat16", "bf16"),
         (args.nbr_cap > 0, "--nbr_cap", "nbr_cap"),
         (args.devices > 1, f"--devices {args.devices}", "multi"),
         (args.distribution == "node_color", "--distribution node_color",
@@ -190,9 +188,11 @@ def main(argv=None) -> None:
         drop_tail=not (args.keep_tail or args.mask_tail))
     scheduler = DistributionScheduler(distributor, part_id=0, local_rank=0,
                                       refresh_counter=args.refresh_counter)
+    # --dtype: the cache lines' dtype and the model's compute dtype
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = make_model(args.model_type, ds.feature_dim, args.hidden_channels,
                        ds.num_classes, num_layers, num_heads=args.num_heads,
-                       seed=args.seed).to(device)
+                       seed=args.seed, dtype=dtype).to(device)
     optimizer = (torch.optim.AdamW(model.parameters(), lr=args.learning_rate,
                                    weight_decay=args.decay) if args.decay
                  else torch.optim.Adam(model.parameters(),
@@ -204,7 +204,7 @@ def main(argv=None) -> None:
         mode = {"nvshmem": "sharded", "nccl": "sharded"}.get(
             args.cache_backend, args.cache_backend)
         cfg = fc.make_config(cache_mb=args.cache_size, dim=ds.feature_dim,
-                             quantize=args.quantize)
+                             dtype=dtype, quantize=args.quantize)
         cache = ShardedFeatureCache(cfg, devices, mode=mode)
         scheduler.meta_fn = cache.local_color_meta
         print(f"cache[{mode}]: {cfg.num_sets} sets x {cfg.ways} ways "

@@ -8,18 +8,36 @@ map is the path joined with dots, ``kernel`` -> ``weight`` transposed,
 ([heads, features], the same layout in both) unchanged. Works on nested
 dicts of numpy arrays and imports no flax: a tree from the JAX package
 goes through ``jax.device_get`` (or ``np.asarray`` per leaf) first.
+
+Each leaf keeps its dtype: f32 stays f32, and a bf16 leaf (a bf16 model's
+``attn_l`` / ``attn_r``; its Dense params stay f32, flax's ``param_dtype``)
+becomes a ``torch.bfloat16`` tensor. numpy has no bf16 of its own (JAX
+hands out ``ml_dtypes.bfloat16`` arrays, which the port does not import),
+so a bf16 leaf is recognised by its dtype's name and crosses through f32,
+which holds every bf16 value exactly.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 #: leaves that keep their name and layout in both frameworks
 _AS_IS = ("bias", "attn_l", "attn_r")
+
+
+def _is_bf16(arr: np.ndarray) -> bool:
+    return np.asarray(arr).dtype.name == "bfloat16"
+
+
+def _leaf(arr, transpose: bool) -> torch.Tensor:
+    """A flax leaf -> torch tensor of the same dtype (f32 or bf16)."""
+    f32 = np.array(arr, np.float32)            # a copy torch may write
+    t = torch.from_numpy(np.ascontiguousarray(f32.T if transpose else f32))
+    return t.to(torch.bfloat16) if _is_bf16(arr) else t
 
 
 def params_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
@@ -35,12 +53,9 @@ def params_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
             if isinstance(leaf, Mapping):
                 walk(leaf, path + (name,))
             elif name == "kernel":
-                arr = np.asarray(leaf, np.float32)
-                out[".".join(path + ("weight",))] = \
-                    torch.from_numpy(np.ascontiguousarray(arr.T))
+                out[".".join(path + ("weight",))] = _leaf(leaf, True)
             elif name in _AS_IS:
-                out[".".join(path + (name,))] = \
-                    torch.from_numpy(np.array(leaf, np.float32))
+                out[".".join(path + (name,))] = _leaf(leaf, False)
             else:
                 raise ValueError(f"unexpected flax leaf "
                                  f"{'/'.join(path + (name,))}")
@@ -49,13 +64,27 @@ def params_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     return out
 
 
-def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+def params_to_flax(state_dict: Mapping[str, torch.Tensor],
+                   bf16_as: Optional[np.dtype] = None) -> Dict:
     """Inverse of ``params_from_flax``: -> ``{"params": {...}}`` of numpy
-    f32 arrays."""
+    arrays, f32 leaves as f32. A bf16 leaf needs ``bf16_as``: a 2-byte
+    numpy bfloat16 type (``ml_dtypes.bfloat16``, the caller's), which gets
+    the tensor's bits unchanged, or ``np.float32``, which widens it
+    exactly; without it a bf16 leaf raises ``ValueError``."""
     tree: Dict = {}
     for key, value in state_dict.items():
         *path, leaf = key.split(".")
-        arr = value.detach().cpu().float().numpy()
+        t = value.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            if bf16_as is None:
+                raise ValueError(f"{key} is bfloat16: pass bf16_as (a numpy "
+                                 "bfloat16 type, or np.float32 to widen)")
+            if np.dtype(bf16_as) == np.float32:
+                arr = t.float().numpy()
+            else:
+                arr = t.view(torch.int16).numpy().view(bf16_as)
+        else:
+            arr = t.float().numpy()
         if leaf == "weight":
             leaf, arr = "kernel", np.ascontiguousarray(arr.T)
         elif leaf not in _AS_IS:

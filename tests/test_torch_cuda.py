@@ -1,5 +1,6 @@
-"""The CUDA gather-SpMM kernels (f32, bf16 and int8 forward, grad_w,
-grad_x and adj's transpose) against their plain versions, on a card.
+"""The CUDA gather-SpMM kernels (f32, bf16 and int8 forward, the f32 and
+int8 tables read as bf16, grad_w, grad_x and adj's transpose) against
+their plain versions, on a card.
 
 Needs a CUDA card and nvcc; skipped without a card. This file imports no
 JAX, so it runs on a machine that has none:
@@ -67,6 +68,45 @@ def test_int8_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stored", ["float32", "int8"])
+def test_bf16_read_kernels_match_plain(cuda, stored):
+    """The f32 and int8 tables read as bf16 (each element rounded to bf16,
+    ties to even, after the int8 dequantising multiply) at every shape of
+    SHAPES (odd widths 100 and 1 among them), masked slots (w == 0), rows
+    at bf16 ties, and out-of-range slots giving NaN rows; one launch each
+    on its own counter."""
+    from coala_gnn_tpu_torch.cache.feature_cache import quantize_rows
+
+    name = f"gather_spmm[{stored}_as_bf16]"
+    for S, N, F, D in SHAPES:
+        base = torch.randn(S, D, generator=cuda, device="cuda") * 10
+        bits = base.view(torch.int32)
+        bits[0] = (bits[0] & -65536) | 0x8000          # ties to even
+        x, scale = (quantize_rows(base) if stored == "int8"
+                    else (base, None))
+        adj, w = _adj_w(cuda, S, N, F)
+        before = LAUNCHES[name]
+        out = gather_spmm(x, adj, w, scale, read_as=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert LAUNCHES[name] == before + 1
+        want = gather_spmm_reference(x, adj, w, scale, read_as=torch.bfloat16)
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+        one = torch.zeros(N, 1, dtype=torch.int32, device="cuda")
+        rows = gather_spmm(x, one, torch.ones(N, 1, device="cuda"), scale,
+                           read_as=torch.bfloat16)
+        assert torch.equal(rows, gather_spmm_reference(
+            x, one, torch.ones(N, 1, device="cuda"), scale,
+            read_as=torch.bfloat16))               # a single read: exact
+        bad = adj.clone()
+        bad[0, F - 1], bad[N - 1, 0] = S, -1
+        out = gather_spmm(x, bad, w + 1, scale, read_as=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert out[0].isnan().all() and out[N - 1].isnan().all()
+        if N > 2:
+            assert not out[1:N - 1].isnan().any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grad_kernels_match_plain(cuda, dtype):
     """grad_w (every slot, w == 0 included) and grad_x, on random adj
@@ -82,10 +122,10 @@ def test_grad_kernels_match_plain(cuda, dtype):
         adj, w = _adj_w(cuda, S, N, F)
         adj[3, 1], adj[7, 4], adj[N - 1, 0] = -1, S, 2**30
         bad = (adj < 0) | (adj >= S)
-        before = LAUNCHES["gather_spmm_grad_w"]
+        before = LAUNCHES[GRAD_W[dtype]]
         gw = gather_spmm_grad_w(x, adj, g)
         torch.cuda.synchronize()
-        assert LAUNCHES["gather_spmm_grad_w"] == before + 1
+        assert LAUNCHES[GRAD_W[dtype]] == before + 1
         assert gw[bad].isnan().all() and not gw[~bad].isnan().any()
         ok = torch.where(bad, torch.zeros_like(adj), adj)
         err = (gw - gather_spmm_grad_w_reference(x, ok, g)).abs()
@@ -106,8 +146,7 @@ def test_grad_kernels_match_plain(cuda, dtype):
             counts = dict(LAUNCHES)
             gather_spmm(xr, adj, wr).backward(g)
             torch.cuda.synchronize()
-            assert LAUNCHES["gather_spmm_grad_w"] == \
-                counts["gather_spmm_grad_w"] + 1
+            assert LAUNCHES[GRAD_W[dtype]] == counts[GRAD_W[dtype]] + 1
             assert LAUNCHES["gather_spmm_grad_x"] == \
                 counts["gather_spmm_grad_x"] + (dtype == torch.float32)
             gw_ref = gather_spmm_grad_w_reference(x.detach(), adj, g)
@@ -124,6 +163,8 @@ def test_grad_kernels_match_plain(cuda, dtype):
                 xr.grad = None
 
 
+GRAD_W = {torch.float32: "gather_spmm_grad_w",
+          torch.bfloat16: "gather_spmm_grad_w[bfloat16]"}
 SHAPES = [(100, 40, 5, 128), (64, 300, 3, 256), (50, 17, 10, 128),
           (1000, 6144, 10, 256), (9, 3, 1, 8), (60, 20, 5, 100),
           (2000, 50, 7, 100), (300, 40, 5, 16), (61, 7, 3, 1)]

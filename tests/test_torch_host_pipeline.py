@@ -5,7 +5,10 @@ and its CLI (``python -m coala_gnn_tpu_torch.train``).
 - The steps start from the JAX model's params converted by
   ``utils/convert.py``, with dropout 0, on the same sampled batches; losses
   and params agree with the JAX steps' within 1e-5 over 8 steps (rtol =
-  atol: both sum the same f32 products, the JAX side fused by XLA).
+  atol: both sum the same f32 products, the JAX side fused by XLA). The
+  CLI's steps also run a bf16 model (``--dtype bfloat16``) on bf16 rows and
+  on int8 rows served as bf16 (``--quantize``), held at
+  tests/test_torch_bf16.py's bf16 tolerance (rtol = atol = 2e-2).
 - ``run_host`` against the same loop built from the JAX pieces (bench.py's
   ``run_host`` with dropout 0 and the converted params): losses within
   1e-5 step by step, hit and miss counts and speculative replays equal,
@@ -57,11 +60,18 @@ KW = dict(num_nodes=3000, avg_degree=8, feature_dim=16, num_classes=4,
           seed=11)
 B, FANOUTS, HIDDEN, LR, STEPS = 16, [4, 3], 8, 1e-2, 8
 TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
 @pytest.fixture(scope="module")
 def dss():
     return synthetic_graph(**KW), jax_synthetic(**KW)
+
+
+@pytest.fixture(scope="module")
+def dss_wide():
+    kw = dict(KW, feature_dim=160)
+    return synthetic_graph(**kw), jax_synthetic(**kw)
 
 
 def blocks_to_device(blocks, device):
@@ -72,27 +82,42 @@ def blocks_to_device(blocks, device):
             for b in blocks]
 
 
-def _jax_init(kind, batch, x, key=0):
+def _jax_init(kind, batch, x, key=0, dtype=jnp.float32):
     jm = jax_make_model(kind, hidden=HIDDEN, num_classes=KW["num_classes"],
-                        num_layers=2, num_heads=2, dropout=0.0)
+                        num_layers=2, num_heads=2, dropout=0.0, dtype=dtype)
     return jm, jm.init(jax.random.key(key), jblocks_to_device(batch.blocks),
                        jnp.asarray(x))
 
 
-def _port_model(kind, params):
+def _port_model(kind, params, dtype=torch.float32):
     model = make_model(kind, KW["feature_dim"], HIDDEN, KW["num_classes"], 2,
-                       num_heads=2, dropout=0.0)
+                       num_heads=2, dropout=0.0, dtype=dtype)
     model.load_state_dict(params_from_flax(jax.device_get(params)))
     return model
 
 
-def _params_close(model, params) -> None:
-    got = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+def _params_close(model, params, tol=TOL) -> None:
+    got = model.state_dict()
     want = params_from_flax(jax.device_get(params))
     assert set(got) == set(want)
     for k in got:
-        np.testing.assert_allclose(got[k], want[k].numpy(), **TOL,
-                                   err_msg=k)
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_allclose(got[k].float().numpy(),
+                                   want[k].float().numpy(), **tol, err_msg=k)
+
+
+def _served_rows(x, rows):
+    """The rows the CLI's cache serves its steps, as (JAX array, torch
+    tensor) of the same values: "float32" as they are, "bfloat16" rounded
+    to bf16 lines, "int8_bf16" int8 lines dequantised to bf16 (a bf16
+    config with --quantize)."""
+    if rows == "float32":
+        return jnp.asarray(x), torch.from_numpy(x)
+    jx = (jnp.asarray(x).astype(jnp.bfloat16) if rows == "bfloat16" else
+          jfc.dequantize_rows(*jfc.quantize_rows(jnp.asarray(x)),
+                              dtype=jnp.bfloat16))
+    return jx, torch.from_numpy(np.array(jx.astype(jnp.float32))).to(
+        torch.bfloat16)
 
 
 def _batches(ds, contiguous, n=STEPS, seed=3):
@@ -157,22 +182,36 @@ def test_train_steps_match_jax(dss, form):
     _params_close(model, params)
 
 
-@pytest.mark.parametrize("kind,masked", [("sage", True), ("sage", False),
-                                         ("gcn", True), ("gat", False)])
-def test_sharded_steps_match_jax(dss, kind, masked):
+SHARDED = [("sage", True, "float32"), ("sage", False, "float32"),
+           ("gcn", True, "float32"), ("gat", False, "float32"),
+           # --dtype bfloat16: bf16 lines, and int8 lines with --quantize
+           ("sage", True, "bfloat16"), ("sage", False, "int8_bf16"),
+           ("gcn", True, "int8_bf16"), ("gat", False, "bfloat16")]
+
+
+@pytest.mark.parametrize("kind,masked,rows", SHARDED, ids=[
+    f"{k}-{m}" + ("" if r == "float32" else f"-{r}") for k, m, r in SHARDED])
+def test_sharded_steps_match_jax(dss, kind, masked, rows):
     """The CLI's steps: the data-parallel train step (masked: the last
     batch's tail seeds weigh 0) and the per-slot eval step, with the
-    leading device axis, on one device. GAT trains with SGD: the softmax
-    over the slots cancels the last layer's attn_r gradient to rounding
-    noise, which Adam would turn into lr-sized steps of random sign
+    leading device axis, on one device. ``rows``: the cache rows the steps
+    are served (``_served_rows``); bf16 rows come with a bf16 model, as
+    ``--dtype bfloat16`` builds both, held at ``BF16_TOL`` (the per-slot
+    correctness exactly). GAT trains with SGD: the softmax over the slots
+    cancels the last layer's attn_r gradient to rounding noise, which Adam
+    would turn into lr-sized steps of random sign
     (tests/test_torch_resident.py)."""
     ds = dss[0]
     _, batches = _batches(ds, False)
-    jm, params = _jax_init(kind, batches[0][0], batches[0][1])
+    bf16 = rows != "float32"
+    tol = BF16_TOL if bf16 else TOL
+    jm, params = _jax_init(kind, batches[0][0], batches[0][1],
+                           dtype=jnp.bfloat16 if bf16 else jnp.float32)
     tx = optax.sgd(LR) if kind == "gat" else optax.adam(LR)
     opt_state = tx.init(params)
     mesh = make_mesh(jax.devices()[:1])
-    model = _port_model(kind, params)
+    model = _port_model(kind, params,
+                        torch.bfloat16 if bf16 else torch.float32)
     opt = (torch.optim.SGD if kind == "gat" else torch.optim.Adam)(
         model.parameters(), lr=LR)
     step = train.make_sharded_train_step(model, opt, ["cpu"], B,
@@ -188,37 +227,39 @@ def test_sharded_steps_match_jax(dss, kind, masked):
         jblocks = [b._replace(adj=b.adj[None], mask=b.mask[None])
                    for b in jblocks_to_device(batch.blocks)]
         extra = (torch.from_numpy(valid),) if masked else ()
-        loss, acc = step(blocks, torch.from_numpy(x[None]),
+        jx, tx_rows = _served_rows(x, rows)
+        loss, acc = step(blocks, tx_rows[None],
                          torch.from_numpy(labels[None]), *extra)
         params, opt_state, jloss, jacc = jstep(
-            params, opt_state, key, jblocks, jnp.asarray(x[None]),
+            params, opt_state, key, jblocks, jx[None],
             jnp.asarray(labels[None]), *((jnp.asarray(valid),) if masked
                                          else ()))
-        np.testing.assert_allclose(float(loss), float(jloss), **TOL)
+        np.testing.assert_allclose(float(loss), float(jloss), **tol)
         assert float(acc) == pytest.approx(float(jacc), abs=1e-6)
-    _params_close(model, params)
+    _params_close(model, params, tol)
     ok = train.make_sharded_eval_step(model, ["cpu"], B, per_slot=True)(
-        blocks, torch.from_numpy(x[None]), torch.from_numpy(labels[None]))
+        blocks, tx_rows[None], torch.from_numpy(labels[None]))
     jok = jtrain.make_sharded_eval_step(jm, mesh, B, per_slot=True)(
-        params, jblocks, jnp.asarray(x[None]), jnp.asarray(labels[None]))
+        params, jblocks, jx[None], jnp.asarray(labels[None]))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
     correct, n = train.make_eval_step(model, B)(
-        blocks_to_device(batch.blocks, "cpu"), torch.from_numpy(x),
+        blocks_to_device(batch.blocks, "cpu"), tx_rows,
         torch.from_numpy(labels))
     jcorrect, jn = jtrain.make_eval_step(jm, B)(
-        params, jblocks_to_device(batch.blocks), jnp.asarray(x),
-        jnp.asarray(labels))
+        params, jblocks_to_device(batch.blocks), jx, jnp.asarray(labels))
     assert (int(correct), n) == (int(jcorrect), int(jn))
     assert int(train.make_sharded_eval_step(model, ["cpu"], B)(
-        blocks, torch.from_numpy(x[None]),
+        blocks, tx_rows[None],
         torch.from_numpy(labels[None]))) == int(correct)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train.make_sharded_train_step(model, opt, ["cpu", "cpu"], B)
 
 
-def _jax_run_host(ds, cache_mb, warmup, steps, contiguous, prewarm, params):
+def _jax_run_host(ds, cache_mb, warmup, steps, contiguous, prewarm, params,
+                  bf16=False):
     """bench.py's run_host built from the JAX pieces, with dropout 0 and
-    the given params, every step's loss kept."""
+    the given params, every step's loss kept; ``bf16``: bf16 cache lines
+    (the model stays f32)."""
     dim = ds.feature_dim
     sentinel = ds.graph.num_nodes
     sampler = JaxSampler(ds.graph, FANOUTS, B, seed=0, contiguous=contiguous)
@@ -241,7 +282,8 @@ def _jax_run_host(ds, cache_mb, warmup, steps, contiguous, prewarm, params):
     store = JaxStore(ds.features)
     cache = None
     if cache_mb > 0:
-        cfg = jfc.make_config(cache_mb=cache_mb, dim=dim, num_colors=0)
+        cfg = jfc.make_config(cache_mb=cache_mb, dim=dim, num_colors=0,
+                              dtype=jnp.bfloat16 if bf16 else jnp.float32)
         cache = JaxCache(cfg=cfg, mesh=make_mesh(jax.devices()[:1]),
                          mode="isolated")
         if prewarm == "arange":
@@ -360,9 +402,52 @@ def test_run_host_matches_jax_loop(dss, cache_mb, contiguous, prewarm):
 
 
 def test_run_host_refuses_bf16(dss):
-    with pytest.raises(NotImplementedError, match="bf16"):
-        run_host(dss[0], B, FANOUTS, 16, HIDDEN, 4, True, 1, 1,
-                 device="cpu")
+    """``run_host(bf16=True)`` no longer refuses: it runs with bf16 cache
+    lines and an f32 model, as bench.py's run_host does (it refused,
+    wrongly, until the bf16 model dtype was ported;
+    ``test_run_host_bf16_lines_match_jax_loop`` holds it to JAX). An
+    uncached run has no lines and reports f32 features."""
+    r = run_host(dss[0], B, FANOUTS, 16, HIDDEN, 4, True, 1, 1, device="cpu")
+    assert np.isfinite(r["losses"]).all() and len(r["losses"]) == 2
+    assert r["config"]["feature_dtype"] == "bfloat16"
+    r = run_host(dss[0], B, FANOUTS, 16, HIDDEN, 0, True, 1, 1, device="cpu")
+    assert r["config"]["feature_dtype"] == "float32"
+
+
+@pytest.mark.parametrize("cache_mb,contiguous,prewarm", [
+    (4, False, "arange"),       # full coverage, the dedup wire
+    (1, False, "degree"),       # under pressure: misses, fills, replays
+    (4, True, "arange"),        # full coverage, the slot-major wire
+    (1, True, "arange"),
+])
+def test_run_host_bf16_lines_match_jax_loop(dss_wide, cache_mb, contiguous,
+                                            prewarm):
+    """``run_host(bf16=True)`` (bf16 lines in the one-device cache front,
+    an f32 SAGE, as bench.py's) against the same loop of JAX pieces: the
+    bf16 rows are widened exactly, so the losses agree at 1e-5 as in the
+    f32 cases; hit and miss counts and replays are equal. The graph's rows
+    are 160 wide (256-wide lines), so 1 MB of bf16 lines holds 2,048 of its
+    3,000 rows."""
+    ds, jds = dss_wide
+    jm = jax_make_model("sage", hidden=HIDDEN, num_classes=ds.num_classes,
+                        num_layers=2, dropout=0.0)
+    caps = NeighborSampler(ds.graph, FANOUTS, B, use_native=False).caps
+    params = jm.init(jax.random.key(1), [
+        JBlock(adj=jnp.zeros((cd, f), jnp.int32), mask=jnp.ones((cd, f)))
+        for (cd, _), f in zip(caps, FANOUTS)],
+        jnp.zeros((caps[0][1], ds.feature_dim), jnp.float32))
+    warmup, steps = 3, 9
+    got = run_host(ds, B, FANOUTS, ds.feature_dim, HIDDEN, cache_mb, True,
+                   warmup, steps, contiguous=contiguous, device="cpu",
+                   prewarm=prewarm, dropout=0.0,
+                   state_dict=params_from_flax(jax.device_get(params)))
+    losses, stats, replays = _jax_run_host(jds, cache_mb, warmup, steps,
+                                           contiguous, prewarm, params,
+                                           bf16=True)
+    np.testing.assert_allclose(got["losses"], losses, **TOL)
+    assert got["replays"] == replays and (replays > 0) == (cache_mb == 1)
+    assert (got["hits"], got["misses"]) == (stats["hits"], stats["misses"])
+    assert got["config"]["feature_dtype"] == "bfloat16"
 
 
 CLI_ARGS = ["--device", "cpu", "--num_nodes", "2000", "--feature_dim", "16",
@@ -397,7 +482,7 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu():
 @pytest.mark.parametrize("flags,item", [
     (["--model_type", "rgcn"], "hetero"),
     (["--num_edge_types", "3"], "hetero"),
-    (["--dtype", "bfloat16"], "bf16 model dtype"),
+    (["--model_type", "rgat"], "hetero"),
     (["--nbr_cap", "8"], "nbr_cap"),
     (["--devices", "2"], "multi-GPU"),
     (["--distribution", "node_color"], "multi-GPU"),

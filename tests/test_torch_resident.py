@@ -245,9 +245,10 @@ def test_per_step_path_with_misses_matches_jax(setup):
 
 
 def test_unported_paths_raise(setup):
-    """What stays unported raises and names its ROADMAP.md item:
-    dedup=True and nbr_cap sampling, and int8 lines on a bf16 flat
-    table."""
+    """What stays unported raises and names its ROADMAP.md item: dedup=True
+    and nbr_cap sampling. int8 lines on a bf16 flat table are ported (the
+    bf16 model dtype; tests/test_torch_bf16.py holds them to JAX) and build
+    their flat int8 table."""
     ds, fanouts, _, params0, grids = setup
     tt = _torch_trainer(ds, fanouts, params0)
     for kw in ({"dedup": True}, {"nbr_cap": 2 * max(fanouts)}):
@@ -259,8 +260,8 @@ def test_unported_paths_raise(setup):
                             **kw)
     bf16_int8 = dataclasses.replace(tt.cache_cfg, dtype=torch.bfloat16,
                                     quantize=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResidentTrainer(graph=ds.graph, host_fetch=None, labels=ds.labels,
-                        cache_cfg=bf16_int8, model=tt.model,
-                        optimizer=tt.optimizer, fanouts=fanouts,
-                        batch_size=B, device="cpu")
+    rt = ResidentTrainer(graph=ds.graph, host_fetch=None, labels=ds.labels,
+                         cache_cfg=bf16_int8, model=tt.model,
+                         optimizer=tt.optimizer, fanouts=fanouts,
+                         batch_size=B, device="cpu")
+    assert rt.direct and rt.cache.data.dtype == torch.int8

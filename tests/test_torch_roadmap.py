@@ -60,7 +60,6 @@ def test_the_scan_finds_the_citations():
     train = {title for path, title in cited
              if path == os.path.join("coala_gnn_tpu_torch", "train.py")}
     assert train == {"hetero models and typed sampling",
-                     "the bf16 model dtype",
                      "dedup=True and nbr_cap sampling", "multi-GPU",
                      "checkpoint and rng",
                      "CLI --pipeline resident on the port's ResidentTrainer",
