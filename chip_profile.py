@@ -1,6 +1,7 @@
 """Device profile of one training window of the port on one CUDA card.
 
-    python3 chip_profile.py [sage|gcn|gat|sage-bf16|gat-bf16 ...]
+    python3 chip_profile.py [sage|gcn|gat|sage-bf16|gat-bf16|
+                             rsage|rgcn|rgat|cli-sage|cli-gat ...]
                                                     (default: gat)
 
 For each row: builds ``chip_smoke.py``'s trainer at the flagship config
@@ -27,7 +28,14 @@ window and their median: the way to compare rows whose ms/step spreads
 
 The rows: sage, gcn and gat on the f32 table with an f32 model;
 sage-bf16 is ``chip_smoke.py``'s resident-bf16 (bf16 table, bf16 model)
-and gat-bf16 its phase 12 (f32 table, bf16 model).
+and gat-bf16 its phase 12 (f32 table, bf16 model). rsage, rgcn and rgat
+are the trainer CLI's hetero models as ``chip_smoke.py``'s phase 15 runs
+them (``train.build`` on the 200k-node graph with 3 edge types, the 1024
+MB cache front): one warm-up epoch of 8 steps, then one traced epoch of 8
+steps of the CLI's loop (``train.train``: its loader, fetches and steps;
+the epoch's wall time, as the CLI prints it, includes the loader's first
+batch); ``cli-MODEL`` (cli-sage, cli-gcn, cli-gat) is a homogeneous
+model through the same loop, beside them.
 
     python3 chip_profile.py --against OTHER_CHECKOUT ROW ...
 
@@ -79,15 +87,16 @@ def busy_us(intervals) -> float:
     return busy
 
 
-def profile_window(torch, rt, grid) -> tuple:
-    """(host wall seconds, device events) of one traced window."""
+def profile_window(torch, run_steps) -> tuple:
+    """(host wall seconds, device events) of one traced call of
+    ``run_steps`` (one window or one CLI epoch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rt.train_windows(grid, seed=1)
+        run_steps()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -220,11 +229,21 @@ def main() -> int:
         time_turns(torch, cs, ds, store, args[1:], rng)
         return 0
     for model_type in args or ["gat"]:
-        rt = make_row(torch, cs, ds, store, model_type)
-        rt.train_windows(cs.make_grids(ds, 1, STEPS, cs.BATCH, rng), seed=0)
+        if model_type in cs.HETERO_KINDS or model_type.startswith("cli-"):
+            from coala_gnn_tpu_torch import train as cli
+
+            kind = model_type.removeprefix("cli-")
+            rt = cli.build(cli.parse_args(cs.cli_args(kind)), ds=ds)
+            cli.train(rt, epochs=1, max_steps=STEPS)
+            run_steps = lambda: cli.train(rt, epochs=1, max_steps=STEPS)
+        else:
+            rt = make_row(torch, cs, ds, store, model_type)
+            rt.train_windows(cs.make_grids(ds, 1, STEPS, cs.BATCH, rng),
+                             seed=0)
+            grid = cs.make_grids(ds, 1, STEPS, cs.BATCH, rng)
+            run_steps = lambda: rt.train_windows(grid, seed=1)
         torch.cuda.synchronize()
-        wall, events = profile_window(
-            torch, rt, cs.make_grids(ds, 1, STEPS, cs.BATCH, rng))
+        wall, events = profile_window(torch, run_steps)
         cs.require(bool(events), f"{model_type}: the trace holds no device "
                                  "event")
         busy = busy_us((e.time_range.start, e.time_range.end)

@@ -10,7 +10,8 @@ full coverage, K = 8), its bf16-table row, and the pressure row (a
 set-associative f32 cache of ~50% of the rows, degree priorities, staged
 windows of K = 32 through the native host tier); then GAT and GCN at the
 same config, the int8 cache lines on both tiers, and the bf16 model dtype
-(resident-bf16, a bf16 GAT and GCN, int8 lines on a bf16 table). Phases:
+(resident-bf16, a bf16 GAT and GCN, int8 lines on a bf16 table), and the
+trainer CLI's hetero models. Phases:
 
   1. device: a CUDA card must be present; prints its name and power limit;
   2. kernels vs plain: builds the gather-SpMM kernels from the checkout and
@@ -103,11 +104,28 @@ same config, the int8 cache lines on both tiers, and the bf16 model dtype
      rows are gathered and rounded by PyTorch), held to the plain version
      on one real step;
  14. small bf16 SAGE and GAT runs (SGD) on the card against the same runs
-     of the port on the CPU (rtol = atol = 2e-2).
+     of the port on the CPU (rtol = atol = 2e-2);
+ 15. the hetero models through the trainer CLI's own code
+     (``coala_gnn_tpu_torch.train``: ``build`` and its epoch loop
+     ``train``): RSAGE, RGCN and RGAT (4 heads) at the flagship widths on
+     the 200k-node graph with 3 random edge types (the CLI's default for a
+     hetero model), the 1024 MB one-device cache front, dropout 0.5, Adam
+     1e-3, 4 warm-up + 16 measured steps each; checks finite, falling
+     losses, the kernel launches of every measured step (each layer's
+     relations in one stacked gather-SpMM call: RSAGE / RGCN 2 forwards, 1
+     transpose and 1 grad_x; RGAT per layer a combine, grad_w, grad_x and
+     a transpose) and nothing else, and params, optimizer state and cache
+     on the card; prints ms/step, train edges/s and peak device memory;
+     holds every stacked entry against its plain version on one real
+     step's inputs (forwards at 1e-5, grad_w / grad_x within their f32
+     bounds, the transposes bitwise) and times each beside its bound; then
+     small CLI runs card vs CPU: each model in f32 (2e-3 / 2e-4), a bf16
+     RSAGE and RGAT (2e-2).
 
 Every failure ends the script with a non-zero code. The line before the
 last two is a JSON object with the kernels' launches, errors, times,
-bounds and library times;
+bounds and library times (phase 15's stacked shapes as entries of their
+own, named by kernel, model and layer);
 the last line is ``{"ok": true, "device": {...}}``. Writes nothing but
 coala_gnn_tpu_torch/_build/ (the kernels and the native host library,
 built there at first use). Imports nothing of JAX or of coala_gnn_tpu.
@@ -1502,6 +1520,258 @@ def phase_host(torch, ds, smi, device="cuda") -> tuple:
     return total, phase_host_step(torch, ds, device)
 
 
+HETERO_KINDS = ("rsage", "rgcn", "rgat")
+HETERO_WARM, HETERO_MEAS = 4, 16
+#: kernel launches per step of a hetero model on the CLI's host path: RSAGE
+#: and RGCN one stacked forward per layer, and layer 1's grad_x over one
+#: transpose (layer 0's input needs no gradient); RGAT per layer one stacked
+#: combine, its grad_w and grad_x, and one transpose
+HETERO_PER_STEP = {
+    "rsage": {"gather_spmm[float32]": 2, "adj_transpose": 1,
+              "gather_spmm_grad_x": 1},
+    "rgcn": {"gather_spmm[float32]": 2, "adj_transpose": 1,
+             "gather_spmm_grad_x": 1},
+    "rgat": {"gather_spmm[float32]": 2, "gather_spmm_grad_w": 2,
+             "gather_spmm_grad_x": 2, "adj_transpose": 2}}
+#: the CLI's hetero default on a synthetic graph (examples/train.py)
+NUM_EDGE_TYPES = 3
+
+
+def cli_args(kind: str, device: str = "cuda", **flags) -> list:
+    """The trainer CLI's flags for ``kind`` at the flagship widths, a
+    hetero model on ``NUM_EDGE_TYPES`` edge types (``flags`` override them,
+    ``_`` for ``-``)."""
+    base = dict(device=device, model_type=kind, num_nodes=N_NODES,
+                feature_dim=DIM, hidden_channels=HIDDEN,
+                num_classes=CLASSES, fan_out=",".join(map(str, FANOUTS)),
+                batch_size=BATCH, cache_size=1024, num_heads=HEADS)
+    if kind in HETERO_KINDS:
+        base["num_edge_types"] = NUM_EDGE_TYPES
+    base.update(flags)
+    return [a for k, v in base.items() for a in (f"--{k}", str(v))]
+
+
+def hetero_step_calls(torch, run) -> list:
+    """One real step of a hetero model on the CLI's path (a loader batch,
+    its blocks and rows through the cache front, the model's forward and
+    the loss's backward, no update): every gather-SpMM call with its
+    inputs, output and upstream gradient, in call order (layer 0 first)."""
+    from coala_gnn_tpu_torch.models import hetero
+    from coala_gnn_tpu_torch.ops import aggregate
+    from coala_gnn_tpu_torch.parallel.train import _squeeze
+
+    kernel, calls = aggregate.gather_spmm, []
+
+    def recording(x, adj, w, scale=None, adj_t=None, read_as=None):
+        out = kernel(x, adj, w, scale, adj_t=adj_t, read_as=read_as)
+        rec = {"x": x.detach(), "adj": adj, "w": w.detach(),
+               "out": out.detach()}
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.update(g=g.detach().contiguous()))
+        calls.append(rec)
+        return out
+
+    batches = iter(run.loader)
+    try:
+        hb = next(batches)
+    finally:
+        batches.close()
+    aggregate.gather_spmm = hetero.gather_spmm = recording
+    try:
+        logits = run.model(_squeeze(run.blocks(hb)), run.features(hb)[0],
+                           train=False)[:BATCH]
+        torch.nn.functional.cross_entropy(
+            logits, run.put(hb.labels)[0].long()).backward()
+    finally:
+        aggregate.gather_spmm = hetero.gather_spmm = kernel
+    run.optimizer.zero_grad(set_to_none=True)
+    return calls
+
+
+def hetero_step_kernels(torch, kind, calls) -> dict:
+    """Each stacked entry of one real step against its plain version (the
+    forward at KERNEL_TOL, grad_w and grad_x within the f32 bound of their
+    sums, the transpose bitwise), timed with its plain version and bound.
+    Returns {(kernel, layer): entry}."""
+    from coala_gnn_tpu_torch.ops.gather_spmm import (
+        adj_transpose, adj_transpose_reference, gather_spmm,
+        gather_spmm_grad_w, gather_spmm_grad_w_reference, gather_spmm_grad_x,
+        gather_spmm_grad_x_reference, gather_spmm_reference,
+        grad_w_error_bound, grad_x_error_bound)
+
+    rgat = kind == "rgat"
+    require(len(calls) == 2 and "g" in calls[1] and
+            ("g" in calls[0]) == rgat, f"{kind} step: expected one stacked "
+            "call per layer, a gradient where the input needs one")
+    out = {}
+    for layer, c in enumerate(calls):
+        x, adj, w = c["x"], c["adj"], c["w"]
+        s = x.shape[0]
+        shape = f"S {s}, N {adj.shape[0]}, F {adj.shape[1]}, D {x.shape[1]}"
+        e = {"max_abs_err": max_err(torch, c["out"], gather_spmm_reference(
+            x, adj, w), f"{kind} layer {layer} stacked forward")}
+        timed(torch, e, lambda: gather_spmm(x, adj, w),
+              lambda: gather_spmm_reference(x, adj, w),
+              forward_work(torch, x, None, adj, w),
+              embedding_bag(torch, x, adj, w))
+        out[("gather_spmm[float32]", layer)] = dict(e, shape=shape)
+        if "g" not in c:
+            continue
+        g = c["g"]
+        form = check_transpose(torch, adj, s, f"{kind} layer {layer}")
+        adj_t = adj_transpose(adj, s)
+        e = {"max_abs_err": 0.0, "form": form}
+        timed(torch, e, lambda: adj_transpose(adj, s),
+              lambda: adj_transpose_reference(adj, s), transpose_work(adj, s))
+        out[("adj_transpose", layer)] = dict(e, shape=shape)
+        e = {"max_abs_err": within_bound(
+            torch, gather_spmm_grad_x(adj, w, g, s, adj_t),
+            gather_spmm_grad_x_reference(adj, w, g, s),
+            grad_x_error_bound(adj, w, g, s), f"{kind} layer {layer} grad_x")}
+        timed(torch, e, lambda: gather_spmm_grad_x(adj, w, g, s, adj_t),
+              lambda: gather_spmm_grad_x_reference(adj, w, g, s),
+              grad_x_work(torch, adj, w, g, s))
+        out[("gather_spmm_grad_x", layer)] = dict(e, shape=shape)
+        if rgat:
+            e = {"max_abs_err": within_bound(
+                torch, gather_spmm_grad_w(x, adj, g),
+                gather_spmm_grad_w_reference(x, adj, g),
+                grad_w_error_bound(x, adj, g),
+                f"{kind} layer {layer} grad_w")}
+            timed(torch, e, lambda: gather_spmm_grad_w(x, adj, g),
+                  lambda: gather_spmm_grad_w_reference(x, adj, g),
+                  grad_w_work(torch, x, adj, g))
+            out[("gather_spmm_grad_w", layer)] = dict(e, shape=shape)
+    for (name, layer), e in out.items():
+        print(f"phase 15: {kind} layer {layer} real step, {name} "
+              f"({e['shape']}" + (f", {e['form']} form" if "form" in e
+                                  else "") + f"): max_abs_err "
+              f"{e['max_abs_err']:.3g}; " + describe(name, e))
+    return out
+
+
+def on_card_cli(torch, run) -> bool:
+    """Params, optimizer state and cache state of a CLI run on the card."""
+    st = run.cache.state.base
+    return (st.data.is_cuda and st.tags.is_cuda and all(
+        p.is_cuda for p in run.model.parameters()) and all(
+        t.is_cuda for o in run.optimizer.state.values() for t in o.values()
+        if torch.is_tensor(t) and t.dim() > 0))
+
+
+def hetero_small(torch, smi) -> None:
+    """Small runs of the CLI's loop, card vs CPU (the CPU port is held to
+    JAX by tests/test_torch_hetero.py): each hetero model in f32 and a bf16
+    RSAGE and RGAT, dropout 0, 12 steps on a 600-node graph with a 1 MB
+    cache. RGAT and the bf16 models train with SGD (phase 5's reason: the
+    last layer's attn_r gradient is rounding noise that Adam would turn
+    into random steps)."""
+    from coala_gnn_tpu_torch import train as cli
+
+    small = dict(num_nodes=600, feature_dim=8, hidden_channels=8,
+                 num_classes=4, fan_out="4,3", batch_size=16, cache_size=1,
+                 num_heads=2, learning_rate=0.01, avg_degree=4)
+    for kind, dtype in [(k, "float32") for k in HETERO_KINDS] + [
+            ("rsage", "bfloat16"), ("rgat", "bfloat16")]:
+        bf16 = dtype == "bfloat16"
+        sgd = bf16 or kind == "rgat"
+        rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16 else (SMALL_RTOL,
+                                                          SMALL_ATOL)
+        out = {}
+        for device in ("cuda", "cpu"):
+            args = cli.parse_args(cli_args(kind, device, dtype=dtype,
+                                                  **small))
+            run = cli.build(args)
+            run.model.dropout = 0.0
+            if sgd:
+                run.optimizer = torch.optim.SGD(run.model.parameters(),
+                                                lr=0.01)
+            reset_launches()
+            out[device] = (cli.train(run, epochs=1, max_steps=12)["losses"],
+                           launches())
+        card, host = out["cuda"], out["cpu"]
+        np.testing.assert_allclose(card[0], host[0], rtol=rtol, atol=atol)
+        require(card[1]["adj_transpose"] == 12 * (2 if kind == "rgat" else 1)
+                and not any(host[1].values()),
+                f"small {kind} {dtype}: launches card {card[1]}, "
+                f"CPU {host[1]}")
+        print(f"phase 15: small {kind} {dtype} run (600 nodes, 12 steps, "
+              f"{'SGD' if sgd else 'Adam'}) card vs CPU: losses max diff "
+              f"{np.abs(card[0] - host[0]).max():.3g}, within rtol {rtol} "
+              f"atol {atol}; card launches "
+              f"{ {k: v for k, v in card[1].items() if v} } ({smi})")
+
+
+def phase_hetero(torch, ds, smi) -> tuple:
+    """The hetero models through the trainer CLI's own code
+    (``train.build`` / ``train.train``): RSAGE, RGCN and RGAT (4 heads) at
+    the flagship widths, 3 random edge types drawn as the CLI draws them,
+    the 1024 MB one-device cache front, dropout 0.5, Adam 1e-3; 4 warm-up
+    + 16 measured steps each. Checks finite, falling losses, the launches
+    of every measured step (``HETERO_PER_STEP``, nothing else), state on
+    the card; prints ms/step (the CLI's epoch time over its steps), train
+    edges/s, peak device memory; holds every stacked entry against its
+    plain version on one real step; then the small card-vs-CPU runs.
+    Returns (launches by kernel, kernels JSON entries of the stacked
+    shapes)."""
+    from coala_gnn_tpu_torch import train as cli
+
+    total, entries = {}, []
+    for kind in HETERO_KINDS:
+        args = cli.parse_args(cli_args(kind))
+        cli.refuse_unported(args)
+        t0 = time.perf_counter()
+        run = cli.build(args, ds=ds)
+        torch.cuda.synchronize()
+        reset_launches()
+        warm = cli.train(run, epochs=1, max_steps=HETERO_WARM)
+        torch.cuda.synchronize()
+        warm_counts = launches()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        meas = cli.train(run, epochs=1, max_steps=HETERO_MEAS)
+        torch.cuda.synchronize()
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = np.concatenate([warm["losses"], meas["losses"]])
+        q = losses.size // 4
+        require(np.isfinite(losses).all() and
+                losses[-q:].mean() < losses[:q].mean(),
+                f"{kind}: losses not finite and falling {losses}")
+        want = {k: v * HETERO_MEAS for k, v in HETERO_PER_STEP[kind].items()}
+        got = {k: v for k, v in counts.items() if v}
+        require(got == want, f"{kind}: launches {got} over {HETERO_MEAS} "
+                f"measured steps, expected {want}")
+        require(on_card_cli(torch, run), f"{kind}: state off the card")
+        for c in (warm_counts, counts):
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        dt = meas["epoch_s"][0]
+        print(f"phase 15: {kind} (CLI, {NUM_EDGE_TYPES} edge types): "
+              f"{1000 * dt / HETERO_MEAS:.3f} ms/step, "
+              f"train_edges_per_s_per_chip {meas['edges'] / dt:.1f} "
+              f"({HETERO_MEAS} measured steps after {HETERO_WARM}, host "
+              f"clock, {smi}), of which the cache front's fetch "
+              f"{1000 * meas['agg_s'][0] / HETERO_MEAS:.3f} ms/step; peak "
+              f"device memory {peak:.3f} GiB; "
+              f"launches per measured step "
+              f"{ {k: v // HETERO_MEAS for k, v in got.items()} }; "
+              f"{time.perf_counter() - t0:.1f} s with set-up; losses "
+              f"{np.array2string(losses[::2], precision=4)}")
+        for (name, layer), e in hetero_step_kernels(
+                torch, kind, hetero_step_calls(torch, run)).items():
+            entries.append({"name": f"{name} {kind} layer {layer} stacked",
+                            "counter": name,
+                            "launches": counts[name] // (
+                                2 if name == "gather_spmm[float32]" or
+                                kind == "rgat" else 1),
+                            **{k: v for k, v in e.items() if k != "form"}})
+        del run
+        torch.cuda.empty_cache()
+    hetero_small(torch, smi)
+    return total, entries
+
+
 def main() -> int:
     import torch
 
@@ -1575,8 +1845,11 @@ def main() -> int:
         worst(name, err)
     phase_small(torch, model_dtype=torch.bfloat16, label="phase 14")
     print(f"phase 11-14: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hetero_launches, hetero_entries = phase_hetero(torch, ds, smi)
+    print(f"phase 15: done in {time.perf_counter() - t0:.1f} s")
     for counts in (gat_launches, int8_launches, host_launches,
-                   bf16_launches):
+                   bf16_launches, hetero_launches):
         for name, n in counts.items():
             main_launches[name] = main_launches.get(name, 0) + n
 
@@ -1597,6 +1870,9 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": where, "launches": main_launches[name],
                 **kern[name]} for name, where in replaces.items()]
+    kernels += [{"route": "cuda", "source": src,
+                 "replaces": replaces[e["counter"]], **e}
+                for e in hetero_entries]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never launched on the "
                 "main path")

@@ -19,15 +19,17 @@ Subpackages
 ops       gather-SpMM (hand-written CUDA kernels: f32 / bf16 / int8 forward,
           the backward and adj's transpose, + plain versions),
           aggregation, COO oracles
-models    SAGE, GCN and GAT over sampled blocks
+models    SAGE, GCN and GAT over sampled blocks; the hetero RSAGE, RGCN
+          and RGAT (relations stacked in one gather-SpMM call per layer)
 sampling  on-device fanout neighbour sampling; the host sampler (dedup
-          and slot-major layouts); block capacities
+          and slot-major layouts); both typed on a hetero graph; block
+          capacities
 distribution  seed distributor (baseline, node_color greedy) and its
           pipelined scheduler
 data      the host pipeline's prefetching loader and request packing
 cache     flat and set-associative device feature caches (f32, bf16 or
           int8 rows); the host feature tier
-graph     CSC graph and the synthetic dataset
+graph     CSC graph (with edge types) and the synthetic dataset
 native    ctypes bindings of the native host functions (sampler, greedy,
           row gather and encode)
 parallel  ResidentTrainer (the resident training step); the host

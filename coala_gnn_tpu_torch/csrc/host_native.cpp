@@ -3,8 +3,8 @@
 // miss path's row gather and transport encode (OpenMP).
 //
 // A copy of these functions of the JAX package's native library
-// (coala_gnn_tpu/native/coala_native.cpp: sample_layer_core and
-// cg_sample_layer, cg_distribute_affinity, cg_gather_rows_f32,
+// (coala_gnn_tpu/native/coala_native.cpp: sample_layer_core,
+// cg_sample_layer and cg_sample_layer_typed, cg_distribute_affinity, cg_gather_rows_f32,
 // cg_quantize_rows, cg_encode_bf16, cg_gather_rows_bf16,
 // cg_gather_quantize_rows), with the same arithmetic and the same random
 // streams, so both give the same bytes. Built with g++ at first use into
@@ -74,10 +74,13 @@ extern "C" {
 // every neighbour once, in CSC order; deg > fanout: `fanout` draws without
 // replacement (Floyd's algorithm) from row i's own mt19937_64 stream,
 // seeded mix64(seed ^ mix64(i)), so the result does not depend on the
-// thread count. Typed (hetero) sampling is not ported.
-void cg_sample_layer(const int64_t* indptr, const void* indices, int idx_width,
-                     const int64_t* dst_ids, int64_t n_dst, int fanout,
-                     uint64_t seed, int64_t* nbr_out, float* mask_out) {
+// thread count. The typed form also writes each chosen edge's relation id
+// (rel_out, 0 on masked slots); both forms draw the same neighbours.
+static void sample_layer_core(const int64_t* indptr, const void* indices,
+                              int idx_width, const int32_t* edge_types,
+                              const int64_t* dst_ids, int64_t n_dst,
+                              int fanout, uint64_t seed, int64_t* nbr_out,
+                              float* mask_out, int32_t* rel_out) {
 #pragma omp parallel for schedule(dynamic, 256)
   for (int64_t i = 0; i < n_dst; i++) {
     const int64_t v = dst_ids[i];
@@ -85,15 +88,18 @@ void cg_sample_layer(const int64_t* indptr, const void* indices, int idx_width,
     const int64_t deg = indptr[v + 1] - start;
     int64_t* nbr = nbr_out + i * fanout;
     float* mask = mask_out + i * fanout;
+    int32_t* rel = rel_out ? rel_out + i * fanout : nullptr;
     if (deg <= (int64_t)fanout) {
       int64_t k = 0;
       for (; k < deg; k++) {
         nbr[k] = idx_at(indices, idx_width, start + k);
         mask[k] = 1.0f;
+        if (rel) rel[k] = edge_types[start + k];
       }
       for (; k < fanout; k++) {
         nbr[k] = v;
         mask[k] = 0.0f;
+        if (rel) rel[k] = 0;
       }
     } else {
       std::mt19937_64 rng(mix64(seed ^ mix64((uint64_t)i)));
@@ -109,9 +115,26 @@ void cg_sample_layer(const int64_t* indptr, const void* indices, int idx_width,
       for (int k = 0; k < fanout; k++) {
         nbr[k] = idx_at(indices, idx_width, start + chosen[k]);
         mask[k] = 1.0f;
+        if (rel) rel[k] = edge_types[start + chosen[k]];
       }
     }
   }
+}
+
+void cg_sample_layer(const int64_t* indptr, const void* indices, int idx_width,
+                     const int64_t* dst_ids, int64_t n_dst, int fanout,
+                     uint64_t seed, int64_t* nbr_out, float* mask_out) {
+  sample_layer_core(indptr, indices, idx_width, nullptr, dst_ids, n_dst,
+                    fanout, seed, nbr_out, mask_out, nullptr);
+}
+
+void cg_sample_layer_typed(const int64_t* indptr, const void* indices,
+                           int idx_width, const int32_t* edge_types,
+                           const int64_t* dst_ids, int64_t n_dst, int fanout,
+                           uint64_t seed, int64_t* nbr_out, float* mask_out,
+                           int32_t* rel_out) {
+  sample_layer_core(indptr, indices, idx_width, edge_types, dst_ids, n_dst,
+                    fanout, seed, nbr_out, mask_out, rel_out);
 }
 
 // Greedy affinity-aware seed distribution, sequential (every part computes

@@ -35,6 +35,9 @@ class HostBatch(NamedTuple):
     seeds: np.ndarray          # int64 [n_dev, batch]
     labels: np.ndarray         # int32 [n_dev, batch]
     sampled_nodes: int         # valid sampled nodes, all devices
+    rels: Optional[List[np.ndarray]] = None  # per layer int32 [n_dev,
+                               # cap_dst, fanout] relation ids (hetero
+                               # graphs only)
     edges: int = 0             # valid sampled edges, all devices and layers
     valid: Optional[np.ndarray] = None  # bool [n_dev, batch]; False on the
                                # wrapped tail duplicates (drop_tail=False)
@@ -77,13 +80,18 @@ class CoalaDataLoader:
             for l in range(n_layers)]
         edges = int(sum(b.blocks[l].mask.sum()
                         for b in per_dev for l in range(n_layers)))
+        rels = None
+        if per_dev[0].blocks[0].rel is not None:
+            rels = [np.stack([b.blocks[l].rel for b in per_dev])
+                    for l in range(n_layers)]
         input_ids = np.stack([b.input_ids for b in per_dev])
         num_input = np.asarray([b.num_input for b in per_dev], np.int32)
         seeds = np.stack([b.seeds for b in per_dev])
         return HostBatch(
             adjs=adjs, masks=masks, input_ids=input_ids, num_input=num_input,
             seeds=seeds, labels=self.labels[seeds].astype(np.int32),
-            sampled_nodes=int(num_input.sum()), edges=edges, valid=valid)
+            sampled_nodes=int(num_input.sum()), rels=rels, edges=edges,
+            valid=valid)
 
     def __iter__(self) -> Iterator[HostBatch]:
         if self.prefetch <= 0:

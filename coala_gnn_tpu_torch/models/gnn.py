@@ -6,7 +6,7 @@ between layers and takes their mean at the output. ``dtype`` is the JAX
 models' compute type (float32 or bfloat16): the stack casts its input to
 it, ReLU, dropout and GAT's head mean run in it, and the logits come back
 in f32; the layers keep f32 weights (``models/layers.py``). The hetero
-models are queued in ROADMAP.md.
+models (RSAGE, RGCN, RGAT) are ``models/hetero.py``.
 """
 
 from __future__ import annotations

@@ -156,21 +156,30 @@ def _attention_param(shape: tuple, generator: torch.Generator,
 
 
 def head_stacked_adj(adj: Optional[torch.Tensor], n_src: int, shape: tuple,
-                     heads: int, device) -> torch.Tensor:
-    """int32 [cap_dst * heads, fanout] rows of the head-stacked combine,
-    shape = (cap_dst, fanout): slot (i, k) of head h reads row
-    ``adj[i, k] * heads + h`` of feat viewed [n_src * heads, F]. ``adj is
-    None`` (the contiguous layout) takes the slot positions,
-    ``frontier_adj(arange(n_src))``, so each row of feat is read by
-    exactly one slot."""
-    if n_src * heads > torch.iinfo(torch.int32).max:
-        raise ValueError(f"{n_src} x {heads} head rows exceed int32")
+                     heads: int, device, num_rels: int = 1) -> torch.Tensor:
+    """int32 [num_rels * cap_dst * heads, fanout] rows of the head-stacked
+    combine, shape = (cap_dst, fanout): row ``(r * cap_dst + i) * heads +
+    h`` holds slot (i, k) of relation r, head h, which reads row
+    ``r * n_src * heads + adj[i, k] * heads + h`` of feat viewed
+    [num_rels * n_src * heads, F] (one relation: GAT's heads; the hetero
+    RGAT stacks its relations' feat the same way). ``adj`` [cap_dst,
+    fanout] serves every relation, [num_rels, cap_dst, fanout] gives each
+    its own. ``adj is None`` (the contiguous layout) takes the slot
+    positions, ``frontier_adj(arange(n_src))``, so each row of feat is
+    read by exactly one slot."""
+    if num_rels * n_src * heads > torch.iinfo(torch.int32).max:
+        raise ValueError(f"{num_rels} x {n_src} x {heads} stacked rows "
+                         "exceed int32")
     if adj is None:
         adj = frontier_adj(torch.arange(n_src, dtype=torch.int32,
                                         device=device), shape)
     h = torch.arange(heads, device=device)
-    return (adj.long()[:, None, :] * heads + h[None, :, None]) \
-        .reshape(shape[0] * heads, shape[1]).to(torch.int32)
+    r = torch.arange(num_rels, device=device) * (n_src * heads)
+    adj = adj.long().reshape(-1, *shape)            # [1 or R, cap, fanout]
+    rows = (adj[:, :, None, :] * heads + h[None, None, :, None]
+            + r[:, None, None, None])
+    return rows.reshape(num_rels * shape[0] * heads, shape[1]).to(
+        torch.int32)
 
 
 def _needs_contiguous(block: "DeviceBlock") -> None:

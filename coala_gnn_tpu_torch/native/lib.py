@@ -3,7 +3,8 @@
 ``coala_gnn_tpu_torch/_build/`` (``utils/build.py``).
 
 Port of the functions of ``coala_gnn_tpu/native/lib.py`` that the port
-calls: the host sampler's ``sample_layer``, the greedy
+calls: the host sampler's ``sample_layer`` and ``sample_layer_typed``, the
+greedy
 ``distribute_affinity``, and the five row functions of the staged miss
 path. bf16 comes back as its uint16 bit pattern (numpy has no bf16 type,
 and the card's machine has no ``ml_dtypes``).
@@ -38,6 +39,10 @@ def get() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     lib.cg_sample_layer.argtypes = [_i64p, ctypes.c_void_p, _int, _i64p, _i64,
                                     _int, ctypes.c_uint64, _i64p, _f32p]
+    lib.cg_sample_layer_typed.argtypes = [_i64p, ctypes.c_void_p, _int,
+                                          _i32p, _i64p, _i64, _int,
+                                          ctypes.c_uint64, _i64p, _f32p,
+                                          _i32p]
     lib.cg_distribute_affinity.argtypes = [_i64p, _i64, _i64, _int, _i64,
                                            _i64p, _i64p, _f64p, _int, _i64,
                                            _i32p, _i32p]
@@ -47,29 +52,53 @@ def get() -> ctypes.CDLL:
     lib.cg_gather_rows_bf16.argtypes = [_f32p, _i64, _i64p, _i64, _u16p]
     lib.cg_gather_quantize_rows.argtypes = [_f32p, _i64, _i64p, _i64, _i8p,
                                             _f32p]
-    for name in ("cg_sample_layer", "cg_distribute_affinity",
+    for name in ("cg_sample_layer", "cg_sample_layer_typed",
+                 "cg_distribute_affinity",
                  "cg_gather_rows_f32", "cg_quantize_rows", "cg_encode_bf16",
                  "cg_gather_rows_bf16", "cg_gather_quantize_rows"):
         getattr(lib, name).restype = None
     return lib
 
 
-def sample_layer(lib: ctypes.CDLL, graph, dst_ids: np.ndarray, fanout: int,
-                 seed: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(nbr int64 [n, fanout], mask f32 [n, fanout]) of one layer for the
-    dst ids (see ``cg_sample_layer``); ``graph.indices`` int32 or int64."""
+def _layer_args(graph, dst_ids: np.ndarray, fanout: int) -> tuple:
+    """(indptr, indices pointer, index width, dst ids, nbr, mask) of one
+    layer's draw; ``graph.indices`` int32 or int64."""
     dst_ids = np.ascontiguousarray(dst_ids, dtype=np.int64)
     indices = graph.indices
     if indices.dtype not in (np.int32, np.int64):
         raise TypeError(f"indices dtype {indices.dtype} unsupported")
     indptr = np.ascontiguousarray(graph.indptr, dtype=np.int64)
     n = dst_ids.shape[0]
-    nbr = np.empty((n, fanout), dtype=np.int64)
-    mask = np.empty((n, fanout), dtype=np.float32)
-    lib.cg_sample_layer(indptr, indices.ctypes.data_as(ctypes.c_void_p),
-                        indices.dtype.itemsize, dst_ids, n, fanout,
-                        seed & (2**64 - 1), nbr, mask)
+    return (indptr, indices.ctypes.data_as(ctypes.c_void_p),
+            indices.dtype.itemsize, dst_ids,
+            np.empty((n, fanout), dtype=np.int64),
+            np.empty((n, fanout), dtype=np.float32))
+
+
+def sample_layer(lib: ctypes.CDLL, graph, dst_ids: np.ndarray, fanout: int,
+                 seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(nbr int64 [n, fanout], mask f32 [n, fanout]) of one layer for the
+    dst ids (see ``cg_sample_layer``)."""
+    indptr, idx, width, dst_ids, nbr, mask = _layer_args(graph, dst_ids,
+                                                         fanout)
+    lib.cg_sample_layer(indptr, idx, width, dst_ids, dst_ids.shape[0],
+                        fanout, seed & (2**64 - 1), nbr, mask)
     return nbr, mask
+
+
+def sample_layer_typed(lib: ctypes.CDLL, graph, dst_ids: np.ndarray,
+                       fanout: int, seed: int
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``sample_layer`` plus each slot's relation id (int32 [n, fanout], 0
+    on masked slots) from ``graph.edge_types``: the same draws."""
+    indptr, idx, width, dst_ids, nbr, mask = _layer_args(graph, dst_ids,
+                                                         fanout)
+    et = np.ascontiguousarray(graph.edge_types, dtype=np.int32)
+    rel = np.empty(mask.shape, dtype=np.int32)
+    lib.cg_sample_layer_typed(indptr, idx, width, et, dst_ids,
+                              dst_ids.shape[0], fanout, seed & (2**64 - 1),
+                              nbr, mask, rel)
+    return nbr, mask, rel
 
 
 def distribute_affinity(lib: ctypes.CDLL, item: np.ndarray, offset: int,

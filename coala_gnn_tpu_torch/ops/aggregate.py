@@ -49,6 +49,40 @@ def padded_gather_sum(x_src: torch.Tensor, adj: torch.Tensor,
     return acc.to(x_src.dtype)
 
 
+def live_or_own(adj: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """``adj`` [..., n_dst, fanout] with every slot that is not ``live``
+    pointed at its own dst row i (the host sampler's convention for masked
+    slots; the dst ids are the prefix of the source ids). A zero-weight
+    slot adds nothing and is skipped by the kernel, but it still names its
+    row in the transpose the backward builds: the padded dst rows' slots
+    all name row 0, and stacked relations name every row R times, which
+    serialises grad_x (and the transpose's ordering pass) on such rows."""
+    own = torch.arange(adj.shape[-2], dtype=adj.dtype,
+                       device=adj.device)[:, None]
+    return torch.where(live, adj, own)
+
+
+def relation_gather_sum(x_src: torch.Tensor, adj: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """The R relations' neighbour sums of one layer in one
+    ``padded_gather_sum``: ``out[r, i] = sum_k weights[r, i, k] *
+    x_src[adj[i, k]]`` -> [R, n_dst, dim] in x_src's dtype, for
+    ``weights`` [R, n_dst, fanout] (a relation's mask, 0 on the other
+    relations' slots). Row ``r * n_dst + i`` of the stacked launch is adj's
+    row i with relation r's weights, its zero-weight slots pointed at row i
+    (``live_or_own``), so on a CUDA tensor the kernel reads each sampled
+    edge's row once (it skips the w == 0 slots, forward and grad_x) and
+    its backward builds one transpose for all R, in which a row is named
+    by its live slots; on the CPU it is the slot-order loop over the
+    stacked rows, each row the sum a per-relation ``padded_gather_sum``
+    gives."""
+    n_rel, n_dst, fanout = weights.shape
+    adj_s = live_or_own(adj[None], weights != 0)
+    out = padded_gather_sum(x_src, adj_s.reshape(n_rel * n_dst, fanout),
+                            weights.reshape(n_rel * n_dst, fanout))
+    return out.view(n_rel, n_dst, x_src.shape[1])
+
+
 def padded_gather_sum_dense(x_src: torch.Tensor, adj: torch.Tensor,
                             weights: torch.Tensor) -> torch.Tensor:
     """Same contract as ``padded_gather_sum`` via one 3-D gather

@@ -55,7 +55,9 @@ Host syncs of the serial staged schedule: one probe readback per window
 fold; stages upload from pinned buffers without blocking.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``dedup=True`` and ``nbr_cap`` sampling.
+ROADMAP.md item: ``dedup=True`` and ``nbr_cap`` sampling, and a
+heterogeneous graph (the JAX package trains hetero models resident only
+in its multi-device ``ShardedResidentTrainer``).
 """
 
 from __future__ import annotations
@@ -234,6 +236,10 @@ class ResidentTrainer:
             raise NotImplementedError(
                 "the nbr_cap padded neighbour table is not ported yet: "
                 "ROADMAP.md queue A, \"dedup=True and nbr_cap sampling\"")
+        if getattr(self.graph, "edge_types", None) is not None:
+            raise NotImplementedError(
+                "resident training on a heterogeneous graph is not ported "
+                "yet: ROADMAP.md queue A, \"multi-GPU\"")
         cfg = self.cache_cfg
         if self.stage_transport == "auto":
             self.stage_transport = "int8" if cfg.quantize else "float32"

@@ -117,9 +117,11 @@ def _one_device(devices: Sequence) -> None:
 
 
 def _squeeze(blocks: Sequence[DeviceBlock]) -> List[DeviceBlock]:
-    """Blocks with the leading device axis -> this device's blocks."""
-    return [DeviceBlock(adj=None if b.adj is None else b.adj[0],
-                        mask=b.mask[0]) for b in blocks]
+    """Blocks with the leading device axis -> this device's blocks, of the
+    same type (a ``DeviceHeteroBlock`` keeps its ``rel``)."""
+    return [b._replace(**{f: None if getattr(b, f) is None else
+                          getattr(b, f)[0] for f in b._fields})
+            for b in blocks]
 
 
 def make_sharded_train_step(model: nn.Module,

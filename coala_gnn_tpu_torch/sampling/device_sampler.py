@@ -14,10 +14,13 @@ Differences from the JAX module, each recorded in ROADMAP.md section C:
     threefry keys: the same seed gives other draws. ``_sample_layer`` and
     ``sample_blocks_device`` take the uniforms as an optional argument, so
     tests can feed in JAX's draws and get bitwise-equal blocks;
-  - ``indices`` carries one trailing pad entry, so the degree-0 read at
-    ``indptr[num_nodes]`` stays in bounds (JAX clamps the gather instead).
-The ``nbr_cap`` padded table, ``dedup=True`` and hetero edge types are
-queued in ROADMAP.md.
+  - ``indices`` (and ``edge_types``) carry one trailing pad entry, so the
+    degree-0 read at ``indptr[num_nodes]`` stays in bounds (JAX clamps the
+    gather instead).
+On a heterogeneous graph the blocks are ``DeviceHeteroBlock``s: each slot
+also carries its edge's relation id, 0 on masked slots. The ``nbr_cap``
+padded table (with its relation table) and ``dedup=True`` are queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from coala_gnn_tpu_torch.cache.feature_cache import assert_ids_fit_int32
+from coala_gnn_tpu_torch.models.hetero import DeviceHeteroBlock
 from coala_gnn_tpu_torch.models.layers import DeviceBlock
 from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
 
@@ -37,6 +41,9 @@ class DeviceGraph(NamedTuple):
 
     indptr: torch.Tensor    # int64 [num_nodes + 2] (sentinel reads degree 0)
     indices: torch.Tensor   # int32 [num_edges + 1] (one trailing pad entry)
+    edge_types: Optional[torch.Tensor] = None   # int32 [num_edges + 1]
+                                                # (hetero graphs), padded
+                                                # like indices
 
     @property
     def num_nodes(self) -> int:
@@ -52,28 +59,31 @@ def fits_device_graph(num_nodes: int, num_edges: int) -> bool:
 
 def to_device_graph(graph, device) -> DeviceGraph:
     """Host CSCGraph -> DeviceGraph on ``device``."""
-    if getattr(graph, "edge_types", None) is not None:
-        raise NotImplementedError(
-            "typed (hetero) sampling is not ported yet: ROADMAP.md queue A, "
-            "\"hetero models and typed sampling\"")
     assert_ids_fit_int32(graph.num_nodes)
     indptr = np.asarray(graph.indptr, dtype=np.int64)
     indptr = np.concatenate([indptr, indptr[-1:]])
-    indices = np.asarray(graph.indices).astype(np.int32)
-    indices = np.concatenate([indices, np.zeros(1, np.int32)])
+
+    def padded(a) -> torch.Tensor:
+        a = np.concatenate([np.asarray(a).astype(np.int32),
+                            np.zeros(1, np.int32)])
+        return torch.from_numpy(a).to(device)
+
+    et = getattr(graph, "edge_types", None)
     return DeviceGraph(indptr=torch.from_numpy(indptr).to(device),
-                       indices=torch.from_numpy(indices).to(device))
+                       indices=padded(graph.indices),
+                       edge_types=None if et is None else padded(et))
 
 
 def _sample_layer(g: DeviceGraph, dst: torch.Tensor, fanout: int,
                   generator: Optional[torch.Generator] = None,
                   uniforms: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer: (nbr int32 [n, fanout], mask f32 [n, fanout]).
-    deg <= fanout takes every neighbour in order; deg > fanout draws
-    uniformly with replacement (offset = int(u * deg), u in [0, 1) f32);
-    masked slots point at dst. ``uniforms`` f32 [n, fanout] replaces the
-    draw from ``generator``."""
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Optional[torch.Tensor]]:
+    """One layer: (nbr int32 [n, fanout], mask f32 [n, fanout], rel int32
+    [n, fanout] or None). deg <= fanout takes every neighbour in order;
+    deg > fanout draws uniformly with replacement (offset = int(u * deg),
+    u in [0, 1) f32); masked slots point at dst (rel 0). ``uniforms`` f32
+    [n, fanout] replaces the draw from ``generator``."""
     n = dst.shape[0]
     if uniforms is None:
         uniforms = torch.rand(n, fanout, generator=generator,
@@ -85,9 +95,13 @@ def _sample_layer(g: DeviceGraph, dst: torch.Tensor, fanout: int,
     rand_off = (uniforms * deg.clamp(min=1).float()).to(torch.int32)
     seq_off = torch.minimum(k, (deg - 1).clamp(min=0))
     offsets = torch.where(deg <= fanout, seq_off, rand_off)
-    nbr = g.indices[starts[:, None] + offsets]
-    nbr = torch.where(mask, nbr, dst[:, None])
-    return nbr, mask.float()
+    edge_pos = starts[:, None] + offsets
+    nbr = torch.where(mask, g.indices[edge_pos], dst[:, None])
+    rel = None
+    if g.edge_types is not None:
+        rel = torch.where(mask, g.edge_types[edge_pos],
+                          torch.zeros_like(nbr))
+    return nbr, mask.float(), rel
 
 
 def sample_blocks_device(g: DeviceGraph, seeds: torch.Tensor,
@@ -103,7 +117,8 @@ def sample_blocks_device(g: DeviceGraph, seeds: torch.Tensor,
     [cap_src0], number of non-sentinel input ids). Every block has the
     contiguous slot-major layout (``adj is None``): layer input row
     ``cap_dst + k*cap_dst + i`` holds slot (i, k), and input ids equal to
-    ``g.num_nodes`` are padding. ``uniforms[layer]`` f32 [cap_dst, fanout]
+    ``g.num_nodes`` are padding. On a typed graph the blocks are
+    ``DeviceHeteroBlock``s. ``uniforms[layer]`` f32 [cap_dst, fanout]
     replaces that layer's draw from ``generator``."""
     if dedup:
         raise NotImplementedError(
@@ -120,9 +135,10 @@ def sample_blocks_device(g: DeviceGraph, seeds: torch.Tensor,
             dst = torch.cat([dst, torch.full((pad,), sentinel,
                                              dtype=torch.int32,
                                              device=dst.device)])
-        nbr, mask = _sample_layer(
+        nbr, mask, rel = _sample_layer(
             g, dst, fanouts[layer], generator,
             None if uniforms is None else uniforms[layer])
         dst = torch.cat([dst, nbr.T.reshape(-1)])
-        blocks.insert(0, DeviceBlock(adj=None, mask=mask))
+        blocks.insert(0, DeviceBlock(adj=None, mask=mask) if rel is None
+                      else DeviceHeteroBlock(adj=None, mask=mask, rel=rel))
     return blocks, dst, (dst != sentinel).sum(dtype=torch.int32)

@@ -19,9 +19,14 @@ sampler (slot (i, k) at input row cap_dst + k*cap_dst + i, invalid slots
 holding the sentinel ``num_nodes``, ``adj=None``), whose request carries
 ids and labels only (``data/packing.pack_request_contig``).
 
+On a heterogeneous graph (``graph.edge_types`` set) every block also
+carries ``rel``, each slot's relation id (0 on masked and padded slots),
+drawn with the same neighbours (``cg_sample_layer_typed``); the
+contiguous layout stays homogeneous and raises there, as JAX's does.
+
 Unlike the JAX sampler, ``use_native=True`` raises where the native
 library does not build (no silent numpy fallback): ``use_native=False``
-is the explicit numpy choice. Typed (hetero) sampling is not ported.
+is the explicit numpy choice.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ class Block:
     mask    : float32 [cap_dst, fanout], 1.0 = a sampled edge
     num_dst : valid destination count (<= cap_dst)
     num_src : valid source count (<= cap_src)
+    rel     : int32 [cap_dst, fanout] relation ids on a heterogeneous
+              graph (0 on masked slots), else None
     """
 
     src_ids: np.ndarray
@@ -56,6 +63,7 @@ class Block:
     mask: np.ndarray
     num_dst: int
     num_src: int
+    rel: Optional[np.ndarray] = None
 
     @property
     def cap_dst(self) -> int:
@@ -101,9 +109,10 @@ def max_sample_size(batch_size: int, fanouts: Sequence[int]) -> int:
 
 def _sample_layer_numpy(graph, dst_ids: np.ndarray, fanout: int,
                         rng: np.random.Generator
-                        ) -> Tuple[np.ndarray, np.ndarray]:
+                        ) -> Tuple[np.ndarray, np.ndarray,
+                                   Optional[np.ndarray]]:
     """One layer, vectorised, draws with replacement -> (nbr int64 [n, f],
-    mask bool [n, f])."""
+    mask bool [n, f], rel int32 [n, f] on a typed graph else None)."""
     n = dst_ids.shape[0]
     starts = graph.indptr[dst_ids]
     deg = graph.indptr[dst_ids + 1] - starts
@@ -114,9 +123,13 @@ def _sample_layer_numpy(graph, dst_ids: np.ndarray, fanout: int,
         np.int64)
     offsets = np.where(small, np.minimum(k, np.maximum(deg[:, None] - 1, 0)),
                        rand_off)
-    nbr = graph.indices[starts[:, None] + offsets].astype(np.int64)
+    edge_pos = starts[:, None] + offsets
+    nbr = graph.indices[edge_pos].astype(np.int64)
+    rel = None
+    if getattr(graph, "edge_types", None) is not None:
+        rel = np.where(mask, graph.edge_types[edge_pos], 0).astype(np.int32)
     # masked slots point at the dst itself (a safe local index, weight 0)
-    return np.where(mask, nbr, dst_ids[:, None]), mask
+    return np.where(mask, nbr, dst_ids[:, None]), mask, rel
 
 
 class NeighborSampler:
@@ -128,10 +141,10 @@ class NeighborSampler:
     def __init__(self, graph, fanouts: Sequence[int], batch_size: int,
                  seed: int = 0, use_native: bool = True,
                  contiguous: bool = False):
-        if getattr(graph, "edge_types", None) is not None:
+        if contiguous and getattr(graph, "edge_types", None) is not None:
             raise NotImplementedError(
-                "typed (hetero) sampling is not ported yet: ROADMAP.md queue "
-                "A, \"hetero models and typed sampling\"")
+                "contiguous host sampling is homogeneous-only (hetero "
+                "blocks need the rel plane; use the default layout)")
         self.graph = graph
         self.fanouts = list(fanouts)
         self.batch_size = batch_size
@@ -141,10 +154,14 @@ class NeighborSampler:
         self._native = native_lib.get() if use_native else None
 
     def _sample_layer(self, dst_ids: np.ndarray, fanout: int):
+        """-> (nbr, mask, rel or None), as ``_sample_layer_numpy``."""
         if self._native is not None:
             seed = int(self.rng.integers(0, 2**63 - 1))
-            return native_lib.sample_layer(self._native, self.graph, dst_ids,
-                                           fanout, seed)
+            if getattr(self.graph, "edge_types", None) is None:
+                return (*native_lib.sample_layer(self._native, self.graph,
+                                                 dst_ids, fanout, seed), None)
+            return native_lib.sample_layer_typed(self._native, self.graph,
+                                                 dst_ids, fanout, seed)
         return _sample_layer_numpy(self.graph, dst_ids, fanout, self.rng)
 
     def sample(self, seeds: np.ndarray) -> SampledBatch:
@@ -159,9 +176,10 @@ class NeighborSampler:
         dst_ids = seeds
         for layer in range(len(self.fanouts) - 1, -1, -1):
             cap_dst, cap_src = self.caps[layer]
-            nbr, mask = self._sample_layer(dst_ids, self.fanouts[layer])
+            nbr, mask, rel = self._sample_layer(dst_ids,
+                                                self.fanouts[layer])
             blocks.insert(0, _build_block(dst_ids, nbr, mask, cap_dst,
-                                          cap_src))
+                                          cap_src, rel))
             dst_ids = blocks[0].src_ids[:blocks[0].num_src]
         b0 = blocks[0]
         return SampledBatch(blocks=blocks, seeds=seeds, input_ids=b0.src_ids,
@@ -178,8 +196,8 @@ class NeighborSampler:
             cap_dst = self.caps[layer][0]
             assert dst.shape[0] == cap_dst, "contiguous layer-size invariant"
             vdst = dst != sent
-            nbr, mask = self._sample_layer(np.where(vdst, dst, 0),
-                                           self.fanouts[layer])
+            nbr, mask, _ = self._sample_layer(np.where(vdst, dst, 0),
+                                              self.fanouts[layer])
             mask = np.asarray(mask, np.float32) * vdst[:, None]
             nbr = np.where(mask > 0, nbr, sent)
             cat = np.concatenate([dst, nbr.T.reshape(-1)])
@@ -193,10 +211,11 @@ class NeighborSampler:
 
 
 def _build_block(dst_ids: np.ndarray, nbr: np.ndarray, mask: np.ndarray,
-                 cap_dst: int, cap_src: int) -> Block:
+                 cap_dst: int, cap_src: int,
+                 rel: Optional[np.ndarray] = None) -> Block:
     """Dedup the sampled frontier into src ids in first-occurrence order
     (the dst ids stay the prefix), relabel adj into local indices, pad to
-    capacity."""
+    capacity (``rel`` with 0)."""
     n_dst, fanout = nbr.shape
     cat = np.concatenate([dst_ids, nbr.reshape(-1)])
     uniq, first_idx, inv = np.unique(cat, return_index=True,
@@ -215,5 +234,9 @@ def _build_block(dst_ids: np.ndarray, nbr: np.ndarray, mask: np.ndarray,
     adj_pad[:n_dst] = adj
     mask_pad = np.zeros((cap_dst, fanout), dtype=np.float32)
     mask_pad[:n_dst] = mask
+    rel_pad = None
+    if rel is not None:
+        rel_pad = np.zeros((cap_dst, fanout), dtype=np.int32)
+        rel_pad[:n_dst] = rel
     return Block(src_ids=src_pad, adj=adj_pad, mask=mask_pad, num_dst=n_dst,
-                 num_src=num_src)
+                 num_src=num_src, rel=rel_pad)

@@ -10,23 +10,35 @@ Per step: seed distribution (``distribution/``), host sampling
 through the cache front (``parallel/sharded_cache.py``, a synchronous
 ``fetch``) or, with ``--cache_size 0``, gathered on the host and uploaded,
 then the data-parallel step on one device (``parallel/train.py``). The
-flags are ``examples/train.py``'s; each one not ported yet raises
+hetero models (``--model_type rsage|rgcn|rgat``) train on the synthetic
+graph with random edge types (``--num_edge_types``, 3 when it is below 2),
+drawn as ``examples/train.py`` draws them. The flags are
+``examples/train.py``'s; each one not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item, and none is ignored.
 Runs on the card (``--device cuda``, the default, raises without one)
 unless ``--device cpu`` is asked for.
+
+``main`` is ``build`` (the dataset, sampler, loader, cache front, model
+and optimizer), ``train`` (the epoch loop over the data-parallel step,
+which returns the step losses and the epochs' times) and ``evaluate``; a
+caller may drive the three itself.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+#: the hetero model types
+HETERO = ("rsage", "rgcn", "rgat")
+
 #: the ROADMAP.md items that the flags not ported yet name
 _ROADMAP = {
-    "hetero": "ROADMAP.md queue A, \"hetero models and typed sampling\"",
     "nbr_cap": "ROADMAP.md queue A, \"dedup=True and nbr_cap sampling\"",
     "multi": "ROADMAP.md queue A, \"multi-GPU\"",
     "ckpt": "ROADMAP.md queue A, \"checkpoint and rng\"",
@@ -111,11 +123,13 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     """NotImplementedError, naming its ROADMAP.md item, for the first flag
-    whose value is not ported."""
+    whose value is not ported; ValueError for ``--num_edge_types > 1``
+    with a homogeneous model (the JAX CLI ignores it there)."""
     checks = [
-        (args.model_type in ("rsage", "rgcn", "rgat"),
-         f"--model_type {args.model_type}", "hetero"),
-        (args.num_edge_types > 1, "--num_edge_types > 1", "hetero"),
+        (args.model_type in HETERO and args.pipeline == "resident",
+         f"--model_type {args.model_type} with --pipeline resident (the "
+         "JAX package trains hetero models resident only in "
+         "ShardedResidentTrainer)", "multi"),
         (args.nbr_cap > 0, "--nbr_cap", "nbr_cap"),
         (args.devices > 1, f"--devices {args.devices}", "multi"),
         (args.distribution == "node_color", "--distribution node_color",
@@ -136,11 +150,79 @@ def refuse_unported(args) -> None:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet: "
                                       f"{_ROADMAP[item]}")
+    if args.num_edge_types > 1 and args.model_type not in HETERO:
+        raise ValueError(f"--num_edge_types {args.num_edge_types} needs a "
+                         f"hetero model ({', '.join(HETERO)}); "
+                         f"--model_type {args.model_type} has no relations")
 
 
-def main(argv=None) -> None:
-    args = parse_args(argv)
-    refuse_unported(args)
+@dataclasses.dataclass
+class Run:
+    """What ``build`` sets up; ``train`` and ``evaluate`` drive it. A
+    caller may swap ``optimizer`` (over ``model``'s parameters) or set
+    ``model.dropout`` between ``build`` and ``train``."""
+
+    args: argparse.Namespace
+    device: torch.device
+    ds: Any                      # graph.datasets.Dataset
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    sampler: Any                 # sampling.neighbor.NeighborSampler
+    loader: Any                  # data.loader.CoalaDataLoader
+    store: Any                   # cache.host_tier.HostFeatureStore
+    cache: Optional[Any]         # parallel.sharded_cache.ShardedFeatureCache
+    epoch: int = 0               # epochs trained (the loader's reshuffles)
+    step: int = 0                # steps trained (the dropout streams)
+    sampled: int = 0             # sampled nodes trained
+
+    @property
+    def hetero(self) -> bool:
+        return self.args.model_type in HETERO
+
+    def put(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def blocks(self, hb) -> list:
+        """A HostBatch's blocks on the device, with the leading device
+        axis (DeviceHeteroBlocks for a hetero model)."""
+        from coala_gnn_tpu_torch.models.hetero import DeviceHeteroBlock
+        from coala_gnn_tpu_torch.models.layers import DeviceBlock
+
+        if self.hetero:
+            return [DeviceHeteroBlock(adj=self.put(a), mask=self.put(m),
+                                      rel=self.put(r))
+                    for a, m, r in zip(hb.adjs, hb.masks, hb.rels)]
+        return [DeviceBlock(adj=self.put(a), mask=self.put(m))
+                for a, m in zip(hb.adjs, hb.masks)]
+
+    def features(self, hb) -> torch.Tensor:
+        """The batch's input rows [1, cap_src, dim]: through the cache
+        front, or gathered on the host and uploaded (no cache)."""
+        if self.cache is None:
+            return self.put(np.stack([self.store.fetch(ids)
+                                      for ids in hb.input_ids]))
+        return self.cache.fetch(hb.input_ids, hb.num_input, self.store.fetch)
+
+
+def with_edge_types(ds, num_edge_types: int, seed: int):
+    """``ds`` on a copy of its graph with random edge types, drawn as
+    ``examples/train.py`` draws them: ``default_rng(seed).integers(0, n,
+    num_edges)`` int32, n = ``num_edge_types``, or 3 below 2. A graph that
+    has edge types keeps them."""
+    if ds.graph.edge_types is not None:
+        return ds
+    n = num_edge_types if num_edge_types >= 2 else 3
+    types = np.random.default_rng(seed).integers(
+        0, n, ds.graph.num_edges).astype(np.int32)
+    return dataclasses.replace(ds, graph=dataclasses.replace(
+        ds.graph, edge_types=types, num_edge_types=n))
+
+
+def build(args, ds=None) -> Run:
+    """Everything the CLI trains with, printing what ``examples/train.py``
+    prints: the model with the JAX CLI's dropout 0.5, Adam (AdamW with
+    ``--decay``). ``ds``: the dataset to train on (default: the synthetic
+    graph of the flags)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA card here; pass "
@@ -153,13 +235,10 @@ def main(argv=None) -> None:
                                                   SeedDistributor)
     from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
     from coala_gnn_tpu_torch.models.gnn import make_model
-    from coala_gnn_tpu_torch.models.layers import DeviceBlock
+    from coala_gnn_tpu_torch.models.hetero import make_hetero_model
     from coala_gnn_tpu_torch.parallel.sharded_cache import \
         ShardedFeatureCache
-    from coala_gnn_tpu_torch.parallel.train import (make_sharded_eval_step,
-                                                    make_sharded_train_step)
     from coala_gnn_tpu_torch.sampling.neighbor import NeighborSampler
-    from coala_gnn_tpu_torch.utils.rng import DROPOUT, step_generators
 
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -169,13 +248,18 @@ def main(argv=None) -> None:
     if num_layers != len(fanouts):
         raise ValueError("--num_layers must match --fan_out")
 
-    ds = synthetic_graph(num_nodes=args.num_nodes,
-                         avg_degree=args.avg_degree,
-                         feature_dim=args.feature_dim,
-                         num_classes=args.num_classes, seed=args.seed)
+    if ds is None:
+        ds = synthetic_graph(num_nodes=args.num_nodes,
+                             avg_degree=args.avg_degree,
+                             feature_dim=args.feature_dim,
+                             num_classes=args.num_classes, seed=args.seed)
+    hetero = args.model_type in HETERO
+    if hetero:
+        ds = with_edge_types(ds, args.num_edge_types, args.seed)
     print(f"dataset {ds.name}: {ds.graph.num_nodes} nodes, "
           f"{ds.graph.num_edges} edges, dim {ds.feature_dim}, "
-          f"{ds.num_classes} classes, {len(ds.train_idx)} train")
+          f"{ds.num_classes} classes, {len(ds.train_idx)} train"
+          + (f", {ds.graph.num_edge_types} edge types" if hetero else ""))
     B = args.batch_size
     sampler = NeighborSampler(ds.graph, fanouts, B, seed=args.seed)
     print(f"sampler native: {sampler._native is not None}")
@@ -190,13 +274,19 @@ def main(argv=None) -> None:
                                       refresh_counter=args.refresh_counter)
     # --dtype: the cache lines' dtype and the model's compute dtype
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = make_model(args.model_type, ds.feature_dim, args.hidden_channels,
-                       ds.num_classes, num_layers, num_heads=args.num_heads,
-                       seed=args.seed, dtype=dtype).to(device)
-    optimizer = (torch.optim.AdamW(model.parameters(), lr=args.learning_rate,
-                                   weight_decay=args.decay) if args.decay
-                 else torch.optim.Adam(model.parameters(),
-                                       lr=args.learning_rate))
+    kw = dict(num_heads=args.num_heads, seed=args.seed, dtype=dtype)
+    if hetero:
+        model = make_hetero_model(args.model_type, ds.feature_dim,
+                                  args.hidden_channels, ds.num_classes,
+                                  ds.graph.num_edge_types, num_layers, **kw)
+    else:
+        model = make_model(args.model_type, ds.feature_dim,
+                           args.hidden_channels, ds.num_classes, num_layers,
+                           **kw)
+    model = model.to(device)
+    opt = (torch.optim.AdamW(model.parameters(), lr=args.learning_rate,
+                             weight_decay=args.decay) if args.decay
+           else torch.optim.Adam(model.parameters(), lr=args.learning_rate))
 
     store = HostFeatureStore(ds.features)
     cache = None
@@ -211,82 +301,116 @@ def main(argv=None) -> None:
               f"({cfg.size_mb:.0f} MB per device"
               + (", int8 lines)" if args.quantize else ")"))
 
-    def put(a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    def to_device_stacked(hb):
-        return [DeviceBlock(adj=put(a), mask=put(m))
-                for a, m in zip(hb.adjs, hb.masks)]
-
-    def fetch_batch(hb) -> torch.Tensor:
-        if cache is None:
-            return put(np.stack([store.fetch(ids) for ids in hb.input_ids]))
-        return cache.fetch(hb.input_ids, hb.num_input, store.fetch)
-
     loader = CoalaDataLoader(scheduler=scheduler, sampler=sampler,
                              labels=ds.labels, local_size=1, prefetch=2)
-    train_step = make_sharded_train_step(model, optimizer, devices, B,
-                                         masked=args.mask_tail)
-    steps_per_epoch = len(loader)
-    if args.max_steps:
-        steps_per_epoch = min(steps_per_epoch, args.max_steps)
+    return Run(args=args, device=device, ds=ds, model=model, optimizer=opt,
+               sampler=sampler, loader=loader, store=store, cache=cache)
 
-    sampled_total = step_no = 0
-    for epoch in range(args.epochs):
+
+def train(run: Run, epochs: Optional[int] = None,
+          max_steps: Optional[int] = None) -> dict:
+    """The CLI's epoch loop: ``epochs`` (default ``--epochs``) epochs of at
+    most ``max_steps`` steps (default ``--max_steps``, 0 = the whole
+    epoch), each printing the JAX CLI's epoch line (and the cache's hit
+    ratio). Returns the step losses (numpy f32), the epochs' wall seconds
+    (each ending in a device sync), their feature-fetch seconds, the
+    sampled edges (the sum of the block masks) and nodes."""
+    from coala_gnn_tpu_torch.parallel.train import make_sharded_train_step
+    from coala_gnn_tpu_torch.utils.rng import DROPOUT, step_generators
+
+    args, B = run.args, run.args.batch_size
+    train_step = make_sharded_train_step(run.model, run.optimizer,
+                                         [run.device], B,
+                                         masked=args.mask_tail)
+    epochs = args.epochs if epochs is None else epochs
+    max_steps = args.max_steps if max_steps is None else max_steps
+    steps_per_epoch = len(run.loader)
+    if max_steps:
+        steps_per_epoch = min(steps_per_epoch, max_steps)
+    losses, epoch_s, agg_s = [], [], []
+    edges = sampled = 0
+    for _ in range(epochs):
         t0 = time.perf_counter()
         agg_time = 0.0
         loss = acc = None
-        batches = iter(loader)
+        batches = iter(run.loader)
         try:
             for _, hb in zip(range(steps_per_epoch), batches):
-                dblocks = to_device_stacked(hb)
+                dblocks = run.blocks(hb)
                 ta = time.perf_counter()
-                x = fetch_batch(hb)
+                x = run.features(hb)
                 agg_time += time.perf_counter() - ta
                 valid = None
                 if args.mask_tail:
-                    valid = put(hb.valid if hb.valid is not None
-                                else np.ones((1, B), bool))
+                    valid = run.put(hb.valid if hb.valid is not None
+                                    else np.ones((1, B), bool))
                 loss, acc = train_step(
-                    dblocks, x, put(hb.labels), valid,
-                    step_generators(args.seed, step_no, 1, DROPOUT,
-                                    device)[0])
-                step_no += 1
-                sampled_total += hb.sampled_nodes
+                    dblocks, x, run.put(hb.labels), valid,
+                    step_generators(args.seed, run.step, 1, DROPOUT,
+                                    run.device)[0])
+                losses.append(loss)
+                run.step += 1
+                run.sampled += hb.sampled_nodes
+                sampled += hb.sampled_nodes
+                edges += hb.edges
         finally:
             batches.close()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        if run.device.type == "cuda":
+            torch.cuda.synchronize(run.device)
         dt = time.perf_counter() - t0
-        print(f"Epoch {epoch} | loss {float(loss):.4f} | batch acc "
+        epoch_s.append(dt)
+        agg_s.append(agg_time)
+        print(f"Epoch {run.epoch} | loss {float(loss):.4f} | batch acc "
               f"{float(acc):.4f} | Epoch Time: {dt:.3f}s | feature agg time "
-              f"{agg_time:.3f}s | sampled nodes {sampled_total}")
-        if cache is not None:
-            s = cache.stats()
+              f"{agg_time:.3f}s | sampled nodes {run.sampled}")
+        if run.cache is not None:
+            s = run.cache.stats()
             print(f"Cache hit ratio: {s['hit_ratio']:.3f} "
                   f"({s['hits']} hits / {s['misses']} misses)")
-        loader.reset(args.seed + epoch + 1)
+        run.epoch += 1
+        run.loader.reset(args.seed + run.epoch)
+    return {"losses": (torch.stack(losses).float().cpu().numpy() if losses
+                       else np.zeros(0, np.float32)),
+            "epoch_s": epoch_s, "agg_s": agg_s, "edges": edges,
+            "sampled": sampled}
 
+
+def evaluate(run: Run) -> tuple:
+    """Test accuracy over every test node once: the last batch wraps
+    (static shapes) and its wrapped slots are left out. Prints the JAX
+    CLI's line; returns (correct, total)."""
+    from coala_gnn_tpu_torch.data.loader import CoalaDataLoader
+    from coala_gnn_tpu_torch.distribution import (DistributionScheduler,
+                                                  SeedDistributor)
+    from coala_gnn_tpu_torch.parallel.train import make_sharded_eval_step
+
+    ds, B = run.ds, run.args.batch_size
+    eval_distributor = SeedDistributor(
+        ds.test_idx, batch_size=B, local_size=1, num_parts=1,
+        mode="baseline", shuffle_seed=run.args.seed, drop_tail=False)
+    eval_loader = CoalaDataLoader(
+        scheduler=DistributionScheduler(eval_distributor, part_id=0,
+                                        local_rank=0),
+        sampler=run.sampler, labels=ds.labels, local_size=1, prefetch=2)
+    eval_slot = make_sharded_eval_step(run.model, [run.device], B,
+                                       per_slot=True)
+    correct = total = 0
+    n_test, gb = len(ds.test_idx), eval_distributor.global_batch
+    for it, hb in enumerate(eval_loader):
+        ok = eval_slot(run.blocks(hb), run.features(hb), run.put(hb.labels))
+        correct += int((ok.cpu().numpy() & hb.valid).sum())
+        total += min(gb, n_test - it * gb)
+    print(f"Test accuracy: {correct / max(total, 1):.4f} ({total} nodes)")
+    return correct, total
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    refuse_unported(args)
+    run = build(args)
+    train(run)
     if args.eval:
-        # exact tail: the last batch wraps (static shapes) and the wrapped
-        # slots are left out of the count, so every test node counts once
-        eval_distributor = SeedDistributor(
-            ds.test_idx, batch_size=B, local_size=1, num_parts=1,
-            mode="baseline", shuffle_seed=args.seed, drop_tail=False)
-        eval_loader = CoalaDataLoader(
-            scheduler=DistributionScheduler(eval_distributor, part_id=0,
-                                            local_rank=0),
-            sampler=sampler, labels=ds.labels, local_size=1, prefetch=2)
-        eval_slot = make_sharded_eval_step(model, devices, B, per_slot=True)
-        correct = total = 0
-        n_test, gb = len(ds.test_idx), eval_distributor.global_batch
-        for it, hb in enumerate(eval_loader):
-            ok = eval_slot(to_device_stacked(hb), fetch_batch(hb),
-                           put(hb.labels))
-            correct += int((ok.cpu().numpy() & hb.valid).sum())
-            total += min(gb, n_test - it * gb)
-        print(f"Test accuracy: {correct / max(total, 1):.4f} "
-              f"({total} nodes)")
+        evaluate(run)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ flax ``Dense`` keeps a kernel [d_in, d_out] and a bias [d_out]; torch
 ``nn.Linear`` a weight [d_out, d_in] and a bias. The port names its
 modules as flax does (``layer_0/fc_self`` -> ``layer_0.fc_self``), so the
 map is the path joined with dots, ``kernel`` -> ``weight`` transposed,
-``bias`` unchanged, and GAT's attention params ``attn_l`` / ``attn_r``
+``bias`` unchanged, and the attention params ``attn_l`` / ``attn_r`` of
+GAT and ``attn_l_r{r}`` / ``attn_r_r{r}`` of the relational RGAT
 ([heads, features], the same layout in both) unchanged. Works on nested
 dicts of numpy arrays and imports no flax: a tree from the JAX package
 goes through ``jax.device_get`` (or ``np.asarray`` per leaf) first.
@@ -19,14 +20,16 @@ which holds every bf16 value exactly.
 
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-#: leaves that keep their name and layout in both frameworks
-_AS_IS = ("bias", "attn_l", "attn_r")
+#: leaves that keep their name and layout in both frameworks: biases and
+#: the attention params, relation-indexed (``attn_l_r0``) or not
+_AS_IS = re.compile(r"bias|attn_[lr](_r\d+)?")
 
 
 def _is_bf16(arr: np.ndarray) -> bool:
@@ -54,7 +57,7 @@ def params_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
                 walk(leaf, path + (name,))
             elif name == "kernel":
                 out[".".join(path + ("weight",))] = _leaf(leaf, True)
-            elif name in _AS_IS:
+            elif _AS_IS.fullmatch(name):
                 out[".".join(path + (name,))] = _leaf(leaf, False)
             else:
                 raise ValueError(f"unexpected flax leaf "
@@ -87,7 +90,7 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor],
             arr = t.float().numpy()
         if leaf == "weight":
             leaf, arr = "kernel", np.ascontiguousarray(arr.T)
-        elif leaf not in _AS_IS:
+        elif not _AS_IS.fullmatch(leaf):
             raise ValueError(f"unexpected state_dict entry {key}")
         node = tree
         for name in path:

@@ -480,9 +480,9 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model_type", "rgcn"], "hetero"),
-    (["--num_edge_types", "3"], "hetero"),
-    (["--model_type", "rgat"], "hetero"),
+    (["--model_type", "rgcn", "--pipeline", "resident"], "multi-GPU"),
+    (["--model_type", "rsage", "--devices", "2"], "multi-GPU"),
+    (["--model_type", "rgat", "--nbr_cap", "8"], "nbr_cap"),
     (["--nbr_cap", "8"], "nbr_cap"),
     (["--devices", "2"], "multi-GPU"),
     (["--distribution", "node_color"], "multi-GPU"),

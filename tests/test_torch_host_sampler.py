@@ -153,9 +153,11 @@ def test_contig_layout_invariants(ds):
 
 
 def test_sampler_refuses_what_is_not_ported(ds, monkeypatch):
-    """A wrong batch size raises; a typed (hetero) graph raises
-    NotImplementedError; use_native=True raises where the native library
-    does not build (the JAX sampler falls back to numpy there)."""
+    """A wrong batch size raises; the contiguous layout of a typed
+    (hetero) graph raises NotImplementedError, as JAX's does (the default
+    layout samples it: tests/test_torch_hetero.py); use_native=True raises
+    where the native library does not build (the JAX sampler falls back to
+    numpy there)."""
     with pytest.raises(ValueError):
         NeighborSampler(ds.graph, [3], 8, use_native=False).sample(
             ds.train_idx[:5])
@@ -164,7 +166,7 @@ def test_sampler_refuses_what_is_not_ported(ds, monkeypatch):
         edge_types = np.zeros(3, np.int32)
 
     with pytest.raises(NotImplementedError, match="hetero"):
-        NeighborSampler(Typed(), [3], 8)
+        NeighborSampler(Typed(), [3], 8, contiguous=True)
 
     def broken():
         raise RuntimeError("g++ failed")
@@ -187,7 +189,7 @@ def test_draws_are_uniform_in_both_engines():
                             use_native=use_native)
         counts = np.zeros(deg + 1, np.int64)
         for _ in range(trials):
-            nbr, mask = s._sample_layer(np.array([0], np.int64), fanout)
+            nbr, mask, _ = s._sample_layer(np.array([0], np.int64), fanout)
             assert mask.sum() == fanout
             ids, c = np.unique(nbr[0], return_counts=True)
             counts[ids] += c

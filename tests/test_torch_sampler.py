@@ -69,10 +69,11 @@ def test_sample_layer_with_sentinel_rows(tiny_dataset):
                                        jnp.asarray(dst), 4, key)
     u = torch.from_numpy(np.array(jax.random.uniform(key, (5, 4))))
     tg = tds.to_device_graph(g, "cpu")
-    tnbr, tmask = tds._sample_layer(tg, torch.from_numpy(dst), 4,
-                                    uniforms=u)
+    tnbr, tmask, trel = tds._sample_layer(tg, torch.from_numpy(dst), 4,
+                                          uniforms=u)
     np.testing.assert_array_equal(tnbr.numpy(), np.asarray(jnbr))
     np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    assert trel is None      # an untyped graph has no relation ids
     assert tg.num_nodes == n and tg.indptr.dtype == torch.int64
     assert int(tg.indptr[n + 1] - tg.indptr[n]) == 0
     assert (tnbr[3:] == n).all() and not tmask[3:].any()
