@@ -1,7 +1,8 @@
 """Device profile of one training window of the port on one CUDA card.
 
     python3 chip_profile.py [sage|gcn|gat|sage-bf16|gat-bf16|
-                             rsage|rgcn|rgat|cli-sage|cli-gat ...]
+                             rsage|rgcn|rgat|cli-sage|cli-gat|
+                             cli-resident-sage|cli-resident-rgat ...]
                                                     (default: gat)
 
 For each row: builds ``chip_smoke.py``'s trainer at the flagship config
@@ -35,7 +36,11 @@ MB cache front): one warm-up epoch of 8 steps, then one traced epoch of 8
 steps of the CLI's loop (``train.train``: its loader, fetches and steps;
 the epoch's wall time, as the CLI prints it, includes the loader's first
 batch); ``cli-MODEL`` (cli-sage, cli-gcn, cli-gat) is a homogeneous
-model through the same loop, beside them.
+model through the same loop, beside them. ``cli-resident-MODEL``
+(cli-resident-sage, cli-resident-rgat, any model) is the CLI's
+``--pipeline resident --window 8`` as ``chip_smoke.py``'s phase 16 runs
+it: one warm-up epoch of 8 steps, then one traced epoch of one window of
+8.
 
     python3 chip_profile.py --against OTHER_CHECKOUT ROW ...
 
@@ -233,7 +238,12 @@ def main() -> int:
             from coala_gnn_tpu_torch import train as cli
 
             kind = model_type.removeprefix("cli-")
-            rt = cli.build(cli.parse_args(cs.cli_args(kind)), ds=ds)
+            flags = {}
+            if kind.startswith("resident-"):
+                kind = kind.removeprefix("resident-")
+                flags = dict(pipeline="resident", window=STEPS)
+            rt = cli.build(cli.parse_args(cs.cli_args(kind, **flags)),
+                           ds=ds)
             cli.train(rt, epochs=1, max_steps=STEPS)
             run_steps = lambda: cli.train(rt, epochs=1, max_steps=STEPS)
         else:

@@ -10,8 +10,9 @@ full coverage, K = 8), its bf16-table row, and the pressure row (a
 set-associative f32 cache of ~50% of the rows, degree priorities, staged
 windows of K = 32 through the native host tier); then GAT and GCN at the
 same config, the int8 cache lines on both tiers, and the bf16 model dtype
-(resident-bf16, a bf16 GAT and GCN, int8 lines on a bf16 table), and the
-trainer CLI's hetero models. Phases:
+(resident-bf16, a bf16 GAT and GCN, int8 lines on a bf16 table), the
+trainer CLI's hetero models, and the CLI's ``--pipeline resident``
+(``ShardedResidentTrainer``). Phases:
 
   1. device: a CUDA card must be present; prints its name and power limit;
   2. kernels vs plain: builds the gather-SpMM kernels from the checkout and
@@ -120,12 +121,29 @@ trainer CLI's hetero models. Phases:
      step's inputs (forwards at 1e-5, grad_w / grad_x within their f32
      bounds, the transposes bitwise) and times each beside its bound; then
      small CLI runs card vs CPU: each model in f32 (2e-3 / 2e-4), a bf16
-     RSAGE and RGAT (2e-2).
+     RSAGE and RGAT (2e-2);
+ 16. the trainer CLI's ``--pipeline resident`` (``train.build`` /
+     ``train`` / ``evaluate`` over ``parallel/sharded_resident.py``) at the
+     flagship widths, the cache cold at the start, 4 warm-up + 16 measured
+     steps per row: SAGE on the 1024 MB cache with ``--window 8``, then
+     ``--window 1`` (per-step, one ``begin`` ahead) and its ``--eval``,
+     SAGE on 97 MB with ``--window 8`` (staged windows under pressure),
+     GAT and RGAT (4 heads, 3 edge types) on 1024 MB with ``--window 8``,
+     and RGAT with ``--dtype bfloat16``; checks finite, falling losses,
+     the launches of every measured step (SAGE 1 forward, its layer 0 off
+     the frontier; GAT / RGAT per layer a combine, grad_w and grad_x, the
+     transposes kept; eval 1 forward per batch) and nothing else, no
+     replay, state on the card; prints ms/step, train edges/s, hit ratio,
+     feature agg ms/step, stage rows and peak memory; holds every kernel
+     call of one real step of each row against its plain version and
+     times it; a host-CLI SAGE row in the same call, beside the resident
+     rows; then small resident CLI runs card vs CPU (SAGE under
+     pressure, GAT and RGAT in f32 at 2e-3 / 2e-4, RGAT bf16 at 2e-2).
 
 Every failure ends the script with a non-zero code. The line before the
 last two is a JSON object with the kernels' launches, errors, times,
-bounds and library times (phase 15's stacked shapes as entries of their
-own, named by kernel, model and layer);
+bounds and library times (phase 15's stacked shapes and phase 16's bf16
+RGAT calls as entries of their own, named by kernel, model and layer);
 the last line is ``{"ok": true, "device": {...}}``. Writes nothing but
 coala_gnn_tpu_torch/_build/ (the kernels and the native host library,
 built there at first use). Imports nothing of JAX or of coala_gnn_tpu.
@@ -1551,103 +1569,131 @@ def cli_args(kind: str, device: str = "cuda", **flags) -> list:
     return [a for k, v in base.items() for a in (f"--{k}", str(v))]
 
 
-def hetero_step_calls(torch, run) -> list:
-    """One real step of a hetero model on the CLI's path (a loader batch,
-    its blocks and rows through the cache front, the model's forward and
-    the loss's backward, no update): every gather-SpMM call with its
-    inputs, output and upstream gradient, in call order (layer 0 first)."""
-    from coala_gnn_tpu_torch.models import hetero
+def record_calls(torch, run_step) -> list:
+    """Every gather-SpMM call that ``run_step()`` (one real step's forward
+    and the loss's backward) makes, with its inputs, output and upstream
+    gradient, in call order (layer 0 first)."""
+    from coala_gnn_tpu_torch.models import hetero, layers
     from coala_gnn_tpu_torch.ops import aggregate
-    from coala_gnn_tpu_torch.parallel.train import _squeeze
 
     kernel, calls = aggregate.gather_spmm, []
 
     def recording(x, adj, w, scale=None, adj_t=None, read_as=None):
         out = kernel(x, adj, w, scale, adj_t=adj_t, read_as=read_as)
-        rec = {"x": x.detach(), "adj": adj, "w": w.detach(),
-               "out": out.detach()}
+        rec = {"x": x.detach(), "adj": adj, "w": w.detach(), "scale": scale,
+               "read_as": read_as, "x_grad": x.requires_grad,
+               "w_grad": w.requires_grad, "out": out.detach()}
         if out.requires_grad:
             out.register_hook(lambda g: rec.update(g=g.detach().contiguous()))
         calls.append(rec)
         return out
+
+    aggregate.gather_spmm = hetero.gather_spmm = layers.gather_spmm = \
+        recording
+    try:
+        run_step()
+    finally:
+        aggregate.gather_spmm = hetero.gather_spmm = layers.gather_spmm = \
+            kernel
+    return calls
+
+
+def hetero_step_calls(torch, run) -> list:
+    """One real step of a hetero model on the CLI's path (a loader batch,
+    its blocks and rows through the cache front, the model's forward and
+    the loss's backward, no update): ``record_calls``."""
+    from coala_gnn_tpu_torch.parallel.train import _squeeze
 
     batches = iter(run.loader)
     try:
         hb = next(batches)
     finally:
         batches.close()
-    aggregate.gather_spmm = hetero.gather_spmm = recording
-    try:
+
+    def step():
         logits = run.model(_squeeze(run.blocks(hb)), run.features(hb)[0],
                            train=False)[:BATCH]
         torch.nn.functional.cross_entropy(
             logits, run.put(hb.labels)[0].long()).backward()
-    finally:
-        aggregate.gather_spmm = hetero.gather_spmm = kernel
+
+    calls = record_calls(torch, step)
     run.optimizer.zero_grad(set_to_none=True)
     return calls
 
 
-def hetero_step_kernels(torch, kind, calls) -> dict:
-    """Each stacked entry of one real step against its plain version (the
-    forward at KERNEL_TOL, grad_w and grad_x within the f32 bound of their
-    sums, the transpose bitwise), timed with its plain version and bound.
-    Returns {(kernel, layer): entry}."""
+def step_kernels(torch, label, calls) -> dict:
+    """Each kernel of one real step's gather-SpMM calls against its plain
+    version (the forward at KERNEL_TOL, grad_w and grad_x within the f32
+    bound of their sums, the transpose bitwise), timed with its plain
+    version and bound; prints one line each under ``label``. Returns
+    {(kernel counter, layer): entry}."""
     from coala_gnn_tpu_torch.ops.gather_spmm import (
-        adj_transpose, adj_transpose_reference, gather_spmm,
-        gather_spmm_grad_w, gather_spmm_grad_w_reference, gather_spmm_grad_x,
-        gather_spmm_grad_x_reference, gather_spmm_reference,
-        grad_w_error_bound, grad_x_error_bound)
+        _GRAD_W_COUNTER, _form, adj_transpose, adj_transpose_reference,
+        gather_spmm, gather_spmm_grad_w, gather_spmm_grad_w_reference,
+        gather_spmm_grad_x, gather_spmm_grad_x_reference,
+        gather_spmm_reference, grad_w_error_bound, grad_x_error_bound)
 
-    rgat = kind == "rgat"
-    require(len(calls) == 2 and "g" in calls[1] and
-            ("g" in calls[0]) == rgat, f"{kind} step: expected one stacked "
-            "call per layer, a gradient where the input needs one")
     out = {}
     for layer, c in enumerate(calls):
-        x, adj, w = c["x"], c["adj"], c["w"]
+        x, adj, w, sc, ra = c["x"], c["adj"], c["w"], c["scale"], c["read_as"]
         s = x.shape[0]
         shape = f"S {s}, N {adj.shape[0]}, F {adj.shape[1]}, D {x.shape[1]}"
+        name = f"gather_spmm[{_form(x, ra)}]"
         e = {"max_abs_err": max_err(torch, c["out"], gather_spmm_reference(
-            x, adj, w), f"{kind} layer {layer} stacked forward")}
-        timed(torch, e, lambda: gather_spmm(x, adj, w),
-              lambda: gather_spmm_reference(x, adj, w),
-              forward_work(torch, x, None, adj, w),
-              embedding_bag(torch, x, adj, w))
-        out[("gather_spmm[float32]", layer)] = dict(e, shape=shape)
+            x, adj, w, sc, ra), f"{label} layer {layer} forward")}
+        f32_table = x.dtype == torch.float32 and sc is None and ra is None
+        timed(torch, e, lambda: gather_spmm(x, adj, w, sc, read_as=ra),
+              lambda: gather_spmm_reference(x, adj, w, sc, ra),
+              forward_work(torch, x, sc, adj, w),
+              embedding_bag(torch, x, adj, w) if f32_table else None)
+        out[(name, layer)] = dict(e, shape=shape)
         if "g" not in c:
             continue
         g = c["g"]
-        form = check_transpose(torch, adj, s, f"{kind} layer {layer}")
-        adj_t = adj_transpose(adj, s)
-        e = {"max_abs_err": 0.0, "form": form}
-        timed(torch, e, lambda: adj_transpose(adj, s),
-              lambda: adj_transpose_reference(adj, s), transpose_work(adj, s))
-        out[("adj_transpose", layer)] = dict(e, shape=shape)
-        e = {"max_abs_err": within_bound(
-            torch, gather_spmm_grad_x(adj, w, g, s, adj_t),
-            gather_spmm_grad_x_reference(adj, w, g, s),
-            grad_x_error_bound(adj, w, g, s), f"{kind} layer {layer} grad_x")}
-        timed(torch, e, lambda: gather_spmm_grad_x(adj, w, g, s, adj_t),
-              lambda: gather_spmm_grad_x_reference(adj, w, g, s),
-              grad_x_work(torch, adj, w, g, s))
-        out[("gather_spmm_grad_x", layer)] = dict(e, shape=shape)
-        if rgat:
+        if c["x_grad"]:
+            form = check_transpose(torch, adj, s, f"{label} layer {layer}")
+            adj_t = adj_transpose(adj, s)
+            e = {"max_abs_err": 0.0, "form": form}
+            timed(torch, e, lambda: adj_transpose(adj, s),
+                  lambda: adj_transpose_reference(adj, s),
+                  transpose_work(adj, s))
+            out[("adj_transpose", layer)] = dict(e, shape=shape)
+            e = {"max_abs_err": within_bound(
+                torch, gather_spmm_grad_x(adj, w, g, s, adj_t),
+                gather_spmm_grad_x_reference(adj, w, g, s),
+                grad_x_error_bound(adj, w, g, s),
+                f"{label} layer {layer} grad_x")}
+            timed(torch, e, lambda: gather_spmm_grad_x(adj, w, g, s, adj_t),
+                  lambda: gather_spmm_grad_x_reference(adj, w, g, s),
+                  grad_x_work(torch, adj, w, g, s))
+            out[("gather_spmm_grad_x", layer)] = dict(e, shape=shape)
+        if c["w_grad"]:
             e = {"max_abs_err": within_bound(
                 torch, gather_spmm_grad_w(x, adj, g),
                 gather_spmm_grad_w_reference(x, adj, g),
                 grad_w_error_bound(x, adj, g),
-                f"{kind} layer {layer} grad_w")}
+                f"{label} layer {layer} grad_w")}
             timed(torch, e, lambda: gather_spmm_grad_w(x, adj, g),
                   lambda: gather_spmm_grad_w_reference(x, adj, g),
                   grad_w_work(torch, x, adj, g))
-            out[("gather_spmm_grad_w", layer)] = dict(e, shape=shape)
+            out[(_GRAD_W_COUNTER[x.dtype], layer)] = dict(e, shape=shape)
     for (name, layer), e in out.items():
-        print(f"phase 15: {kind} layer {layer} real step, {name} "
+        print(f"{label} layer {layer} real step, {name} "
               f"({e['shape']}" + (f", {e['form']} form" if "form" in e
                                   else "") + f"): max_abs_err "
               f"{e['max_abs_err']:.3g}; " + describe(name, e))
     return out
+
+
+def hetero_step_kernels(torch, kind, calls) -> dict:
+    """``step_kernels`` of one real hetero step, which makes one stacked
+    call per layer, with a gradient where the input needs one (RGAT's
+    layer 0 too)."""
+    rgat = kind == "rgat"
+    require(len(calls) == 2 and "g" in calls[1] and
+            ("g" in calls[0]) == rgat, f"{kind} step: expected one stacked "
+            "call per layer, a gradient where the input needs one")
+    return step_kernels(torch, f"phase 15: {kind}", calls)
 
 
 def on_card_cli(torch, run) -> bool:
@@ -1772,6 +1818,221 @@ def phase_hetero(torch, ds, smi) -> tuple:
     return total, entries
 
 
+#: phase 16's rows: (tag, model, --cache_size MB, --window, --dtype)
+RESIDENT_ROWS = (("sage-1024-w8", "sage", 1024, 8, "float32"),
+                 ("sage-1024-w1", "sage", 1024, 1, "float32"),
+                 ("sage-97-w8", "sage", 97, 8, "float32"),
+                 ("gat-1024-w8", "gat", 1024, 8, "float32"),
+                 ("rgat-1024-w8", "rgat", 1024, 8, "float32"),
+                 ("rgat-bf16-1024-w8", "rgat", 1024, 8, "bfloat16"))
+RESIDENT_WARM, RESIDENT_MEAS = 4, 16
+#: kernel launches per measured step of the resident CLI: SAGE's layer 0
+#: reads the step's frontier through the kernel (TableInput; layer 1 is
+#: plane sums); GAT and RGAT per layer a combine, its grad_w and grad_x,
+#: their transposes kept per shape since the run's first step
+_ATTENTION = {"gather_spmm[float32]": 2, "gather_spmm_grad_w": 2,
+              "gather_spmm_grad_x": 2}
+RESIDENT_PER_STEP = {
+    "sage": {"gather_spmm[float32]": 1}, "gat": _ATTENTION,
+    "rgat": _ATTENTION,
+    "rgat-bf16": {"gather_spmm[bfloat16]": 2,
+                  "gather_spmm_grad_w[bfloat16]": 2,
+                  "gather_spmm_grad_x": 2}}
+
+
+def resident_step_calls(torch, run) -> list:
+    """One real step of the resident CLI (the scheduler's next seed grid
+    through the trainer's ``begin`` / ``resolve``, the model's forward on
+    the frontier as the trainer hands it over and the loss's backward, no
+    update): ``record_calls``."""
+    from coala_gnn_tpu_torch.utils.rng import SAMPLE, step_generators
+
+    rt = run.trainer
+    grid = run.scheduler.run_domain().reshape(1, BATCH).astype(np.int32)
+    gen = step_generators(run.args.seed, run.step, 1, SAMPLE, run.device)[0]
+    blocks, feats, y = rt.resolve(rt.begin(grid, gen))
+
+    def step():
+        logits = run.model(blocks, rt._layer0(feats), train=False)[:BATCH]
+        torch.nn.functional.cross_entropy(logits, y).backward()
+
+    calls = record_calls(torch, step)
+    run.optimizer.zero_grad(set_to_none=True)
+    return calls
+
+
+def resident_small(torch, smi) -> None:
+    """Small runs of the resident CLI, card vs CPU (the CPU port is held
+    to JAX's ``_run_resident`` by tests/test_torch_cli_resident.py), 12
+    steps in windows of 4 with eval, dropout 0, fanout = the graph's max
+    in-degree (so both sample every in-edge, whatever their generators
+    draw): SAGE on 512-wide rows, whose 1 MB cache evicts, with Adam; GAT
+    and RGAT in f32 and RGAT in bf16 on 8-wide rows with SGD (phase 5's
+    reason)."""
+    from coala_gnn_tpu_torch import train as cli
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
+
+    fanout = int(synthetic_graph(num_nodes=600, avg_degree=4, feature_dim=8,
+                                 num_classes=4, seed=0
+                                 ).graph.in_degrees().max())
+    small = dict(num_nodes=600, hidden_channels=8, num_classes=4,
+                 fan_out=f"{fanout},{fanout}", batch_size=16, cache_size=1,
+                 num_heads=2, learning_rate=0.01, avg_degree=4,
+                 pipeline="resident", window=4)
+    for kind, dtype, dim in (("sage", "float32", 512),
+                             ("gat", "float32", 8), ("rgat", "float32", 8),
+                             ("rgat", "bfloat16", 8)):
+        bf16, sgd = dtype == "bfloat16", kind != "sage"
+        rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16 else (SMALL_RTOL,
+                                                          SMALL_ATOL)
+        out = {}
+        for device in ("cuda", "cpu"):
+            run = cli.build(cli.parse_args(cli_args(
+                kind, device, dtype=dtype, feature_dim=dim, **small)))
+            run.model.dropout = 0.0
+            if sgd:
+                run.optimizer = torch.optim.SGD(run.model.parameters(),
+                                                lr=0.01)
+            reset_launches()
+            losses = cli.train(run, epochs=1, max_steps=12)["losses"]
+            out[device] = (losses, cli.evaluate(run), launches())
+        card, host = out["cuda"], out["cpu"]
+        np.testing.assert_allclose(card[0], host[0], rtol=rtol, atol=atol)
+        require(any(card[2].values()) and not any(host[2].values()),
+                f"small resident {kind} {dtype}: launches card {card[2]}, "
+                f"CPU {host[2]}")
+        print(f"phase 16: small resident {kind} {dtype} (600 nodes, dim "
+              f"{dim}, 12 steps, {'SGD' if sgd else 'Adam'}) card vs CPU: "
+              f"losses max diff {np.abs(card[0] - host[0]).max():.3g}, "
+              f"within rtol {rtol} atol {atol}; eval correct card "
+              f"{card[1][0]} CPU {host[1][0]} of {host[1][1]} ({smi})")
+
+
+def phase_resident(torch, ds, smi) -> tuple:
+    """The trainer CLI's ``--pipeline resident`` (``train.build`` /
+    ``train.train`` / ``train.evaluate`` over ``ShardedResidentTrainer``)
+    at the flagship widths, one row per ``RESIDENT_ROWS`` entry, the cache
+    cold at the start, dropout 0.5, Adam 1e-3, 4 warm-up + 16 measured
+    steps each; the eval after the ``--window 1`` row; a host-CLI SAGE row
+    in the same call, beside it. Checks finite, falling losses, the
+    launches of every measured step (``RESIDENT_PER_STEP``, nothing else;
+    one forward per eval batch), no replay, state on the card; prints
+    ms/step, train edges/s, hit ratio, feature agg ms/step and peak
+    memory; holds every kernel call of one real step against its plain
+    version; then the small card-vs-CPU runs. Returns (launches by
+    kernel, worst errors of the f32 entries, kernels JSON entries of the
+    bf16 RGAT row)."""
+    from coala_gnn_tpu_torch import train as cli
+
+    total, errs, entries, ms = {}, {}, [], {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for tag, kind, mb, window, dtype in RESIDENT_ROWS:
+        args = cli.parse_args(cli_args(kind, pipeline="resident",
+                                       cache_size=mb, window=window,
+                                       dtype=dtype))
+        cli.refuse_unported(args)
+        t0 = time.perf_counter()
+        run = cli.build(args, ds=ds)
+        torch.cuda.synchronize()
+        reset_launches()
+        warm = cli.train(run, epochs=1, max_steps=RESIDENT_WARM)
+        torch.cuda.synchronize()
+        row_counts = launches()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        run.trainer.timers.reset()
+        meas = cli.train(run, epochs=1, max_steps=RESIDENT_MEAS)
+        torch.cuda.synchronize()
+        counts = launches()
+        for k, v in counts.items():
+            row_counts[k] += v
+        add(row_counts)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = np.concatenate([warm["losses"], meas["losses"]])
+        q = losses.size // 4
+        require(np.isfinite(losses).all() and
+                losses[-q:].mean() < losses[:q].mean(),
+                f"{tag}: losses not finite and falling {losses}")
+        key = kind + ("-bf16" if dtype == "bfloat16" else "")
+        want = {k: v * RESIDENT_MEAS
+                for k, v in RESIDENT_PER_STEP[key].items()}
+        got = {k: v for k, v in counts.items() if v}
+        require(got == want, f"{tag}: launches {got} over {RESIDENT_MEAS} "
+                f"measured steps, expected {want}")
+        rt = run.trainer
+        require(on_card_cli(torch, run) and rt.g.indices.is_cuda,
+                f"{tag}: state off the card")
+        require("replay" not in rt.timers.totals, f"{tag}: replayed")
+        dt, st = meas["epoch_s"][0], meas["stats"][0]
+        ms[tag] = 1000 * dt / RESIDENT_MEAS
+        print(f"phase 16: {tag} (CLI --pipeline resident, --window "
+              f"{window}, {mb} MB, {dtype}): {ms[tag]:.3f} ms/step, "
+              f"train_edges_per_s_per_chip {meas['edges'] / dt:.1f} "
+              f"({RESIDENT_MEAS} measured steps after {RESIDENT_WARM}, host "
+              f"clock, {smi}); hit ratio {st['hit_ratio']:.4f} "
+              f"({st['hits']} hits / {st['misses']} misses); feature agg "
+              f"{1000 * meas['agg_s'][0] / RESIDENT_MEAS:.3f} ms/step; "
+              f"stage rows {rt.timers.tallies.get('stage_rows', 0):.0f} in "
+              f"the measured steps; peak device memory {peak:.3f} GiB; "
+              f"launches per "
+              f"measured step "
+              f"{ {k: v // RESIDENT_MEAS for k, v in got.items()} }; "
+              f"{time.perf_counter() - t0:.1f} s with set-up; losses "
+              f"{np.array2string(losses[::2], precision=4)}")
+        print(f"phase 16: {tag} trainer timers of the measured steps:\n"
+              + rt.timers.report())
+        if window == 1:
+            reset_launches()
+            t1 = time.perf_counter()
+            correct, n_test = cli.evaluate(run)
+            torch.cuda.synchronize()
+            counts = launches()
+            add(counts)
+            n_batches = -(-n_test // BATCH)
+            got = {k: v for k, v in counts.items() if v}
+            require(got == {"gather_spmm[float32]": n_batches},
+                    f"{tag} eval: launches {got}, expected one forward per "
+                    f"batch ({n_batches})")
+            print(f"phase 16: {tag} --eval: {correct} of {n_test} test "
+                  f"nodes correct in {n_batches} batches, "
+                  f"{1000 * (time.perf_counter() - t1) / n_batches:.3f} "
+                  f"ms/batch ({smi})")
+        checked = step_kernels(torch, f"phase 16: {tag}",
+                               resident_step_calls(torch, run))
+        for (name, layer), e in checked.items():
+            if dtype == "bfloat16":
+                # the row's launches of this layer's call
+                calls = sum(1 for n, _ in checked if n == name)
+                entries.append({
+                    "name": f"{name} {kind} bf16 resident layer {layer}",
+                    "counter": name, "launches": row_counts[name] // calls,
+                    **{k: v for k, v in e.items() if k != "form"}})
+            else:
+                errs[name] = max(errs.get(name, 0.0), e["max_abs_err"])
+        del run, rt
+        torch.cuda.empty_cache()
+    # the CLI's host path, SAGE, in the same call
+    run = cli.build(cli.parse_args(cli_args("sage")), ds=ds)
+    cli.train(run, epochs=1, max_steps=RESIDENT_WARM)
+    host = cli.train(run, epochs=1, max_steps=RESIDENT_MEAS)
+    torch.cuda.synchronize()
+    ms["host-sage"] = 1000 * host["epoch_s"][0] / RESIDENT_MEAS
+    print(f"phase 16: host-CLI SAGE (1024 MB, the same call): "
+          f"{ms['host-sage']:.3f} ms/step, of which the fetch "
+          f"{1000 * host['agg_s'][0] / RESIDENT_MEAS:.3f}; resident "
+          f"--window 8 / host "
+          f"{ms['sage-1024-w8'] / ms['host-sage']:.3f}, --window 1 / host "
+          f"{ms['sage-1024-w1'] / ms['host-sage']:.3f} ({smi})")
+    del run
+    torch.cuda.empty_cache()
+    resident_small(torch, smi)
+    return total, errs, entries
+
+
 def main() -> int:
     import torch
 
@@ -1848,8 +2109,14 @@ def main() -> int:
     t0 = time.perf_counter()
     hetero_launches, hetero_entries = phase_hetero(torch, ds, smi)
     print(f"phase 15: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resident_launches, resident_errs, resident_entries = phase_resident(
+        torch, ds, smi)
+    for name, err in resident_errs.items():
+        worst(name, err)
+    print(f"phase 16: done in {time.perf_counter() - t0:.1f} s")
     for counts in (gat_launches, int8_launches, host_launches,
-                   bf16_launches, hetero_launches):
+                   bf16_launches, hetero_launches, resident_launches):
         for name, n in counts.items():
             main_launches[name] = main_launches.get(name, 0) + n
 
@@ -1872,7 +2139,7 @@ def main() -> int:
                 **kern[name]} for name, where in replaces.items()]
     kernels += [{"route": "cuda", "source": src,
                  "replaces": replaces[e["counter"]], **e}
-                for e in hetero_entries]
+                for e in hetero_entries + resident_entries]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never launched on the "
                 "main path")

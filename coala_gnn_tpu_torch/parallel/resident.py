@@ -54,10 +54,13 @@ Host syncs of the serial staged schedule: one probe readback per window
 (into pinned memory, waited on by a CUDA event) and the final counter
 fold; stages upload from pinned buffers without blocking.
 
+The machinery of the windows lives in ``ResidentBase``, which
+``parallel/sharded_resident.py``'s ``ShardedResidentTrainer`` shares.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``dedup=True`` and ``nbr_cap`` sampling, and a
-heterogeneous graph (the JAX package trains hetero models resident only
-in its multi-device ``ShardedResidentTrainer``).
+ROADMAP.md item: ``dedup=True`` and ``nbr_cap`` sampling. A heterogeneous
+graph raises too: the JAX package trains hetero models resident only in
+its ``ShardedResidentTrainer``, and so does the port.
 """
 
 from __future__ import annotations
@@ -199,76 +202,46 @@ class HostScratch:
 Probe = Tuple[str, torch.Tensor, Optional["torch.cuda.Event"]]
 
 
-@dataclasses.dataclass
-class ResidentTrainer:
-    graph: object                        # host CSCGraph
-    host_fetch: Callable                 # host tier fn(int64 ids) -> f32 rows
-    labels: np.ndarray                   # [num_nodes]
-    cache_cfg: fc.CacheConfig
-    model: nn.Module                     # on ``device``
-    optimizer: torch.optim.Optimizer     # over ``model``'s parameters
-    fanouts: Sequence[int]
-    batch_size: int
-    device: torch.device
-    colors: Optional[np.ndarray] = None  # int [num_nodes] for color counts
-    dedup: bool = False
-    direct: Optional[bool] = None        # None: flat tier iff the cache
-                                         # capacity covers every node
-    priorities: Union[None, str, np.ndarray] = None
-                                         # f32 [num_nodes] admission priority
-                                         # of the set-associative tier, or
-                                         # "degree" (in-degree of the graph)
-    stage_transport: str = "auto"        # miss-row encoding across the host
-                                         # link: float32 | bfloat16 | int8;
-                                         # auto = int8 for int8 lines, else
-                                         # float32
-    stage_admit: bool = True             # offer staged rows to the cache
-                                         # after each window
-    stage_overlap: bool = False          # overlapped staged schedule
-    nbr_cap: Optional[int] = None
+class ResidentBase:
+    """What the two resident trainers share (this module's
+    ``ResidentTrainer`` and ``parallel/sharded_resident.py``'s
+    ``ShardedResidentTrainer``): sampling on the device, the presample
+    probe and the stage, the fused window over the flat table or the
+    set-associative lookup, the replay net and ``train_windows``'
+    schedules.
 
-    def __post_init__(self):
-        if self.dedup:
-            raise NotImplementedError(
-                "dedup=True sampling is not ported yet: ROADMAP.md queue A, "
-                "\"dedup=True and nbr_cap sampling\"")
-        if self.nbr_cap is not None:
-            raise NotImplementedError(
-                "the nbr_cap padded neighbour table is not ported yet: "
-                "ROADMAP.md queue A, \"dedup=True and nbr_cap sampling\"")
-        if getattr(self.graph, "edge_types", None) is not None:
-            raise NotImplementedError(
-                "resident training on a heterogeneous graph is not ported "
-                "yet: ROADMAP.md queue A, \"multi-GPU\"")
+    A subclass sets the attributes that ``_setup`` lists and calls it from
+    its ``__post_init__``, and provides ``_eng_lookup``, ``_eng_probe``,
+    ``_offer_stage``, and the per-step ``begin`` / ``resolve`` /
+    ``train_step`` that the replay net runs (the flat tier also
+    ``_repair_from_probe``)."""
+
+    #: ``_stage_from_mids`` keeps the f32 rows it gathered, on the host
+    #: (``stage[6]``), for an offer that inserts them from there
+    _offer_host_rows = False
+
+    def _setup(self) -> None:
+        """The state the shared methods read, from the subclass's
+        ``graph``, ``host_fetch``, ``labels``, ``fanouts``, ``batch_size``,
+        ``device``, ``cache_cfg``, ``colors``, ``stage_transport``,
+        ``direct`` and ``_use_prio``."""
         cfg = self.cache_cfg
         if self.stage_transport == "auto":
             self.stage_transport = "int8" if cfg.quantize else "float32"
         if self.stage_transport not in _TRANSPORT_DTYPE:
             raise ValueError(
                 f"unknown stage transport {self.stage_transport!r}")
-        if isinstance(self.priorities, str):
-            if self.priorities != "degree":
-                raise ValueError(f"unknown priorities {self.priorities!r}")
-            self.priorities = np.diff(
-                np.asarray(self.graph.indptr)).astype(np.float32)
-        self.device = torch.device(self.device)
-        n = self.graph.num_nodes
-        if self.direct is None:
-            self.direct = cfg.capacity >= n
-        self._use_prio = self.priorities is not None and not self.direct
         self.g = to_device_graph(self.graph, self.device)
         self.labels_dev = torch.as_tensor(
             np.asarray(self.labels, np.int64)).to(self.device)
-        if self.direct:
-            self.cache = fc.flat_init(cfg, n, self.device)
-        else:
-            self.cache = fc.init_colored_state(cfg, self.device,
-                                               track_prio=self._use_prio)
-        self._cap0 = block_capacities(self.batch_size, list(self.fanouts))[0][1]
+        self._cap0 = block_capacities(self.batch_size,
+                                      list(self.fanouts))[0][1]
         # layer 0 of a window that builds its frontier features reads them
-        # through the kernel at these slot positions (TableInput)
+        # through the kernel at these slot positions (TableInput); the
+        # relational layers of a typed graph take the features as they are
         self._slots = torch.arange(self._cap0, dtype=torch.int32,
                                    device=self.device)
+        self._typed = self.g.edge_types is not None
         self.timers = PhaseTimers()
         self.hits = self.misses = 0
         self.full_coverage = False
@@ -279,51 +252,11 @@ class ResidentTrainer:
             self._store = None
         self._scratch = HostScratch(pin_memory=self.device.type == "cuda")
 
-    # ---- engine dispatch: flat table or set-associative cache ---------
-    def _eng_lookup(self, ids: torch.Tensor, valid: torch.Tensor,
-                    count_stats: bool = True):
-        """(feats [n, dim] in cfg.dtype, hit bool [n])."""
-        if self.direct:
-            _, feats, hit = fc.flat_lookup(self.cache, ids, valid,
-                                           dtype=self.cache_cfg.dtype)
-        else:
-            _, feats, hit = fc.lookup(self.cache_cfg, self.cache.base, ids,
-                                      valid, count_stats=count_stats)
-        return feats, hit
-
-    def _eng_probe(self, ids: torch.Tensor,
-                   valid: torch.Tensor) -> torch.Tensor:
-        if self.direct:
-            return fc.flat_probe(self.cache, ids, valid)
-        return fc.probe(self.cache_cfg, self.cache.base, ids, valid)
-
-    def _eng_insert(self, ids, rows, valid, colors, prios=None) -> None:
-        """In place; ``prios`` is None unless priorities are in use."""
-        if self.direct:
-            fc.flat_insert(self.cache_cfg, self.cache, ids, rows, valid,
-                           colors)
-        else:
-            fc.insert_with_colors(self.cache_cfg, self.cache, ids, rows,
-                                  valid, colors, prios=prios)
-
-    # ------------------------------------------------------------------
-    def _colors(self, ids: np.ndarray) -> torch.Tensor:
-        c = (np.zeros(ids.shape[0], np.int32) if self.colors is None
-             else np.asarray(self.colors, np.int32)[ids])
-        return torch.as_tensor(c).to(self.device)
-
-    def _prios(self, ids: np.ndarray) -> Optional[torch.Tensor]:
-        if not self._use_prio:
-            return None
-        return torch.as_tensor(self.priorities[ids]).to(self.device)
-
-    def _insert_host_rows(self, ids: np.ndarray, rows: np.ndarray) -> None:
-        ids_dev = torch.as_tensor(ids).to(self.device)
-        self._eng_insert(ids_dev,
-                         torch.as_tensor(np.asarray(rows, np.float32)).to(
-                             self.device),
-                         torch.ones_like(ids_dev, dtype=torch.bool),
-                         self._colors(ids), self._prios(ids))
+    def _layer0(self, feats: torch.Tensor):
+        """The model's input for a step's frontier features [cap0, dim]:
+        read through the kernel at the slot positions (``TableInput``),
+        or as they are on a typed graph."""
+        return feats if self._typed else TableInput(feats, self._slots)
 
     def _sample(self, seeds: torch.Tensor, generator: torch.Generator):
         blocks, ids, _ = sample_blocks_device(
@@ -355,52 +288,6 @@ class ResidentTrainer:
         ev = torch.cuda.Event()
         ev.record()
         return host, ev
-
-    # ---- per-step path -------------------------------------------------
-    def begin(self, seeds, generator: torch.Generator) -> tuple:
-        """Sample and look up one step (counters on the device). ``seeds``
-        int [batch] on the host."""
-        seeds_dev = torch.as_tensor(np.asarray(seeds, np.int32)).to(
-            self.device)
-        blocks, ids, valid, safe = self._sample(seeds_dev, generator)
-        feats, hit = self._eng_lookup(safe, valid)
-        n_miss = (valid & ~hit).sum(dtype=torch.int32)
-        return blocks, ids, valid, feats, hit, n_miss, \
-            self.labels_dev[seeds_dev]
-
-    def resolve(self, handle) -> tuple:
-        """(blocks, feats, labels) with misses fetched from the host tier,
-        merged into feats and admitted to the cache."""
-        blocks, ids, valid, feats, hit, n_miss, y = handle
-        if int(n_miss) == 0:
-            return blocks, feats, y
-        pos = torch.nonzero(valid & ~hit).squeeze(1)
-        miss_ids = ids[pos]
-        miss_np = miss_ids.cpu().numpy()
-        with self.timers.time("host_gather"):
-            rows = self.host_fetch(miss_np.astype(np.int64))
-        rows = torch.as_tensor(np.asarray(rows, np.float32)).to(self.device)
-        feats = feats.clone()
-        feats[pos] = rows.to(feats.dtype)
-        self._eng_insert(miss_ids, rows,
-                         torch.ones_like(miss_ids, dtype=torch.bool),
-                         self._colors(miss_np), self._prios(miss_np))
-        return blocks, feats, y
-
-    def train_step(self, resolved, generator: torch.Generator
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One update on resolved dense inputs -> (loss, accuracy)."""
-        blocks, feats, y = resolved
-        loss, logits = self._learn(blocks, feats, y, generator)
-        return loss, (logits.argmax(-1) == y).float().mean()
-
-    def eval_step(self, resolved) -> int:
-        """Correct predictions among the batch's seeds."""
-        blocks, feats, y = resolved
-        with torch.no_grad():
-            logits = self.model(blocks, feats,
-                                train=False)[:self.batch_size]
-        return int((logits.argmax(-1) == y).sum())
 
     # ---- probe / stage plumbing --------------------------------------
     def _probe_steps(self, seeds_grid: torch.Tensor, seed: int,
@@ -472,14 +359,19 @@ class ResidentTrainer:
     def _stage_from_mids(self, mids: np.ndarray, evicted=None):
         """Host gather + transport encode + upload for a known miss-id set.
         Returns (ids, rows, scale or None, colors, prios, offer) on the
-        device; stage pads carry id INT32_MAX.
+        device, then ``host``: (miss ids, their f32 rows, offer) on the
+        host where the trainer offers the stage from there
+        (``_offer_host_rows``), else None. Stage pads carry id INT32_MAX.
 
         ``evicted`` (overlapped schedule): the readback handle of the
         previous insert's evicted ids, patched in after the main gather.
         Without it and with a native store, the fused gather + encode
-        writes each row once, at transport width, into a pinned buffer."""
+        writes each row once, at transport width, into a pinned buffer
+        (and, for a host offer of a narrower transport, a second gather
+        reads the f32 rows)."""
         dim, tr = self.cache_cfg.dim, self.stage_transport
         tdt = _TRANSPORT_DTYPE[tr]
+        gathered = None
         if self._store is not None and evicted is None:
             n = mids.size
             u_cap = stage_cap(n)
@@ -490,6 +382,13 @@ class ResidentTrainer:
                      if tr == "int8" else None)
             with self.timers.time("host_gather"):
                 self._gather_encoded(gid, enc, scale)
+                if self._offer_host_rows:
+                    rows32 = enc
+                    if tr != "float32":
+                        rows32 = self._scratch.get("rows", (u_cap, dim),
+                                                   torch.float32)
+                        self._store.fetch(gid, out=rows32.numpy())
+                    gathered = rows32.numpy()[:n]
             offer = np.ones(n, bool)
         else:
             gathered = np.zeros((mids.size, dim), np.float32)
@@ -541,35 +440,11 @@ class ResidentTrainer:
             stage = (up(ids_p, self.device), rows,
                      None if scale is None else up(scale, self.device),
                      up(colors_p, self.device), up(prios_p, self.device),
-                     up(offer_p, self.device))
+                     up(offer_p, self.device),
+                     (mids, gathered, offer) if self._offer_host_rows
+                     else None)
         self.timers.tally("stage_rows", float(n))
         return stage
-
-    def _offer_stage(self, stage, return_evicted: bool = False):
-        """Offer a window's staged rows to the set-associative cache
-        (priority admission filters them; without priorities this is the
-        reference's mandatory miss insert). Evicted-patch rows are not
-        offered. With ``return_evicted``: the evicted ids, int32 [u_cap]."""
-        ids_p, rows, scale, colors_p, prios_p, offer = stage
-        rows = (fc.dequantize_rows(rows, scale) if scale is not None
-                else rows.float())
-        valid = (ids_p != INT32_MAX) & offer
-        out = fc.insert_with_colors(
-            self.cache_cfg, self.cache,
-            torch.where(valid, ids_p, torch.zeros_like(ids_p)), rows, valid,
-            colors_p, prios=prios_p if self._use_prio else None,
-            return_evicted=return_evicted)
-        return out[1] if return_evicted else None
-
-    def _repair_from_probe(self, probe: Probe) -> None:
-        """Flat prefill: read a probe's miss ids and insert their rows, so
-        the window that follows only hits."""
-        mids = self._probe_miss_ids(probe)
-        if mids.size == 0:
-            return
-        with self.timers.time("host_gather"):
-            rows = self.host_fetch(mids.astype(np.int64))
-        self._insert_host_rows(mids, rows)
 
     # ---- fused windows ---------------------------------------------------
     def _pos_map(self, stage_ids: torch.Tensor) -> torch.Tensor:
@@ -632,7 +507,7 @@ class ResidentTrainer:
             else:
                 feats, n_hit, n_unres = self._frontier(safe, valid, stage,
                                                        pos_map)
-                x = TableInput(feats, self._slots)
+                x = self._layer0(feats)
             loss, _ = self._learn(blocks, x, self.labels_dev[seeds], g_drop)
             for col, v in zip(cols, (loss, n_valid - n_hit, n_hit, n_unres,
                                      sum(b.mask.sum() for b in blocks))):
@@ -659,16 +534,20 @@ class ResidentTrainer:
             edges.append(sum(b.mask.sum() for b in resolved[0]))
         return torch.stack(losses), torch.stack(edges)
 
-    def train_window(self, seeds_grid: np.ndarray, seed: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """K fused steps, seeds_grid int [K, B]: window 0 of ``seed``."""
-        return self.train_windows(np.asarray(seeds_grid)[None], seed)
+    def train_window(self, seeds_grid: np.ndarray, seed: int,
+                     window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K fused steps, seeds_grid int [K, B]: window ``window`` of
+        ``seed``."""
+        return self.train_windows(np.asarray(seeds_grid)[None], seed,
+                                  first_window=window)
 
-    def train_windows(self, seeds_grids: np.ndarray, seed: int
+    def train_windows(self, seeds_grids: np.ndarray, seed: int,
+                      first_window: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """M windows of K steps, seeds_grids int [M, K, B]; window w draws
-        from the streams (seed, w, step) of ``utils/rng.py``. Returns
-        (losses [M*K], edges [M*K]) on the device.
+        from the streams (seed, first_window + w, step) of
+        ``utils/rng.py``. Returns (losses [M*K], edges [M*K]) on the
+        device.
 
         Full coverage: windows dispatch back to back with no host wait.
         Flat prefill: probe(w) -> repair insert -> probe(w+1) dispatched
@@ -690,10 +569,11 @@ class ResidentTrainer:
         stage = probe = None
         if staged:
             stage = self._build_stage(self._probe_window(seeds_dev[0], seed,
-                                                         0))
+                                                         first_window))
         elif prefill:
-            probe = self._probe_window(seeds_dev[0], seed, 0)
+            probe = self._probe_window(seeds_dev[0], seed, first_window)
         for w in range(M):
+            win = first_window + w
             if not self.direct:      # the flat window cannot go unresolved
                 with self.timers.time("snapshot"):
                     snaps[w] = self._snapshot()
@@ -703,9 +583,9 @@ class ResidentTrainer:
                     # probe(w+1) sees the pre-insert state window w reads;
                     # read it now, while the stream is short
                     mids_next = self._probe_miss_ids(self._probe_window(
-                        seeds_dev[w + 1], seed, w + 1))
+                        seeds_dev[w + 1], seed, win + 1))
                 with self.timers.time("window_dispatch"):
-                    out = self._window(seeds_dev[w], seed, w, stage)
+                    out = self._window(seeds_dev[w], seed, win, stage)
                 evicted = None
                 if self.stage_admit:
                     with self.timers.time("insert_dispatch"):
@@ -719,15 +599,15 @@ class ResidentTrainer:
                         stage = self._stage_from_mids(mids_next, evicted)
                     else:
                         stage = self._build_stage(self._probe_window(
-                            seeds_dev[w + 1], seed, w + 1))
+                            seeds_dev[w + 1], seed, win + 1))
             else:
                 if prefill:
                     self._repair_from_probe(probe)
                     if w + 1 < M:
                         probe = self._probe_window(seeds_dev[w + 1], seed,
-                                                   w + 1)
+                                                   win + 1)
                 with self.timers.time("window_dispatch"):
-                    out = self._window(seeds_dev[w], seed, w)
+                    out = self._window(seeds_dev[w], seed, win)
             losses, miss, hits, unres, edges = out
             losses_out[w], edges_out[w] = losses, edges
             counters[w] = torch.stack([miss.sum(), hits.sum(), unres.sum()])
@@ -748,8 +628,188 @@ class ResidentTrainer:
             with self.timers.time("replay"):
                 for w in range(w0, M):
                     losses_out[w], edges_out[w] = self._replay_window(
-                        seeds_grids[w], seed, w)
+                        seeds_grids[w], seed, first_window + w)
         return torch.cat(losses_out), torch.cat(edges_out)
+
+
+@dataclasses.dataclass
+class ResidentTrainer(ResidentBase):
+    graph: object                        # host CSCGraph
+    host_fetch: Callable                 # host tier fn(int64 ids) -> f32 rows
+    labels: np.ndarray                   # [num_nodes]
+    cache_cfg: fc.CacheConfig
+    model: nn.Module                     # on ``device``
+    optimizer: torch.optim.Optimizer     # over ``model``'s parameters
+    fanouts: Sequence[int]
+    batch_size: int
+    device: torch.device
+    colors: Optional[np.ndarray] = None  # int [num_nodes] for color counts
+    dedup: bool = False
+    direct: Optional[bool] = None        # None: flat tier iff the cache
+                                         # capacity covers every node
+    priorities: Union[None, str, np.ndarray] = None
+                                         # f32 [num_nodes] admission priority
+                                         # of the set-associative tier, or
+                                         # "degree" (in-degree of the graph)
+    stage_transport: str = "auto"        # miss-row encoding across the host
+                                         # link: float32 | bfloat16 | int8;
+                                         # auto = int8 for int8 lines, else
+                                         # float32
+    stage_admit: bool = True             # offer staged rows to the cache
+                                         # after each window
+    stage_overlap: bool = False          # overlapped staged schedule
+    nbr_cap: Optional[int] = None
+
+    def __post_init__(self):
+        if self.dedup:
+            raise NotImplementedError(
+                "dedup=True sampling is not ported yet: ROADMAP.md queue A, "
+                "\"dedup=True and nbr_cap sampling\"")
+        if self.nbr_cap is not None:
+            raise NotImplementedError(
+                "the nbr_cap padded neighbour table is not ported yet: "
+                "ROADMAP.md queue A, \"dedup=True and nbr_cap sampling\"")
+        if getattr(self.graph, "edge_types", None) is not None:
+            raise NotImplementedError(
+                "ResidentTrainer reads layer 0 off the table, which the "
+                "relational layers do not take: on a heterogeneous graph "
+                "train with parallel/sharded_resident.py's "
+                "ShardedResidentTrainer, as the JAX package does")
+        cfg = self.cache_cfg
+        if isinstance(self.priorities, str):
+            if self.priorities != "degree":
+                raise ValueError(f"unknown priorities {self.priorities!r}")
+            self.priorities = np.diff(
+                np.asarray(self.graph.indptr)).astype(np.float32)
+        self.device = torch.device(self.device)
+        n = self.graph.num_nodes
+        if self.direct is None:
+            self.direct = cfg.capacity >= n
+        self._use_prio = self.priorities is not None and not self.direct
+        if self.direct:
+            self.cache = fc.flat_init(cfg, n, self.device)
+        else:
+            self.cache = fc.init_colored_state(cfg, self.device,
+                                               track_prio=self._use_prio)
+        self._setup()
+
+    # ---- engine dispatch: flat table or set-associative cache ---------
+    def _eng_lookup(self, ids: torch.Tensor, valid: torch.Tensor,
+                    count_stats: bool = True):
+        """(feats [n, dim] in cfg.dtype, hit bool [n])."""
+        if self.direct:
+            _, feats, hit = fc.flat_lookup(self.cache, ids, valid,
+                                           dtype=self.cache_cfg.dtype)
+        else:
+            _, feats, hit = fc.lookup(self.cache_cfg, self.cache.base, ids,
+                                      valid, count_stats=count_stats)
+        return feats, hit
+
+    def _eng_probe(self, ids: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+        if self.direct:
+            return fc.flat_probe(self.cache, ids, valid)
+        return fc.probe(self.cache_cfg, self.cache.base, ids, valid)
+
+    def _eng_insert(self, ids, rows, valid, colors, prios=None) -> None:
+        """In place; ``prios`` is None unless priorities are in use."""
+        if self.direct:
+            fc.flat_insert(self.cache_cfg, self.cache, ids, rows, valid,
+                           colors)
+        else:
+            fc.insert_with_colors(self.cache_cfg, self.cache, ids, rows,
+                                  valid, colors, prios=prios)
+
+    # ------------------------------------------------------------------
+    def _colors(self, ids: np.ndarray) -> torch.Tensor:
+        c = (np.zeros(ids.shape[0], np.int32) if self.colors is None
+             else np.asarray(self.colors, np.int32)[ids])
+        return torch.as_tensor(c).to(self.device)
+
+    def _prios(self, ids: np.ndarray) -> Optional[torch.Tensor]:
+        if not self._use_prio:
+            return None
+        return torch.as_tensor(self.priorities[ids]).to(self.device)
+
+    def _insert_host_rows(self, ids: np.ndarray, rows: np.ndarray) -> None:
+        ids_dev = torch.as_tensor(ids).to(self.device)
+        self._eng_insert(ids_dev,
+                         torch.as_tensor(np.asarray(rows, np.float32)).to(
+                             self.device),
+                         torch.ones_like(ids_dev, dtype=torch.bool),
+                         self._colors(ids), self._prios(ids))
+
+    # ---- per-step path -------------------------------------------------
+    def begin(self, seeds, generator: torch.Generator) -> tuple:
+        """Sample and look up one step (counters on the device). ``seeds``
+        int [batch] on the host."""
+        seeds_dev = torch.as_tensor(np.asarray(seeds, np.int32)).to(
+            self.device)
+        blocks, ids, valid, safe = self._sample(seeds_dev, generator)
+        feats, hit = self._eng_lookup(safe, valid)
+        n_miss = (valid & ~hit).sum(dtype=torch.int32)
+        return blocks, ids, valid, feats, hit, n_miss, \
+            self.labels_dev[seeds_dev]
+
+    def resolve(self, handle) -> tuple:
+        """(blocks, feats, labels) with misses fetched from the host tier,
+        merged into feats and admitted to the cache."""
+        blocks, ids, valid, feats, hit, n_miss, y = handle
+        if int(n_miss) == 0:
+            return blocks, feats, y
+        pos = torch.nonzero(valid & ~hit).squeeze(1)
+        miss_ids = ids[pos]
+        miss_np = miss_ids.cpu().numpy()
+        with self.timers.time("host_gather"):
+            rows = self.host_fetch(miss_np.astype(np.int64))
+        rows = torch.as_tensor(np.asarray(rows, np.float32)).to(self.device)
+        feats = feats.clone()
+        feats[pos] = rows.to(feats.dtype)
+        self._eng_insert(miss_ids, rows,
+                         torch.ones_like(miss_ids, dtype=torch.bool),
+                         self._colors(miss_np), self._prios(miss_np))
+        return blocks, feats, y
+
+    def train_step(self, resolved, generator: torch.Generator
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One update on resolved dense inputs -> (loss, accuracy)."""
+        blocks, feats, y = resolved
+        loss, logits = self._learn(blocks, feats, y, generator)
+        return loss, (logits.argmax(-1) == y).float().mean()
+
+    def eval_step(self, resolved) -> int:
+        """Correct predictions among the batch's seeds."""
+        blocks, feats, y = resolved
+        with torch.no_grad():
+            logits = self.model(blocks, feats,
+                                train=False)[:self.batch_size]
+        return int((logits.argmax(-1) == y).sum())
+
+    def _offer_stage(self, stage, return_evicted: bool = False):
+        """Offer a window's staged rows to the set-associative cache
+        (priority admission filters them; without priorities this is the
+        reference's mandatory miss insert). Evicted-patch rows are not
+        offered. With ``return_evicted``: the evicted ids, int32 [u_cap]."""
+        ids_p, rows, scale, colors_p, prios_p, offer = stage[:6]
+        rows = (fc.dequantize_rows(rows, scale) if scale is not None
+                else rows.float())
+        valid = (ids_p != INT32_MAX) & offer
+        out = fc.insert_with_colors(
+            self.cache_cfg, self.cache,
+            torch.where(valid, ids_p, torch.zeros_like(ids_p)), rows, valid,
+            colors_p, prios=prios_p if self._use_prio else None,
+            return_evicted=return_evicted)
+        return out[1] if return_evicted else None
+
+    def _repair_from_probe(self, probe: Probe) -> None:
+        """Flat prefill: read a probe's miss ids and insert their rows, so
+        the window that follows only hits."""
+        mids = self._probe_miss_ids(probe)
+        if mids.size == 0:
+            return
+        with self.timers.time("host_gather"):
+            rows = self.host_fetch(mids.astype(np.int64))
+        self._insert_host_rows(mids, rows)
 
     # ------------------------------------------------------------------
     def prewarm(self, ids: np.ndarray, chunk: int = 65536) -> None:

@@ -15,16 +15,23 @@ The miss path is the JAX class's: a probe (``fetch_begin``, or
 ``fetch_begin_packed`` reading the ids out of the step's request buffer
 already on the device), then ``fetch_complete``, which gathers the misses
 from the host tier, merges them into the probe's features and inserts
-them, with the miss list padded to ``ceil_pow2`` of the miss count as JAX
-pads it, so the cache state stays bitwise JAX's. The miss count streams
-back without a sync: a pinned host scalar filled by a ``non_blocking``
-copy and fenced by a CUDA event (JAX's ``copy_to_host_async``); only the
-all-hit check reads it. The state is updated in place.
+them (``repair_misses``), with the miss list padded to ``ceil_pow2`` of
+the miss count as JAX pads it, so the cache state stays bitwise JAX's.
+The miss count streams back without a sync: a pinned host scalar filled
+by a ``non_blocking`` copy and fenced by a CUDA event (JAX's
+``copy_to_host_async``); only the all-hit check reads it. The state is
+updated in place.
+
+The module functions ``exchange_lookup`` and ``exchange_probe`` are the
+JAX functions at one device, where they are the local lookup and probe
+with no bucket overflow; ``parallel/sharded_resident.py`` calls them and
+``repair_misses``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+import contextlib
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +42,7 @@ from coala_gnn_tpu_torch.parallel.sizing import ceil_pow2
 MODES = ("sharded", "isolated", "node_local")
 
 
-def _readback(t: torch.Tensor):
+def start_readback(t: torch.Tensor):
     """Start a device -> host copy of ``t`` into pinned memory; returns
     (host tensor, CUDA event to wait on, or None on the CPU)."""
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
@@ -45,6 +52,73 @@ def _readback(t: torch.Tensor):
     ev = torch.cuda.Event()
     ev.record()
     return host, ev
+
+
+def exchange_lookup(cfg: fc.CacheConfig, local: fc.ColoredCacheState,
+                    ids: torch.Tensor, valid: torch.Tensor,
+                    count_stats: bool = True
+                    ) -> Tuple[fc.ColoredCacheState, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    """The JAX function at one device (its mesh arguments dropped): the
+    local lookup on ``local.base``. -> (local, feats [n, dim] in
+    cfg.dtype, hit bool [n], overflow bool [n], all false: a device's only
+    bucket holds its whole request). ``count_stats=False`` leaves the
+    counters alone, as JAX's windows do by dropping the state the lookup
+    returns."""
+    ids = torch.where(valid, ids, torch.zeros_like(ids))
+    _, feats, hit = fc.lookup(cfg, local.base, ids, valid,
+                              count_stats=count_stats)
+    return local, feats, hit, torch.zeros_like(valid)
+
+
+def exchange_probe(cfg: fc.CacheConfig, local: fc.ColoredCacheState,
+                   ids: torch.Tensor, valid: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Residency only, the JAX function at one device: (hit, overflow)
+    bool [n], overflow all false; no counters, no state change."""
+    ids = torch.where(valid, ids, torch.zeros_like(ids))
+    return fc.probe(cfg, local.base, ids, valid), torch.zeros_like(valid)
+
+
+def repair_misses(cfg: fc.CacheConfig, local: fc.ColoredCacheState,
+                  feats: torch.Tensor, dids: torch.Tensor, ids: np.ndarray,
+                  need: np.ndarray, host_fetch: Callable,
+                  colors: Optional[np.ndarray] = None, fill: bool = True,
+                  timers=None) -> torch.Tensor:
+    """One device's miss path (JAX's ``_miss_kernels`` merge and, at one
+    device, ``_fill_local``): gather the rows of the ``need``ed slots
+    (bool [n_req]) of request ``ids`` (int [n_req], host) from the host
+    tier, write them into a copy of ``feats`` [n_req, dim] at their
+    positions, and (``fill``) insert them with their colors into
+    ``local``, in place. ``dids`` int32 [n_req] are the request ids on the
+    device, invalid entries 0; the inserted ids are read from them. The
+    lists are padded to ``ceil_pow2`` of the miss count, as JAX pads
+    them. ``timers`` (a ``PhaseTimers``) times the host gather as
+    ``host_gather``. -> the repaired features."""
+    pos = np.flatnonzero(need)
+    m_cap = ceil_pow2(pos.size)
+    miss_ids = np.asarray(ids)[pos].astype(np.int64)
+    positions = np.full(m_cap, -1, dtype=np.int32)
+    positions[:pos.size] = pos
+    rows = np.zeros((m_cap, cfg.dim), dtype=np.float32)
+    miss_colors = np.zeros(m_cap, dtype=np.int32)
+    with (timers.time("host_gather") if timers is not None
+          else contextlib.nullcontext()):
+        rows[:pos.size] = host_fetch(miss_ids)
+    if colors is not None:
+        miss_colors[:pos.size] = colors[miss_ids]
+    device = feats.device
+    dpos = torch.from_numpy(positions).to(device)
+    drows = torch.from_numpy(rows).to(device).to(cfg.dtype)
+    feats = feats.clone()
+    feats[dpos[:pos.size].long()] = drows[:pos.size]
+    if fill:
+        pvalid = dpos >= 0
+        fill_ids = torch.where(pvalid, dids[dpos.clamp_min(0).long()],
+                               torch.zeros_like(dpos))
+        fc.insert_with_colors(cfg, local, fill_ids, drows, pvalid,
+                              torch.from_numpy(miss_colors).to(device))
+    return feats
 
 
 class FetchHandle(NamedTuple):
@@ -104,7 +178,7 @@ class ShardedFeatureCache:
         safe = torch.where(valid, dids, torch.zeros_like(dids))
         _, feats, hit = fc.lookup(self.cfg, self.state.base, safe, valid)
         n_miss = (valid & ~hit).sum(dtype=torch.int32)
-        host, ev = _readback(n_miss)
+        host, ev = start_readback(n_miss)
         return FetchHandle(ids, num_valid, safe, feats[None], hit[None],
                            n_miss, host, ev, sentinel)
 
@@ -165,30 +239,9 @@ class ShardedFeatureCache:
         else:
             valid = np.arange(n_req)[None, :] < handle.num_valid[:, None]
         need = valid & ~hit
-        m_cap = ceil_pow2(n_miss)
-        positions = np.full((self.n_local, m_cap), -1, dtype=np.int32)
-        rows = np.zeros((self.n_local, m_cap, self.cfg.dim), dtype=np.float32)
-        miss_colors = np.zeros((self.n_local, m_cap), dtype=np.int32)
-        for d in range(self.n_local):
-            pos = np.flatnonzero(need[d])
-            miss_ids = ids[d, pos].astype(np.int64)
-            positions[d, :pos.size] = pos
-            rows[d, :pos.size] = host_fetch(miss_ids)
-            if colors is not None:
-                miss_colors[d, :pos.size] = colors[miss_ids]
-        dpos = torch.from_numpy(positions[0]).to(self.device)
-        drows = torch.from_numpy(rows[0]).to(self.device).to(self.cfg.dtype)
-        feats = handle.feats.clone()
-        feats[0, dpos[:n_miss].long()] = drows[:n_miss]
-        if fill:
-            pvalid = dpos >= 0
-            miss_ids = torch.where(pvalid, handle.dids[dpos.clamp_min(0).long()],
-                                   torch.zeros_like(dpos))
-            fc.insert_with_colors(self.cfg, self.state, miss_ids, drows,
-                                  pvalid,
-                                  torch.from_numpy(miss_colors[0]).to(
-                                      self.device))
-        return feats
+        return repair_misses(self.cfg, self.state, handle.feats[0],
+                             handle.dids, ids[0], need[0], host_fetch,
+                             colors, fill)[None]
 
     def fetch(self, ids: np.ndarray, num_valid: np.ndarray, host_fetch,
               colors: Optional[np.ndarray] = None,

@@ -1,27 +1,44 @@
 """Mini-batch GNN training on one device: the port's counterpart of
-``examples/train.py``'s host pipeline (its default path).
+``examples/train.py``, its host pipeline (the default) and its
+``--pipeline resident``.
 
     python -m coala_gnn_tpu_torch.train --fan_out 10,5 --batch_size 1024 \\
         --hidden_channels 256 --feature_dim 256 --num_nodes 200000 \\
-        --cache_size 1024 --epochs 1 --max_steps 50 --eval
+        --cache_size 1024 --epochs 1 --max_steps 50 --eval \\
+        [--pipeline resident --window 8]
 
-Per step: seed distribution (``distribution/``), host sampling
-(``sampling/neighbor.py``), the blocks and labels uploaded, the features
-through the cache front (``parallel/sharded_cache.py``, a synchronous
-``fetch``) or, with ``--cache_size 0``, gathered on the host and uploaded,
-then the data-parallel step on one device (``parallel/train.py``). The
-hetero models (``--model_type rsage|rgcn|rgat``) train on the synthetic
-graph with random edge types (``--num_edge_types``, 3 when it is below 2),
-drawn as ``examples/train.py`` draws them. The flags are
-``examples/train.py``'s; each one not ported yet raises
+Host pipeline, per step: seed distribution (``distribution/``), host
+sampling (``sampling/neighbor.py``), the blocks and labels uploaded, the
+features through the cache front (``parallel/sharded_cache.py``, a
+synchronous ``fetch``) or, with ``--cache_size 0``, gathered on the host
+and uploaded, then the data-parallel step on one device
+(``parallel/train.py``). ``--profile_dir`` traces its epoch 0 with
+``torch.profiler``.
+
+Resident pipeline (``--pipeline resident``, which needs a cache): the host
+picks each step's seed grid and the rest runs on the device, through
+``parallel/sharded_resident.py``'s ``ShardedResidentTrainer``, as
+``examples/train.py``'s ``_run_resident`` runs it: the run's first step
+per step (JAX initialises its params there), then fused windows of
+``--window`` steps (clamped to ``--refresh_counter``) or, with ``--window
+1``, per-step steps with the next step's ``begin`` one ahead; with
+``--mask_tail`` the epoch's wrapped tail step takes the masked step, and
+windows stop before it. Every step draws from its own streams
+(``utils/rng.py``): a window from ``(seed, its first run step, k)``, a
+single step from ``(seed, its run step, 0)``.
+
+The hetero models (``--model_type rsage|rgcn|rgat``) train on the
+synthetic graph with random edge types (``--num_edge_types``, 3 when it is
+below 2), drawn as ``examples/train.py`` draws them, on either pipeline.
+The flags are ``examples/train.py``'s; each one not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item, and none is ignored.
 Runs on the card (``--device cuda``, the default, raises without one)
 unless ``--device cpu`` is asked for.
 
 ``main`` is ``build`` (the dataset, sampler, loader, cache front, model
-and optimizer), ``train`` (the epoch loop over the data-parallel step,
-which returns the step losses and the epochs' times) and ``evaluate``; a
-caller may drive the three itself.
+and optimizer, and the resident trainer), ``train`` (the epoch loop, which
+returns the step losses and the epochs' times) and ``evaluate``; a caller
+may drive the three itself.
 """
 
 from __future__ import annotations
@@ -42,8 +59,7 @@ _ROADMAP = {
     "nbr_cap": "ROADMAP.md queue A, \"dedup=True and nbr_cap sampling\"",
     "multi": "ROADMAP.md queue A, \"multi-GPU\"",
     "ckpt": "ROADMAP.md queue A, \"checkpoint and rng\"",
-    "cli": "ROADMAP.md queue A, \"CLI --pipeline resident on the port's "
-           "ResidentTrainer\"",
+    "data": "ROADMAP.md queue A, \"the real datasets\"",
     "jax_only": "ROADMAP.md queue A, \"Not ported: code the system does not "
                 "need on a GPU\"",
 }
@@ -123,13 +139,11 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     """NotImplementedError, naming its ROADMAP.md item, for the first flag
-    whose value is not ported; ValueError for ``--num_edge_types > 1``
-    with a homogeneous model (the JAX CLI ignores it there)."""
+    whose value is not ported; ValueError for a flag that the JAX CLI
+    ignores where it is given (ROADMAP.md section C): ``--num_edge_types >
+    1`` with a homogeneous model, ``--window > 1`` on the host pipeline,
+    ``--profile_dir`` with ``--pipeline resident``."""
     checks = [
-        (args.model_type in HETERO and args.pipeline == "resident",
-         f"--model_type {args.model_type} with --pipeline resident (the "
-         "JAX package trains hetero models resident only in "
-         "ShardedResidentTrainer)", "multi"),
         (args.nbr_cap > 0, "--nbr_cap", "nbr_cap"),
         (args.devices > 1, f"--devices {args.devices}", "multi"),
         (args.distribution == "node_color", "--distribution node_color",
@@ -138,12 +152,9 @@ def refuse_unported(args) -> None:
         (args.shard_topology, "--shard_topology", "multi"),
         (bool(args.save_dir) or args.resume, "--save_dir / --resume",
          "ckpt"),
-        (args.pipeline == "resident", "--pipeline resident", "cli"),
-        (args.window > 1, "--window (a resident-pipeline knob)", "cli"),
-        (bool(args.profile_dir), "--profile_dir", "cli"),
         (args.data != "synthetic" or bool(args.path) or
          args.dataset_size != "tiny",
-         "real datasets (--data, --path, --dataset_size)", "cli"),
+         "real datasets (--data, --path, --dataset_size)", "data"),
         (bool(args.rng_impl), "--rng_impl (a JAX PRNG family)", "jax_only"),
     ]
     for bad, what, item in checks:
@@ -154,13 +165,22 @@ def refuse_unported(args) -> None:
         raise ValueError(f"--num_edge_types {args.num_edge_types} needs a "
                          f"hetero model ({', '.join(HETERO)}); "
                          f"--model_type {args.model_type} has no relations")
+    if args.window > 1 and args.pipeline != "resident":
+        raise ValueError(f"--window {args.window} fuses the steps of "
+                         "--pipeline resident; the host pipeline runs one "
+                         "step at a time")
+    if args.profile_dir and args.pipeline == "resident":
+        raise ValueError("--profile_dir traces the host pipeline's epoch 0; "
+                         "the JAX CLI ignores it with --pipeline resident")
 
 
 @dataclasses.dataclass
 class Run:
     """What ``build`` sets up; ``train`` and ``evaluate`` drive it. A
     caller may swap ``optimizer`` (over ``model``'s parameters) or set
-    ``model.dropout`` between ``build`` and ``train``."""
+    ``model.dropout`` between ``build`` and ``train``. ``trainer`` is the
+    resident pipeline's ``ShardedResidentTrainer`` (None on the host
+    pipeline), ``window`` its clamped ``--window``."""
 
     args: argparse.Namespace
     device: torch.device
@@ -174,6 +194,12 @@ class Run:
     epoch: int = 0               # epochs trained (the loader's reshuffles)
     step: int = 0                # steps trained (the dropout streams)
     sampled: int = 0             # sampled nodes trained
+    trainer: Optional[Any] = None
+    window: int = 1
+
+    @property
+    def scheduler(self):
+        return self.loader.scheduler
 
     @property
     def hetero(self) -> bool:
@@ -223,6 +249,8 @@ def build(args, ds=None) -> Run:
     prints: the model with the JAX CLI's dropout 0.5, Adam (AdamW with
     ``--decay``). ``ds``: the dataset to train on (default: the synthetic
     graph of the flags)."""
+    if args.pipeline == "resident" and args.cache_size <= 0:
+        raise SystemExit("--pipeline resident requires --cache_size > 0")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA card here; pass "
@@ -303,8 +331,23 @@ def build(args, ds=None) -> Run:
 
     loader = CoalaDataLoader(scheduler=scheduler, sampler=sampler,
                              labels=ds.labels, local_size=1, prefetch=2)
-    return Run(args=args, device=device, ds=ds, model=model, optimizer=opt,
-               sampler=sampler, loader=loader, store=store, cache=cache)
+    run = Run(args=args, device=device, ds=ds, model=model, optimizer=opt,
+              sampler=sampler, loader=loader, store=store, cache=cache)
+    if args.pipeline == "resident":
+        from coala_gnn_tpu_torch.parallel.sharded_resident import \
+            ShardedResidentTrainer
+
+        run.trainer = ShardedResidentTrainer(
+            graph=ds.graph, host_fetch=store.fetch, labels=ds.labels,
+            cache=cache, model=model, optimizer=opt, fanouts=fanouts,
+            batch_size=B)
+        print("pipeline: device-resident (seeds-only upload)")
+        run.window = max(args.window, 1)
+        if run.window > 1 and args.refresh_counter < run.window:
+            print(f"note: clamping window {run.window} to refresh_counter "
+                  f"{args.refresh_counter} to keep the cache-meta cadence")
+            run.window = args.refresh_counter
+    return run
 
 
 def train(run: Run, epochs: Optional[int] = None,
@@ -314,7 +357,10 @@ def train(run: Run, epochs: Optional[int] = None,
     epoch), each printing the JAX CLI's epoch line (and the cache's hit
     ratio). Returns the step losses (numpy f32), the epochs' wall seconds
     (each ending in a device sync), their feature-fetch seconds, the
-    sampled edges (the sum of the block masks) and nodes."""
+    sampled edges (the sum of the block masks) and nodes. The resident
+    pipeline runs ``train_resident``."""
+    if run.trainer is not None:
+        return train_resident(run, epochs, max_steps)
     from coala_gnn_tpu_torch.parallel.train import make_sharded_train_step
     from coala_gnn_tpu_torch.utils.rng import DROPOUT, step_generators
 
@@ -330,6 +376,7 @@ def train(run: Run, epochs: Optional[int] = None,
     losses, epoch_s, agg_s = [], [], []
     edges = sampled = 0
     for _ in range(epochs):
+        prof = _start_profile(args.profile_dir, run)
         t0 = time.perf_counter()
         agg_time = 0.0
         loss = acc = None
@@ -357,6 +404,9 @@ def train(run: Run, epochs: Optional[int] = None,
             batches.close()
         if run.device.type == "cuda":
             torch.cuda.synchronize(run.device)
+        if prof is not None:
+            prof.stop()
+            print(f"profiler trace written to {args.profile_dir}")
         dt = time.perf_counter() - t0
         epoch_s.append(dt)
         agg_s.append(agg_time)
@@ -375,10 +425,147 @@ def train(run: Run, epochs: Optional[int] = None,
             "sampled": sampled}
 
 
+def _start_profile(profile_dir: str, run: Run):
+    """A started ``torch.profiler`` session for epoch 0 of the host
+    pipeline, writing its trace into ``profile_dir`` when it stops
+    (``examples/train.py``'s ``jax.profiler`` trace); None otherwise."""
+    if not profile_dir or run.epoch != 0:
+        return None
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if run.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir))
+    prof.start()
+    return prof
+
+
+#: the trainer's phases that the resident epoch line reports as its
+#: "feature agg time": the host side of the miss path
+AGG_PHASES = ("probe_wait", "host_gather", "stage_encode", "stage_upload",
+              "insert_dispatch")
+
+
+def train_resident(run: Run, epochs: Optional[int] = None,
+                   max_steps: Optional[int] = None) -> dict:
+    """``train`` on the resident pipeline: ``examples/train.py``'s
+    ``_run_resident`` epoch loop over ``run.trainer`` (module docstring),
+    printing its epoch line, whose "feature agg time" is the epoch's sum
+    of the ``AGG_PHASES`` timers and whose "sampled nodes" is the epoch's
+    sampled edges as JAX counts them (the run's first step left out), and
+    the trainer's hit ratio. Returns what ``train`` returns (``edges`` and
+    ``sampled``: the edges of every step trained) and ``stats``, each
+    epoch's hits, misses and hit ratio."""
+    from coala_gnn_tpu_torch.utils.rng import DROPOUT, SAMPLE, \
+        step_generators
+
+    args, B, rt, sched = run.args, run.args.batch_size, run.trainer, \
+        run.scheduler
+    rt.model, rt.optimizer = run.model, run.optimizer
+    K = run.window
+    epochs = args.epochs if epochs is None else epochs
+    max_steps = args.max_steps if max_steps is None else max_steps
+    steps_per_epoch = sched.d.num_iters
+    if max_steps:
+        steps_per_epoch = min(steps_per_epoch, max_steps)
+    # the one iteration with wrapped duplicates is the epoch's last
+    tail_it = -1
+    if args.mask_tail and sched.d.num_iters and \
+            len(sched.d.items) % sched.d.global_batch:
+        tail_it = sched.d.num_iters - 1
+
+    def gens(step: int) -> list:
+        """A single step's (sampling, dropout) generators."""
+        return [step_generators(args.seed, step, 1, stream, run.device)[0]
+                for stream in (SAMPLE, DROPOUT)]
+
+    def grid() -> np.ndarray:
+        return sched.run_domain().reshape(1, B).astype(np.int32)
+
+    def edges_of(blocks) -> torch.Tensor:
+        return sum(b.mask.sum() for b in blocks)
+
+    def agg_total() -> float:
+        return sum(rt.timers.totals.get(p, 0.0) for p in AGG_PHASES)
+
+    losses, epoch_s, agg_s, all_edges, stats = [], [], [], [], []
+    for _ in range(epochs):
+        t0 = time.perf_counter()
+        agg0 = agg_total()
+        loss = acc = pending = None
+        edge_counts = []
+        it = 0
+        while it < steps_per_epoch:
+            if run.step == 0 or it == tail_it:
+                # the run's first step (where JAX initialises its params)
+                # and the masked tail step: one step, no begin ahead
+                g = grid()
+                v = sched.domain_valid.reshape(1, B) if it == tail_it \
+                    else None
+                g_sample, g_drop = gens(run.step)
+                h = rt.begin(g, g_sample)
+                loss, acc = rt.train_step(rt.resolve(h), g_drop, valid=v)
+                losses.append(loss.reshape(1))
+                all_edges.append(edges_of(h.blocks))
+                if run.step > 0:
+                    edge_counts.append(all_edges[-1])
+                run.step += 1
+                it += 1
+            elif K > 1:
+                k_here = min(K, steps_per_epoch - it)
+                if tail_it >= 0 and it < tail_it < it + k_here:
+                    k_here = tail_it - it   # stop the window before the tail
+                g = np.stack([grid() for _ in range(k_here)], axis=1)
+                wl, we = rt.train_window(g, args.seed, window=run.step)
+                loss = wl[-1]
+                losses.append(wl)
+                edge_counts.append(we.sum())
+                all_edges.append(edge_counts[-1])
+                run.step += k_here
+                it += k_here
+            else:
+                nxt = pending if pending is not None else rt.begin(
+                    grid(), gens(run.step)[0])
+                pending = None
+                if it + 1 < steps_per_epoch and it + 1 != tail_it:
+                    pending = rt.begin(grid(), gens(run.step + 1)[0])
+                loss, acc = rt.train_step(rt.resolve(nxt),
+                                          gens(run.step)[1])
+                losses.append(loss.reshape(1))
+                edge_counts.append(edges_of(nxt.blocks))
+                all_edges.append(edge_counts[-1])
+                run.step += 1
+                it += 1
+        if run.device.type == "cuda":
+            torch.cuda.synchronize(run.device)
+        dt = time.perf_counter() - t0
+        epoch_s.append(dt)
+        agg_s.append(agg_total() - agg0)
+        sampled = int(torch.stack(edge_counts).sum()) if edge_counts else 0
+        acc_s = f"{float(acc):.4f}" if acc is not None else "n/a"
+        print(f"Epoch {run.epoch} | loss {float(loss):.4f} | batch acc "
+              f"{acc_s} | Epoch Time: {dt:.3f}s | feature agg time "
+              f"{agg_s[-1]:.3f}s | sampled nodes {sampled}")
+        stats.append(rt.stats())
+        s = stats[-1]
+        print(f"Cache hit ratio: {s['hit_ratio']:.3f} "
+              f"({s['hits']} hits / {s['misses']} misses)")
+        run.epoch += 1
+        sched.reset(args.seed + run.epoch)
+    edges = int(torch.stack(all_edges).sum()) if all_edges else 0
+    return {"losses": (torch.cat(losses).float().cpu().numpy() if losses
+                       else np.zeros(0, np.float32)),
+            "epoch_s": epoch_s, "agg_s": agg_s, "edges": edges,
+            "sampled": edges, "stats": stats}
+
+
 def evaluate(run: Run) -> tuple:
     """Test accuracy over every test node once: the last batch wraps
     (static shapes) and its wrapped slots are left out. Prints the JAX
-    CLI's line; returns (correct, total)."""
+    CLI's line; returns (correct, total). On the resident pipeline each
+    batch goes through the trainer's ``begin`` / ``resolve`` /
+    ``eval_step``, its sampling stream ``(seed, batch, 0, EVAL)``."""
     from coala_gnn_tpu_torch.data.loader import CoalaDataLoader
     from coala_gnn_tpu_torch.distribution import (DistributionScheduler,
                                                   SeedDistributor)
@@ -388,6 +575,22 @@ def evaluate(run: Run) -> tuple:
     eval_distributor = SeedDistributor(
         ds.test_idx, batch_size=B, local_size=1, num_parts=1,
         mode="baseline", shuffle_seed=run.args.seed, drop_tail=False)
+    n_test, gb = len(ds.test_idx), eval_distributor.global_batch
+    if run.trainer is not None:
+        from coala_gnn_tpu_torch.utils.rng import EVAL, step_generators
+
+        rt, sched = run.trainer, DistributionScheduler(
+            eval_distributor, part_id=0, local_rank=0)
+        correct = total = 0
+        for it in range(eval_distributor.num_iters):
+            grid = sched.run_domain().reshape(1, B).astype(np.int32)
+            valid = sched.domain_valid.reshape(1, B)
+            gen = step_generators(run.args.seed, it, 1, EVAL, run.device)[0]
+            correct += rt.eval_step(rt.resolve(rt.begin(grid, gen)), valid)
+            total += min(gb, n_test - it * gb)
+        print(f"Test accuracy: {correct / max(total, 1):.4f} ({total} "
+              "nodes)")
+        return correct, total
     eval_loader = CoalaDataLoader(
         scheduler=DistributionScheduler(eval_distributor, part_id=0,
                                         local_rank=0),
@@ -395,7 +598,6 @@ def evaluate(run: Run) -> tuple:
     eval_slot = make_sharded_eval_step(run.model, [run.device], B,
                                        per_slot=True)
     correct = total = 0
-    n_test, gb = len(ds.test_idx), eval_distributor.global_batch
     for it, hb in enumerate(eval_loader):
         ok = eval_slot(run.blocks(hb), run.features(hb), run.put(hb.labels))
         correct += int((ok.cpu().numpy() & hb.valid).sum())

@@ -12,7 +12,10 @@ without its spawn counter. A window of the trainer draws step k's sampler
 uniforms from ``(w, k, SAMPLE)`` and its dropout masks from ``(w, k,
 DROPOUT)``, so the probe can rebuild the sampling stream of any step
 without touching the dropout stream, and a replayed step draws what the
-window drew. On CUDA the generator is Philox; its draws differ from JAX's
+window drew. The CLI's resident loop keys a window by the run step it
+starts at and a single step by its run step (``(step, 0, stream)``), so no
+two steps of a run share a stream; its eval batches sample from ``(batch,
+0, EVAL)``. On CUDA the generator is Philox; its draws differ from JAX's
 threefry, which is why the tests feed both samplers the same uniforms or
 use fanout >= max in-degree (ROADMAP.md section C).
 """
@@ -24,7 +27,7 @@ from typing import List
 import numpy as np
 import torch
 
-SAMPLE, DROPOUT = 0, 1
+SAMPLE, DROPOUT, EVAL = 0, 1, 2
 
 
 def stream_seed(seed: int, window: int, step: int, stream: int) -> int:
@@ -35,9 +38,9 @@ def stream_seed(seed: int, window: int, step: int, stream: int) -> int:
 
 def step_generators(seed: int, window: int, num_steps: int, stream: int,
                     device) -> List[torch.Generator]:
-    """One generator per step of ``window`` for ``stream`` (SAMPLE or
-    DROPOUT), on ``device``. Calling it twice gives two independent copies
-    of the same streams."""
+    """One generator per step of ``window`` for ``stream`` (SAMPLE,
+    DROPOUT or EVAL), on ``device``. Calling it twice gives two
+    independent copies of the same streams."""
     gens = []
     for step in range(num_steps):
         gen = torch.Generator(device=device)

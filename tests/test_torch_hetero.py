@@ -582,18 +582,19 @@ def test_cli_trains_and_evaluates_a_hetero_model_on_cpu(capsys):
     (["--model_type", "sage", "--num_edge_types", "3"], ValueError,
      "needs a hetero model"),
     (["--model_type", "rgat", "--pipeline", "resident"],
-     NotImplementedError, "multi-GPU"),
+     SystemExit, "--cache_size"),
 ])
 def test_cli_refuses_what_hetero_does_not_run(flags, error, match):
     """``--num_edge_types > 1`` with a homogeneous model raises (the JAX
-    CLI ignores it: ROADMAP.md section C); hetero resident training is the
-    JAX package's ShardedResidentTrainer, queued with multi-GPU."""
+    CLI ignores it: ROADMAP.md section C); hetero resident training runs
+    (tests/test_torch_cli_resident.py) but, as in JAX, not without a
+    cache."""
     with pytest.raises(error, match=match):
         cli.main(["--device", "cpu"] + flags)
 
 
 def test_resident_trainer_refuses_a_typed_graph(dss):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="ShardedResidentTrainer"):
         ResidentTrainer(graph=dss[0].graph, host_fetch=None, labels=None,
                         cache_cfg=None, model=None, optimizer=None,
                         fanouts=[2], batch_size=4, device="cpu")

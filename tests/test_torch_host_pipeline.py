@@ -480,7 +480,8 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model_type", "rgcn", "--pipeline", "resident"], "multi-GPU"),
+    (["--model_type", "rgcn", "--pipeline", "resident", "--cache_size", "1",
+      "--devices", "2"], "multi-GPU"),
     (["--model_type", "rsage", "--devices", "2"], "multi-GPU"),
     (["--model_type", "rgat", "--nbr_cap", "8"], "nbr_cap"),
     (["--nbr_cap", "8"], "nbr_cap"),
@@ -490,10 +491,13 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu():
     (["--shard_topology"], "multi-GPU"),
     (["--save_dir", "ckpt"], "checkpoint"),
     (["--resume"], "checkpoint"),
-    (["--pipeline", "resident"], "--pipeline resident"),
-    (["--window", "4"], "--pipeline resident"),
-    (["--profile_dir", "trace"], "--pipeline resident"),
-    (["--data", "ogbn-arxiv"], "--pipeline resident"),
+    (["--pipeline", "resident", "--cache_size", "1", "--shard_topology"],
+     "multi-GPU"),
+    (["--pipeline", "resident", "--cache_size", "1", "--nbr_cap", "8"],
+     "nbr_cap"),
+    (["--pipeline", "resident", "--cache_size", "1", "--resume"],
+     "checkpoint"),
+    (["--data", "ogbn-arxiv"], "the real datasets"),
     (["--rng_impl", "rbg"], "Not ported"),
 ])
 def test_cli_refuses_every_unported_flag(flags, item):

@@ -6,7 +6,8 @@ tiny ResidentTrainer (on the port's own synthetic graph and host store)
 trains one window at full coverage and staged windows under pressure with
 bf16 and int8 transport (fused native and gather + encode stores), and
 the host pipeline runs (``run_host`` under pressure, the CLI with a cache
-and eval)."""
+and eval), and so does the CLI's resident pipeline
+(``parallel/sharded_resident.py``) for SAGE and RGCN."""
 
 import os
 import subprocess
@@ -60,6 +61,12 @@ assert np.isfinite(r["losses"]).all() and len(r["losses"]) == 3
 cli.main(["--device", "cpu", "--num_nodes", "300", "--feature_dim", "8",
           "--batch_size", "8", "--fan_out", "3,2", "--hidden_channels", "8",
           "--max_steps", "2", "--cache_size", "1", "--eval"])
+for kind in ("sage", "rgcn"):
+    cli.main(["--device", "cpu", "--num_nodes", "300", "--feature_dim", "8",
+              "--batch_size", "8", "--fan_out", "3,2", "--hidden_channels",
+              "8", "--max_steps", "3", "--cache_size", "1", "--eval",
+              "--pipeline", "resident", "--window", "2", "--model_type",
+              kind])
 jaxish = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("coala_gnn_tpu", "jax", "jaxlib",
                                        "flax", "optax", "ml_dtypes")

@@ -60,14 +60,13 @@ def test_the_scan_finds_the_citations():
     train = {title for path, title in cited
              if path == os.path.join("coala_gnn_tpu_torch", "train.py")}
     assert train == {"dedup=True and nbr_cap sampling", "multi-GPU",
-                     "checkpoint and rng",
-                     "CLI --pipeline resident on the port's ResidentTrainer",
+                     "checkpoint and rng", "the real datasets",
                      "Not ported: code the system does not need on a GPU"}
     # the hetero models are ported: nothing quotes their item any more
     assert not any(title == "hetero models and typed sampling"
                    for _, title in cited)
-    assert (os.path.join("coala_gnn_tpu_torch", "parallel", "resident.py"),
-            "multi-GPU") in cited
+    assert (os.path.join("coala_gnn_tpu_torch", "parallel",
+                         "sharded_resident.py"), "multi-GPU") in cited
     assert (os.path.join("coala_gnn_tpu_torch", "sampling",
                          "device_sampler.py"),
             "dedup=True and nbr_cap sampling") in cited
