@@ -1,6 +1,7 @@
 """Device profile of one training window of the port on one CUDA card.
 
-    python3 chip_profile.py [sage|gcn|gat|sage-bf16|gat-bf16|
+    python3 chip_profile.py [sage|gcn|gat|sage-bf16|gat-bf16|sage-nbr32|
+                             step|step-dedup|
                              rsage|rgcn|rgat|cli-sage|cli-gat|
                              cli-resident-sage|cli-resident-rgat ...]
                                                     (default: gat)
@@ -29,7 +30,12 @@ window and their median: the way to compare rows whose ms/step spreads
 
 The rows: sage, gcn and gat on the f32 table with an f32 model;
 sage-bf16 is ``chip_smoke.py``'s resident-bf16 (bf16 table, bf16 model)
-and gat-bf16 its phase 12 (f32 table, bf16 model). rsage, rgcn and rgat
+and gat-bf16 its phase 12 (f32 table, bf16 model); sage-nbr32 samples
+from the padded neighbour table (``nbr_cap=32``, phase 17). step and
+step-dedup are ``ResidentTrainer``'s per-step path (``begin`` /
+``resolve`` / ``train_step``, SAGE at full coverage) with ``dedup=False``
+and ``dedup=True`` (phase 17): one warm-up round of 8 steps, then 8
+traced steps. rsage, rgcn and rgat
 are the trainer CLI's hetero models as ``chip_smoke.py``'s phase 15 runs
 them (``train.build`` on the 200k-node graph with 3 edge types, the 1024
 MB cache front): one warm-up epoch of 8 steps, then one traced epoch of 8
@@ -59,6 +65,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,10 +78,17 @@ ROWS = {"sage": ("sage", "float32", "float32"),
         "gcn": ("gcn", "float32", "float32"),
         "gat": ("gat", "float32", "float32"),
         "sage-bf16": ("sage", "bfloat16", "bfloat16"),
-        "gat-bf16": ("gat", "float32", "bfloat16")}
-OURS = ("gather_spmm_kernel", "grad_w_kernel", "grad_x_kernel",
-        "count_rows_kernel", "scan_rows_kernel", "place_slots_kernel",
-        "order_slots_kernel")
+        "gat-bf16": ("gat", "float32", "bfloat16"),
+        "sage-nbr32": ("sage", "float32", "float32", {"nbr_cap": 32})}
+#: rows of ResidentTrainer's per-step path (begin / resolve / train_step
+#: per step, SAGE, flat f32 table at full coverage) -> its ``dedup``
+STEP_ROWS = {"step": False, "step-dedup": True}
+#: the ``__global__`` functions of the gather-SpMM source, which a trace
+#: names by substring
+OURS = tuple(re.findall(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+    open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "coala_gnn_tpu_torch", "csrc", "gather_spmm.cu")).read()))
 
 
 def busy_us(intervals) -> float:
@@ -110,9 +124,22 @@ def profile_window(torch, run_steps) -> tuple:
 
 
 def make_row(torch, cs, ds, store, row):
-    kind, table, model = ROWS[row]
+    kind, table, model, *kw = ROWS[row]
     return cs.make_trainer(torch, ds, store, getattr(torch, table), "cuda",
-                           model_type=kind, model_dtype=getattr(torch, model))
+                           model_type=kind, model_dtype=getattr(torch, model),
+                           **(kw[0] if kw else {}))
+
+
+def per_step(rt, grid, seed: int) -> None:
+    """The steps of ``grid`` [K, B] through ``rt``'s per-step path, each
+    on its own (seed, step) streams."""
+    from coala_gnn_tpu_torch.utils.rng import DROPOUT, SAMPLE, \
+        step_generators
+
+    for i, seeds in enumerate(grid):
+        g_s = step_generators(seed, i, 1, SAMPLE, "cuda")[0]
+        g_d = step_generators(seed, i, 1, DROPOUT, "cuda")[0]
+        rt.train_step(rt.resolve(rt.begin(seeds, g_s)), g_d)
 
 
 def time_turns(torch, cs, ds, store, rows, rng, rounds: int = 3) -> None:
@@ -157,7 +184,7 @@ def child_times(torch, cs, ds, store, rows, rng, rounds: int = 3) -> dict:
                        f"{row}: non-finite loss")
             out[row] = [r["ms_per_step"]]
             continue
-        kind, table, model = ROWS[row]
+        kind, table, model, *_ = ROWS[row]
         cs.require(table == model == "float32", f"{row}: --against times "
                    "the f32 rows, which both checkouts run")
         rt = cs.make_trainer(torch, ds, store, torch.float32, "cuda",
@@ -246,6 +273,12 @@ def main() -> int:
                            ds=ds)
             cli.train(rt, epochs=1, max_steps=STEPS)
             run_steps = lambda: cli.train(rt, epochs=1, max_steps=STEPS)
+        elif model_type in STEP_ROWS:
+            rt = cs.make_trainer(torch, ds, store, torch.float32, "cuda",
+                                 dedup=STEP_ROWS[model_type])
+            per_step(rt, cs.make_grids(ds, 1, STEPS, cs.BATCH, rng)[0], 0)
+            grid = cs.make_grids(ds, 1, STEPS, cs.BATCH, rng)[0]
+            run_steps = lambda: per_step(rt, grid, 1)
         else:
             rt = make_row(torch, cs, ds, store, model_type)
             rt.train_windows(cs.make_grids(ds, 1, STEPS, cs.BATCH, rng),

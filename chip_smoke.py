@@ -138,15 +138,39 @@ trainer CLI's hetero models, and the CLI's ``--pipeline resident``
      call of one real step of each row against its plain version and
      times it; a host-CLI SAGE row in the same call, beside the resident
      rows; then small resident CLI runs card vs CPU (SAGE under
-     pressure, GAT and RGAT in f32 at 2e-3 / 2e-4, RGAT bf16 at 2e-2).
+     pressure, GAT and RGAT in f32 at 2e-3 / 2e-4, RGAT bf16 at 2e-2);
+ 17. the last one-card flags, at the flagship widths: (1)
+     ``ResidentTrainer(nbr_cap=32)``, the padded neighbour table, 1
+     warm-up + 2 measured K = 8 windows in turns with phase 3's CSR
+     trainer: the table sampler on the card equals the CSR one given its
+     uniforms for every dst of degree <= 32 and stays in the stored subset
+     above; finite, falling losses, one f32 launch per step; the table's
+     MB and both ms/step; (2) ``ResidentTrainer(dedup=True)``, 2 warm-up +
+     8 measured ``begin`` / ``resolve`` / ``train_step`` steps: the card's
+     dedup of one real layer-0 ``cat`` bitwise equal to the CPU's, finite,
+     falling losses, per step 2 forwards, 1 transpose and 1 grad_x (the
+     blocks' adj), every kernel call of one real step against its plain
+     version, timed; (3) the resident CLI with ``--nbr_cap 32 --window 8``
+     for SAGE and RGAT (4 heads, 3 edge types: the relation table),
+     phase 16's checks and prints; (4) the color metadata of the 200k
+     graph through the port's native library, then the CLI with
+     ``--distribution node_color --color_dir`` on the host path and on
+     ``--pipeline resident --window 8``: seed slices equal to a baseline
+     distributor's (one part), the cache's color counters equal to its
+     colored lines, SAGE's launches; (5) ``--save_dir`` / ``--resume``:
+     the resident CLI's SAGE restored bitwise and its resumed epoch's
+     losses equal to the uninterrupted run's (1e-5), the host CLI's
+     restore bitwise.
 
 Every failure ends the script with a non-zero code. The line before the
 last two is a JSON object with the kernels' launches, errors, times,
-bounds and library times (phase 15's stacked shapes and phase 16's bf16
-RGAT calls as entries of their own, named by kernel, model and layer);
-the last line is ``{"ok": true, "device": {...}}``. Writes nothing but
-coala_gnn_tpu_torch/_build/ (the kernels and the native host library,
-built there at first use). Imports nothing of JAX or of coala_gnn_tpu.
+bounds and library times (phase 15's stacked shapes, phase 16's bf16
+RGAT calls and phase 17's dedup step as entries of their own, named by
+kernel, model and layer); the last line is ``{"ok": true, "device":
+{...}}``. Writes coala_gnn_tpu_torch/_build/ (the kernels and the native
+host library, built there at first use) and, in phase 17, a color
+directory and checkpoints under a ``tempfile`` directory that it removes.
+Imports nothing of JAX or of coala_gnn_tpu.
 """
 
 from __future__ import annotations
@@ -1566,7 +1590,8 @@ def cli_args(kind: str, device: str = "cuda", **flags) -> list:
     if kind in HETERO_KINDS:
         base["num_edge_types"] = NUM_EDGE_TYPES
     base.update(flags)
-    return [a for k, v in base.items() for a in (f"--{k}", str(v))]
+    return [a for k, v in base.items() if v is not False
+            for a in ((f"--{k}",) if v is True else (f"--{k}", str(v)))]
 
 
 def record_calls(torch, run_step) -> list:
@@ -1839,6 +1864,15 @@ RESIDENT_PER_STEP = {
                   "gather_spmm_grad_w[bfloat16]": 2,
                   "gather_spmm_grad_x": 2}}
 
+#: kernel launches per step where the blocks carry a local adj (the
+#: ``dedup=True`` per-step path and the host CLI's dedup layout), read off
+#: the code before the first card run: both layers' neighbour sums through
+#: the kernel on the block's adj, and layer 1's backward, its adj's
+#: transpose and grad_x into layer 0's output (layer 0's input, the
+#: features, takes no gradient, and the mask none either)
+ADJ_SAGE_PER_STEP = {"gather_spmm[float32]": 2, "adj_transpose": 1,
+                     "gather_spmm_grad_x": 1}
+
 
 def resident_step_calls(torch, run) -> list:
     """One real step of the resident CLI (the scheduler's next seed grid
@@ -1908,90 +1942,110 @@ def resident_small(torch, smi) -> None:
               f"{card[1][0]} CPU {host[1][0]} of {host[1][1]} ({smi})")
 
 
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def cli_row(torch, ds, smi, label, tag, kind, per_step, on_build=None,
+            **flags) -> tuple:
+    """One row of the trainer CLI (``train.build`` / ``train.train``) for
+    ``kind`` at the flagship widths: the cache cold at the start, 4
+    warm-up + 16 measured steps. Checks finite, falling losses, the
+    launches of every measured step (``per_step``, nothing else), state on
+    the card, and on the resident pipeline no replay; prints ms/step,
+    edges/s, feature agg ms/step and, on the resident pipeline, hit
+    ratio, stage rows, peak memory and the trainer's timers, under
+    ``label``. ``flags`` are more CLI flags; ``on_build(run)`` runs after
+    ``build``. Returns (launches by kernel of the row, the run, its
+    ms/step)."""
+    from coala_gnn_tpu_torch import train as cli
+
+    args = cli.parse_args(cli_args(kind, **flags))
+    cli.refuse_unported(args)
+    t0 = time.perf_counter()
+    run = cli.build(args, ds=ds)
+    if on_build is not None:
+        on_build(run)
+    rt = run.trainer
+    torch.cuda.synchronize()
+    reset_launches()
+    warm = cli.train(run, epochs=1, max_steps=RESIDENT_WARM)
+    torch.cuda.synchronize()
+    row_counts = launches()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    if rt is not None:
+        rt.timers.reset()
+    meas = cli.train(run, epochs=1, max_steps=RESIDENT_MEAS)
+    torch.cuda.synchronize()
+    counts = launches()
+    add_counts(row_counts, counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = np.concatenate([warm["losses"], meas["losses"]])
+    q = losses.size // 4
+    require(np.isfinite(losses).all() and
+            losses[-q:].mean() < losses[:q].mean(),
+            f"{tag}: losses not finite and falling {losses}")
+    want = {k: v * RESIDENT_MEAS for k, v in per_step.items()}
+    got = {k: v for k, v in counts.items() if v}
+    require(got == want, f"{tag}: launches {got} over {RESIDENT_MEAS} "
+            f"measured steps, expected {want}")
+    require(on_card_cli(torch, run) and
+            (rt is None or rt.g.indices.is_cuda), f"{tag}: state off the card")
+    dt = meas["epoch_s"][0]
+    ms = 1000 * dt / RESIDENT_MEAS
+    resident = ""
+    if rt is not None:
+        require("replay" not in rt.timers.totals, f"{tag}: replayed")
+        st = meas["stats"][0]
+        resident = (f"; hit ratio {st['hit_ratio']:.4f} ({st['hits']} hits "
+                    f"/ {st['misses']} misses); stage rows "
+                    f"{rt.timers.tallies.get('stage_rows', 0):.0f} in the "
+                    f"measured steps; peak device memory {peak:.3f} GiB")
+    given = " ".join(f"--{k} {v}" for k, v in flags.items()) or "defaults"
+    print(f"{label}: {tag} (CLI {given}): {ms:.3f} ms/step, "
+          f"train_edges_per_s_per_chip {meas['edges'] / dt:.1f} "
+          f"({RESIDENT_MEAS} measured steps after {RESIDENT_WARM}, host "
+          f"clock, {smi}); feature agg "
+          f"{1000 * meas['agg_s'][0] / RESIDENT_MEAS:.3f} ms/step{resident}; "
+          f"launches per measured step "
+          f"{ {k: v // RESIDENT_MEAS for k, v in got.items()} }; "
+          f"{time.perf_counter() - t0:.1f} s with set-up; losses "
+          f"{np.array2string(losses[::2], precision=4)}")
+    if rt is not None:
+        print(f"{label}: {tag} trainer timers of the measured steps:\n"
+              + rt.timers.report())
+    return row_counts, run, ms
+
+
 def phase_resident(torch, ds, smi) -> tuple:
     """The trainer CLI's ``--pipeline resident`` (``train.build`` /
     ``train.train`` / ``train.evaluate`` over ``ShardedResidentTrainer``)
-    at the flagship widths, one row per ``RESIDENT_ROWS`` entry, the cache
-    cold at the start, dropout 0.5, Adam 1e-3, 4 warm-up + 16 measured
-    steps each; the eval after the ``--window 1`` row; a host-CLI SAGE row
-    in the same call, beside it. Checks finite, falling losses, the
-    launches of every measured step (``RESIDENT_PER_STEP``, nothing else;
-    one forward per eval batch), no replay, state on the card; prints
-    ms/step, train edges/s, hit ratio, feature agg ms/step and peak
-    memory; holds every kernel call of one real step against its plain
-    version; then the small card-vs-CPU runs. Returns (launches by
-    kernel, worst errors of the f32 entries, kernels JSON entries of the
-    bf16 RGAT row)."""
+    at the flagship widths, one row per ``RESIDENT_ROWS`` entry
+    (``cli_row``: the cache cold at the start, dropout 0.5, Adam 1e-3,
+    4 warm-up + 16 measured steps); the eval after the ``--window 1``
+    row (one forward per eval batch); a host-CLI SAGE row in the same
+    call, beside it. Holds every kernel call of one real step of each row
+    against its plain version; then the small card-vs-CPU runs. Returns
+    (launches by kernel, worst errors of the f32 entries, kernels JSON
+    entries of the bf16 RGAT row)."""
     from coala_gnn_tpu_torch import train as cli
 
     total, errs, entries, ms = {}, {}, [], {}
-
-    def add(counts):
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
-
     for tag, kind, mb, window, dtype in RESIDENT_ROWS:
-        args = cli.parse_args(cli_args(kind, pipeline="resident",
-                                       cache_size=mb, window=window,
-                                       dtype=dtype))
-        cli.refuse_unported(args)
-        t0 = time.perf_counter()
-        run = cli.build(args, ds=ds)
-        torch.cuda.synchronize()
-        reset_launches()
-        warm = cli.train(run, epochs=1, max_steps=RESIDENT_WARM)
-        torch.cuda.synchronize()
-        row_counts = launches()
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        run.trainer.timers.reset()
-        meas = cli.train(run, epochs=1, max_steps=RESIDENT_MEAS)
-        torch.cuda.synchronize()
-        counts = launches()
-        for k, v in counts.items():
-            row_counts[k] += v
-        add(row_counts)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        losses = np.concatenate([warm["losses"], meas["losses"]])
-        q = losses.size // 4
-        require(np.isfinite(losses).all() and
-                losses[-q:].mean() < losses[:q].mean(),
-                f"{tag}: losses not finite and falling {losses}")
         key = kind + ("-bf16" if dtype == "bfloat16" else "")
-        want = {k: v * RESIDENT_MEAS
-                for k, v in RESIDENT_PER_STEP[key].items()}
-        got = {k: v for k, v in counts.items() if v}
-        require(got == want, f"{tag}: launches {got} over {RESIDENT_MEAS} "
-                f"measured steps, expected {want}")
-        rt = run.trainer
-        require(on_card_cli(torch, run) and rt.g.indices.is_cuda,
-                f"{tag}: state off the card")
-        require("replay" not in rt.timers.totals, f"{tag}: replayed")
-        dt, st = meas["epoch_s"][0], meas["stats"][0]
-        ms[tag] = 1000 * dt / RESIDENT_MEAS
-        print(f"phase 16: {tag} (CLI --pipeline resident, --window "
-              f"{window}, {mb} MB, {dtype}): {ms[tag]:.3f} ms/step, "
-              f"train_edges_per_s_per_chip {meas['edges'] / dt:.1f} "
-              f"({RESIDENT_MEAS} measured steps after {RESIDENT_WARM}, host "
-              f"clock, {smi}); hit ratio {st['hit_ratio']:.4f} "
-              f"({st['hits']} hits / {st['misses']} misses); feature agg "
-              f"{1000 * meas['agg_s'][0] / RESIDENT_MEAS:.3f} ms/step; "
-              f"stage rows {rt.timers.tallies.get('stage_rows', 0):.0f} in "
-              f"the measured steps; peak device memory {peak:.3f} GiB; "
-              f"launches per "
-              f"measured step "
-              f"{ {k: v // RESIDENT_MEAS for k, v in got.items()} }; "
-              f"{time.perf_counter() - t0:.1f} s with set-up; losses "
-              f"{np.array2string(losses[::2], precision=4)}")
-        print(f"phase 16: {tag} trainer timers of the measured steps:\n"
-              + rt.timers.report())
+        row_counts, run, ms[tag] = cli_row(
+            torch, ds, smi, "phase 16", tag, kind, RESIDENT_PER_STEP[key],
+            pipeline="resident", cache_size=mb, window=window, dtype=dtype)
+        add_counts(total, row_counts)
         if window == 1:
             reset_launches()
             t1 = time.perf_counter()
             correct, n_test = cli.evaluate(run)
             torch.cuda.synchronize()
             counts = launches()
-            add(counts)
+            add_counts(total, counts)
             n_batches = -(-n_test // BATCH)
             got = {k: v for k, v in counts.items() if v}
             require(got == {"gather_spmm[float32]": n_batches},
@@ -2013,23 +2067,465 @@ def phase_resident(torch, ds, smi) -> tuple:
                     **{k: v for k, v in e.items() if k != "form"}})
             else:
                 errs[name] = max(errs.get(name, 0.0), e["max_abs_err"])
-        del run, rt
+        del run
         torch.cuda.empty_cache()
     # the CLI's host path, SAGE, in the same call
-    run = cli.build(cli.parse_args(cli_args("sage")), ds=ds)
-    cli.train(run, epochs=1, max_steps=RESIDENT_WARM)
-    host = cli.train(run, epochs=1, max_steps=RESIDENT_MEAS)
-    torch.cuda.synchronize()
-    ms["host-sage"] = 1000 * host["epoch_s"][0] / RESIDENT_MEAS
-    print(f"phase 16: host-CLI SAGE (1024 MB, the same call): "
-          f"{ms['host-sage']:.3f} ms/step, of which the fetch "
-          f"{1000 * host['agg_s'][0] / RESIDENT_MEAS:.3f}; resident "
-          f"--window 8 / host "
+    counts, run, ms["host-sage"] = cli_row(
+        torch, ds, smi, "phase 16", "host-sage", "sage", ADJ_SAGE_PER_STEP)
+    add_counts(total, counts)
+    print(f"phase 16: resident --window 8 / host "
           f"{ms['sage-1024-w8'] / ms['host-sage']:.3f}, --window 1 / host "
           f"{ms['sage-1024-w1'] / ms['host-sage']:.3f} ({smi})")
     del run
     torch.cuda.empty_cache()
     resident_small(torch, smi)
+    return total, errs, entries
+
+
+#: phase 17: the padded table's slots per node (examples/flagship_tune.py's
+#: P), the dedup=True per-step steps, the CLI's 4 + 16 steps
+NBR_CAP = 32
+DEDUP_WARM, DEDUP_MEAS = 2, 8
+
+
+def phase_nbr_table(torch, ds, store, smi) -> int:
+    """17.1: ``ResidentTrainer(nbr_cap=NBR_CAP)`` at the flagship config,
+    in turns with phase 3's CSR trainer on the same seeds (warm-up windows,
+    then csr, table, table, csr). Checks the table sampler on the card
+    against the CSR one given the same uniforms (bitwise where deg <= P,
+    inside the stored subset above), finite, falling losses and one f32
+    launch per step. Returns the table trainer's launches."""
+    from coala_gnn_tpu_torch.sampling.device_sampler import (
+        _sample_layer, sample_blocks_device)
+
+    rng = np.random.default_rng(17)
+    t0 = time.perf_counter()
+    tab = make_trainer(torch, ds, store, torch.float32, "cuda",
+                       nbr_cap=NBR_CAP)
+    t_tab = time.perf_counter() - t0
+    csr = make_trainer(torch, ds, store, torch.float32, "cuda")
+    g = tab.g
+    mb = sum(t.numel() * t.element_size() for t in
+             (g.nbr_table, g.nbr_deg) if t is not None) / 1e6
+    require(g.nbr_table.is_cuda and g.rel_table is None,
+            "the padded table is not on the card")
+
+    # the table sampler vs the CSR sampler, same uniforms, on the card:
+    # layer 0's dst rows of a real step and every node of degree > P
+    seeds = torch.as_tensor(ds.train_idx[:BATCH].astype(np.int32),
+                            device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    _, ids, _ = sample_blocks_device(csr.g, seeds, FANOUTS, BATCH, gen)
+    deg_all = np.diff(np.asarray(ds.graph.indptr))
+    hubs = torch.as_tensor(np.flatnonzero(deg_all > NBR_CAP).astype(
+        np.int32), device="cuda")
+    dst = torch.cat([ids[:BATCH * (1 + FANOUTS[1])], hubs])
+    u = torch.rand(dst.shape[0], FANOUTS[0], generator=gen, device="cuda")
+    n_c, m_c, _ = _sample_layer(csr.g, dst, FANOUTS[0], uniforms=u)
+    n_t, m_t, _ = _sample_layer(g, dst, FANOUTS[0], uniforms=u)
+    deg = csr.g.indptr[dst.long() + 1] - csr.g.indptr[dst.long()]
+    small = deg <= NBR_CAP
+    require(bool(torch.equal(n_c[small], n_t[small]) and
+                 torch.equal(m_c[small], m_t[small])),
+            "table sampler differs from CSR on a node of degree <= P")
+    big = ~small
+    stored = g.nbr_table[dst[big].long()]
+    inside = (n_t[big][:, :, None] == stored[:, None, :]).any(-1)
+    require(bool(inside.all()) and bool((m_t[big] == 1).all()),
+            "table sampler left a node's stored subset")
+    print(f"phase 17: padded table P={NBR_CAP}: {tuple(g.nbr_table.shape)} "
+          f"int32 + degrees = {mb:.1f} MB on the card, built in "
+          f"{t_tab:.1f} s with the trainer; sampler on the card given the "
+          f"CSR sampler's uniforms: {int(small.sum())} dst rows of degree "
+          f"<= {NBR_CAP} bitwise equal, {int(big.sum())} rows of degree > "
+          f"{NBR_CAP} all inside their stored subset")
+
+    warm = make_grids(ds, 1, K, BATCH, rng)
+    meas = make_grids(ds, 2, K, BATCH, rng)
+    ms = {"csr": [], "table": []}
+    losses, n_launch = [], 0
+
+    def window(rt, grid, w, name, timed_run):
+        nonlocal n_launch
+        torch.cuda.synchronize()
+        if name == "table":
+            reset_launches()
+        t0 = time.perf_counter()
+        out, _ = rt.train_windows(grid[None], seed=7, first_window=w)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if name == "table":
+            n_launch += only_launches("gather_spmm[float32]")
+            losses.append(out.cpu().numpy())
+        if timed_run:
+            ms[name].append(1000 * dt / K)
+
+    window(csr, warm[0], 0, "csr", False)
+    window(tab, warm[0], 0, "table", False)
+    for w, name in ((0, "csr"), (0, "table"), (1, "table"), (1, "csr")):
+        rt = tab if name == "table" else csr
+        window(rt, meas[w], 1 + w, name, True)
+    losses = np.concatenate(losses)
+    require(np.isfinite(losses).all() and
+            losses[-K:].mean() < losses[:K].mean(),
+            f"nbr_cap windows: losses not finite and falling {losses}")
+    require(n_launch == 3 * K, f"nbr_cap windows: {n_launch} launches for "
+            f"{3 * K} steps")
+    require(on_card(torch, tab), "nbr_cap trainer: state off the card")
+    print(f"phase 17: ResidentTrainer nbr_cap={NBR_CAP} (flat f32 table, "
+          f"K = {K}, 1 warm-up + 2 measured windows in turns with the CSR "
+          f"trainer): table {np.mean(ms['table']):.3f} ms/step (windows "
+          f"{', '.join(f'{v:.3f}' for v in ms['table'])}), CSR "
+          f"{np.mean(ms['csr']):.3f} ms/step (windows "
+          f"{', '.join(f'{v:.3f}' for v in ms['csr'])}); {n_launch} f32 "
+          f"launches for {3 * K} steps; losses "
+          f"{np.array2string(losses[::2], precision=4)} ({smi})")
+    del tab, csr
+    torch.cuda.empty_cache()
+    return n_launch
+
+
+def phase_dedup(torch, ds, store, smi) -> tuple:
+    """17.2: ``ResidentTrainer(dedup=True)`` at the flagship config, full
+    coverage, ``DEDUP_WARM`` + ``DEDUP_MEAS`` per-step steps (``begin`` /
+    ``resolve`` / ``train_step``). Checks the card's dedup of one real
+    layer-0 ``cat`` bitwise against the CPU's, finite, falling losses, the
+    launches of every measured step (``ADJ_SAGE_PER_STEP``, nothing else)
+    and every kernel call of one real step against its plain version.
+    Returns (launches by kernel, kernels JSON entries of the step)."""
+    from coala_gnn_tpu_torch.sampling.device_sampler import (
+        _dedup_first_occurrence, _sample_layer, sample_blocks_device)
+    from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
+    from coala_gnn_tpu_torch.utils.rng import DROPOUT, SAMPLE, \
+        step_generators
+
+    rt = make_trainer(torch, ds, store, torch.float32, "cuda", dedup=True)
+    sentinel = rt.g.num_nodes
+    cap_dst0 = block_capacities(BATCH, FANOUTS)[0][0]
+
+    # one real layer-0 cat: layer 1 sampled and deduplicated, then layer 0
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    seeds = torch.as_tensor(ds.train_idx[:BATCH].astype(np.int32),
+                            device="cuda")
+    nbr1, _, _ = _sample_layer(rt.g, seeds, FANOUTS[1], gen)
+    uniq1, _, num1 = _dedup_first_occurrence(
+        torch.cat([seeds, nbr1.reshape(-1)]), sentinel)
+    live = torch.arange(cap_dst0, device="cuda") < num1
+    dst0 = torch.where(live, uniq1, torch.full_like(uniq1, sentinel))
+    nbr0, _, _ = _sample_layer(rt.g, dst0, FANOUTS[0], gen)
+    cat = torch.cat([dst0, nbr0.reshape(-1)])
+    card = _dedup_first_occurrence(cat, sentinel)
+    host = _dedup_first_occurrence(cat.cpu(), sentinel)
+    require(all(bool(torch.equal(a.cpu(), b)) for a, b in zip(card, host)),
+            "dedup of a real cat: the card differs from the CPU")
+    t_dedup = median_ms(torch, lambda: _dedup_first_occurrence(cat,
+                                                               sentinel))
+    t_s = {d: median_ms(torch, lambda d=d: sample_blocks_device(
+        rt.g, seeds, FANOUTS, BATCH, gen, dedup=d)) for d in (False, True)}
+    print(f"phase 17: dedup of one real layer-0 cat (L {cat.numel()}, "
+          f"{int(card[2])} distinct ids): card bitwise equal to the CPU; "
+          f"{t_dedup:.4f} ms on the card; sample_blocks_device "
+          f"dedup=False {t_s[False]:.4f} ms, dedup=True {t_s[True]:.4f} ms "
+          f"(median of 25, L2 flushed, {smi})")
+
+    grids = make_grids(ds, 1, DEDUP_WARM + DEDUP_MEAS, BATCH,
+                       np.random.default_rng(19))[0]
+    losses = []
+    for i, seeds_np in enumerate(grids):
+        if i == DEDUP_WARM:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+        g_s = step_generators(3, i, 1, SAMPLE, "cuda")[0]
+        g_d = step_generators(3, i, 1, DROPOUT, "cuda")[0]
+        loss, _ = rt.train_step(rt.resolve(rt.begin(seeds_np, g_s)), g_d)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launches()
+    losses = torch.stack(losses).cpu().numpy()
+    st = rt.stats()
+    want = {k: v * DEDUP_MEAS for k, v in ADJ_SAGE_PER_STEP.items()}
+    got = {k: v for k, v in counts.items() if v}
+    require(got == want, f"dedup steps: launches {got}, expected {want}")
+    require(np.isfinite(losses).all() and
+            losses[-3:].mean() < losses[:3].mean(),
+            f"dedup steps: losses not finite and falling {losses}")
+    require(st["misses"] == 0 and on_card(torch, rt),
+            f"dedup steps: misses at full coverage or state off the card "
+            f"{st}")
+    print(f"phase 17: ResidentTrainer dedup=True per-step path (flat f32 "
+          f"table, full coverage): {1000 * dt / DEDUP_MEAS:.3f} ms/step "
+          f"({DEDUP_MEAS} measured steps after {DEDUP_WARM}, host clock, "
+          f"{smi}); launches per step "
+          f"{ {k: v // DEDUP_MEAS for k, v in got.items()} }; losses "
+          f"{np.array2string(losses, precision=4)}")
+
+    gen = step_generators(3, 99, 1, SAMPLE, "cuda")[0]
+    blocks, feats, y = rt.resolve(rt.begin(grids[0], gen))
+
+    def step():
+        logits = rt.model(blocks, feats, train=False)[:BATCH]
+        torch.nn.functional.cross_entropy(logits, y).backward()
+
+    calls = record_calls(torch, step)
+    rt.optimizer.zero_grad(set_to_none=True)
+    require(len(calls) == 2 and "g" not in calls[0] and "g" in calls[1],
+            "dedup step: expected one call per layer, a gradient at layer 1")
+    checked = step_kernels(torch, "phase 17: dedup", calls)
+    entries = []
+    for (name, layer), e in checked.items():
+        per_step = sum(1 for n, _ in checked if n == name)
+        entries.append({"name": f"{name} sage dedup resident layer {layer}",
+                        "counter": name,
+                        "launches": counts[name] // per_step,
+                        **{k: v for k, v in e.items() if k != "form"}})
+    del rt
+    torch.cuda.empty_cache()
+    return counts, entries
+
+
+def phase_nbr_cli(torch, ds, smi) -> tuple:
+    """17.3: the resident CLI with ``--nbr_cap`` (``cli_row``):
+    SAGE, and RGAT with 4 heads on 3 edge types (the relation table);
+    every kernel call of one real step of each against its plain version.
+    Returns (launches by kernel, worst errors by kernel)."""
+    total, errs = {}, {}
+    for tag, kind in (("sage-nbr32-w8", "sage"), ("rgat-nbr32-w8", "rgat")):
+        counts, run, _ = cli_row(
+            torch, ds, smi, "phase 17", tag, kind, RESIDENT_PER_STEP[kind],
+            pipeline="resident", window=8, nbr_cap=NBR_CAP)
+        add_counts(total, counts)
+        g = run.trainer.g
+        require(g.nbr_table is not None and
+                (g.rel_table is not None) == (kind == "rgat"),
+                f"{tag}: the trainer samples without its table")
+        mb = sum(t.numel() * t.element_size() for t in
+                 (g.nbr_table, g.nbr_deg, g.rel_table)
+                 if t is not None) / 1e6
+        print(f"phase 17: {tag}: padded table"
+              + (" + relation table" if g.rel_table is not None else "")
+              + f" {mb:.1f} MB on the card")
+        checked = step_kernels(torch, f"phase 17: {tag}",
+                               resident_step_calls(torch, run))
+        for (name, _), e in checked.items():
+            errs[name] = max(errs.get(name, 0.0), e["max_abs_err"])
+        del run
+        torch.cuda.empty_cache()
+    return total, errs
+
+
+def record_domains(run) -> list:
+    """Wrap the run's scheduler so every seed slice it hands out is kept
+    (in call order) in the returned list."""
+    kept, orig = [], run.scheduler.run_domain
+
+    def run_domain():
+        d = orig()
+        kept.append(np.array(d))
+        return d
+
+    run.scheduler.run_domain = run_domain
+    return kept
+
+
+def baseline_domains(ds, steps: tuple) -> list:
+    """The seed slices a baseline distributor gives one part: ``steps[e]``
+    iterations of each epoch e, reshuffled between epochs as the CLI does
+    (``--seed`` 0)."""
+    from coala_gnn_tpu_torch.distribution import SeedDistributor
+
+    d = SeedDistributor(ds.train_idx, batch_size=BATCH, local_size=1,
+                        num_parts=1, mode="baseline", shuffle_seed=0)
+    out = []
+    for epoch, n in enumerate(steps):
+        if epoch:
+            d.reshuffle(epoch)
+        out.append([np.array(d.distribute(i)[0]) for i in range(n)])
+    return out
+
+
+def check_colors(run, meta, tag: str) -> int:
+    """The cache's color counters: non-zero, and summing to the resident
+    lines whose node has a color; each line carries its node's color.
+    Returns the colored lines."""
+    base = run.cache.state.base
+    tags = base.tags[:-1].cpu().numpy()
+    line_colors = run.cache.state.line_colors[:-1].cpu().numpy()
+    counts = base.color_counts.cpu().numpy()
+    held = tags >= 0
+    colored = int((meta.color[tags[held]] > 0).sum())
+    require(colored > 0 and int(counts[1:].sum()) == colored,
+            f"{tag}: color counters sum {int(counts[1:].sum())}, colored "
+            f"resident lines {colored}")
+    require(bool((line_colors[held] == meta.color[tags[held]]).all()),
+            f"{tag}: a cache line's color is not its node's")
+    return colored
+
+
+def phase_colors(torch, ds, smi, tmp: str) -> dict:
+    """17.4: the color metadata of the 200k graph through the port's
+    native library (``generate_color_metadata``), written under ``tmp``;
+    then the CLI with ``--distribution node_color --color_dir`` on the
+    host path and on ``--pipeline resident --window 8``: the seed slices
+    equal a baseline distributor's (one part), the cache's color counters
+    match its lines, SAGE's launches. Returns launches by kernel."""
+    import os
+
+    from coala_gnn_tpu_torch.coloring import (generate_color_metadata,
+                                              load_color_metadata,
+                                              save_color_metadata)
+
+    t0 = time.perf_counter()
+    meta = generate_color_metadata(ds.graph, ds.train_idx)
+    dt = time.perf_counter() - t0
+    cdir = os.path.join(tmp, "colors")
+    save_color_metadata(meta, cdir)
+    back = load_color_metadata(cdir)
+    require(np.array_equal(back.color, meta.color) and
+            np.array_equal(back.score, meta.score),
+            "color metadata round trip")
+    print(f"phase 17: generate_color_metadata (native, host): "
+          f"{ds.graph.num_nodes} nodes into {meta.num_colors} colors, "
+          f"{100 * (meta.color > 0).mean():.2f}% colored, in {dt:.3f} s "
+          f"(host clock)")
+    total = {}
+    base = baseline_domains(ds, (RESIDENT_WARM, RESIDENT_MEAS))
+    flags = dict(distribution="node_color", color_dir=cdir)
+    for tag, resident in (("sage-node_color-host", False),
+                          ("sage-node_color-w8", True)):
+        kept = []
+        hook = lambda run: kept.append(record_domains(run))
+        more = dict(pipeline="resident", window=8) if resident else {}
+        counts, run, _ = cli_row(
+            torch, ds, smi, "phase 17", tag, "sage",
+            RESIDENT_PER_STEP["sage"] if resident else ADJ_SAGE_PER_STEP,
+            on_build=hook, **flags, **more)
+        add_counts(total, counts)
+        require(run.meta is not None and
+                run.cache.cfg.num_colors == meta.num_colors,
+                f"{tag}: the run does not hold the color metadata")
+        domains = kept[0]
+        # the host loader prefetches: the epochs' first slices are the
+        # trained ones (the loader stops its worker at the epoch's end)
+        ok = True
+        got = domains
+        for want in base:
+            idx = next((i for i in range(len(got) - len(want) + 1)
+                        if np.array_equal(got[i], want[0])), None)
+            ok = ok and idx is not None and all(
+                np.array_equal(a, b)
+                for a, b in zip(got[idx:idx + len(want)], want))
+            got = got[(idx or 0) + len(want):]
+        require(ok, f"{tag}: node_color's seed slices differ from the "
+                "baseline distributor's (one part)")
+        colored = check_colors(run, meta, tag)
+        nonzero = int((run.cache.state.base.color_counts[1:] > 0).sum())
+        print(f"phase 17: {tag}: seed slices of both epochs equal the "
+              f"baseline distributor's; {colored} resident lines hold a "
+              f"colored node, and the {meta.num_colors} color counters sum "
+              f"to them ({nonzero} colors non-zero)")
+        del run
+        torch.cuda.empty_cache()
+    return total
+
+
+def same_state(torch, run, path: str) -> bool:
+    """The run's model and optimizer state equal, bit for bit, the
+    checkpoint file ``path``."""
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    model = run.model.state_dict()
+    ok = set(model) == set(saved["model"]) and all(
+        torch.equal(model[k].cpu(), saved["model"][k]) for k in model)
+    got, want = run.optimizer.state_dict(), saved["optimizer"]
+    ok = ok and got["param_groups"] == want["param_groups"]
+    ok = ok and set(got["state"]) == set(want["state"]) and len(want["state"])
+    for k, st in want["state"].items():
+        ok = ok and set(got["state"][k]) == set(st) and all(
+            torch.equal(torch.as_tensor(got["state"][k][n]).cpu(),
+                        torch.as_tensor(v)) for n, v in st.items())
+    return bool(ok)
+
+
+def phase_checkpoint(torch, ds, smi, tmp: str) -> None:
+    """17.5: ``--save_dir`` / ``--resume`` through the CLI. The resident
+    SAGE (``--window 8``) trains 2 epochs of 4 steps saving each; a second
+    run resumes from the first epoch's checkpoint: its state equals the
+    file bitwise, it starts at epoch 1, and its epoch's losses equal the
+    uninterrupted run's (1e-5). The host CLI's SAGE saves one epoch and a
+    second run restores it bitwise."""
+    import os
+    import shutil
+
+    from coala_gnn_tpu_torch import train as cli
+    from coala_gnn_tpu_torch.utils import checkpoint as ckpt
+
+    def args_of(save_dir, resume=False, **flags):
+        return cli.parse_args(cli_args(
+            "sage", epochs=2, max_steps=4, save_dir=save_dir, resume=resume,
+            **flags))
+
+    full, part = os.path.join(tmp, "ck_full"), os.path.join(tmp, "ck_part")
+    resident = dict(pipeline="resident", window=8)
+    run = cli.build(args_of(full, **resident), ds=ds)
+    ref = cli.train(run)["losses"]
+    require(ckpt.latest_step(full) == 8 and
+            sorted(os.listdir(full)) == ["step_4", "step_8"],
+            f"resident --save_dir wrote {sorted(os.listdir(full))}")
+    del run
+    shutil.copytree(os.path.join(full, "step_4"),
+                    os.path.join(part, "step_4"))
+    run = cli.build(args_of(part, True, **resident), ds=ds)
+    start = cli.resume(run)
+    require(start == 1 and run.step == 4 and not run.fresh,
+            f"resume: start epoch {start}, step {run.step}")
+    require(same_state(torch, run, os.path.join(part, "step_4",
+                                                ckpt.FILE)),
+            "resident resume: restored state differs from the checkpoint")
+    require(on_card_cli(torch, run), "resident resume: state off the card")
+    got = cli.train(run)["losses"]
+    require(got.shape == (4,) and np.allclose(got, ref[4:], rtol=1e-5,
+                                              atol=1e-5),
+            f"resumed epoch losses {got} vs uninterrupted {ref[4:]}")
+    print(f"phase 17: resident CLI --save_dir / --resume: restored params "
+          f"and Adam state bitwise equal to step_4; resumed epoch 1 losses "
+          f"{np.array2string(got, precision=6)} vs uninterrupted "
+          f"{np.array2string(ref[4:], precision=6)}, max diff "
+          f"{np.abs(got - ref[4:]).max():.3g} ({smi})")
+    del run
+    host = os.path.join(tmp, "ck_host")
+    run = cli.build(cli.parse_args(cli_args(
+        "sage", epochs=1, max_steps=4, save_dir=host)), ds=ds)
+    cli.train(run)
+    del run
+    run = cli.build(args_of(host, True), ds=ds)
+    require(cli.resume(run) == 1 and same_state(
+        torch, run, os.path.join(host, "step_4", ckpt.FILE)) and
+        on_card_cli(torch, run),
+        "host resume: restored state differs from the checkpoint")
+    print("phase 17: host CLI --save_dir / --resume: restored params and "
+          "Adam state bitwise equal to step_4, starting at epoch 1")
+    del run
+    torch.cuda.empty_cache()
+
+
+def phase_ports(torch, ds, store, smi) -> tuple:
+    """Phase 17 (the module docstring): returns (launches by kernel, worst
+    errors by kernel, kernels JSON entries of the dedup step)."""
+    import shutil
+    import tempfile
+
+    total = {"gather_spmm[float32]": phase_nbr_table(torch, ds, store, smi)}
+    counts, entries = phase_dedup(torch, ds, store, smi)
+    add_counts(total, counts)
+    counts, errs = phase_nbr_cli(torch, ds, smi)
+    add_counts(total, counts)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        add_counts(total, phase_colors(torch, ds, smi, tmp))
+        phase_checkpoint(torch, ds, smi, tmp)
+    finally:
+        shutil.rmtree(tmp)
     return total, errs, entries
 
 
@@ -2115,8 +2611,15 @@ def main() -> int:
     for name, err in resident_errs.items():
         worst(name, err)
     print(f"phase 16: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    port_launches, port_errs, port_entries = phase_ports(torch, ds, store,
+                                                         smi)
+    for name, err in port_errs.items():
+        worst(name, err)
+    print(f"phase 17: done in {time.perf_counter() - t0:.1f} s")
     for counts in (gat_launches, int8_launches, host_launches,
-                   bf16_launches, hetero_launches, resident_launches):
+                   bf16_launches, hetero_launches, resident_launches,
+                   port_launches):
         for name, n in counts.items():
             main_launches[name] = main_launches.get(name, 0) + n
 
@@ -2139,7 +2642,7 @@ def main() -> int:
                 **kern[name]} for name, where in replaces.items()]
     kernels += [{"route": "cuda", "source": src,
                  "replaces": replaces[e["counter"]], **e}
-                for e in hetero_entries + resident_entries]
+                for e in hetero_entries + resident_entries + port_entries]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never launched on the "
                 "main path")

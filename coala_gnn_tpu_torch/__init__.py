@@ -21,9 +21,12 @@ ops       gather-SpMM (hand-written CUDA kernels: f32 / bf16 / int8 forward,
           aggregation, COO oracles
 models    SAGE, GCN and GAT over sampled blocks; the hetero RSAGE, RGCN
           and RGAT (relations stacked in one gather-SpMM call per layer)
-sampling  on-device fanout neighbour sampling; the host sampler (dedup
-          and slot-major layouts); both typed on a hetero graph; block
-          capacities
+sampling  on-device fanout neighbour sampling (CSR or the padded
+          neighbour table, slot-major or deduplicated blocks); the host
+          sampler (dedup and slot-major layouts); both typed on a hetero
+          graph; block capacities
+coloring  offline BFS graph coloring and color-affinity metadata (host,
+          native), read by the node_color distribution
 distribution  seed distributor (baseline, node_color greedy) and its
           pipelined scheduler
 data      the host pipeline's prefetching loader and request packing
@@ -34,10 +37,20 @@ native    ctypes bindings of the native host functions (sampler, greedy,
           row gather and encode)
 parallel  ResidentTrainer (the resident training step); the host
           pipeline's one-device cache front, train steps and run_host
-utils     flax->torch parameter conversion, per-window generators, phase
-          timers, the nvcc / g++ build
+utils     flax->torch parameter and optax Adam state conversion,
+          checkpoints, per-window generators, phase timers, the nvcc / g++
+          build
 csrc      CUDA C++ (nvcc) and host C++ (g++) sources, built at first use
 train     the trainer CLI, ``python -m coala_gnn_tpu_torch.train``
+generate_colors  the color metadata CLI, ``python -m
+          coala_gnn_tpu_torch.generate_colors``
+
+The coloring's names are exported here, as the JAX package's
+``coala_gnn_tpu.coloring`` exports them.
 """
 
 __version__ = "0.1.0"
+
+from coala_gnn_tpu_torch.coloring import (  # noqa: F401
+    ColorMetadata, color_affinity, color_graph, generate_color_metadata,
+    load_color_metadata, save_color_metadata)

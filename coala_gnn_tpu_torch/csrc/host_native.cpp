@@ -1,10 +1,13 @@
 // Host functions of the port, run on the host's cores: the host sampler's
-// layer draw, the affinity-aware greedy seed distribution, and the staged
-// miss path's row gather and transport encode (OpenMP).
+// layer draw, the offline BFS graph coloring and its color affinity, the
+// affinity-aware greedy seed distribution, and the staged miss path's row
+// gather and transport encode (OpenMP).
 //
 // A copy of these functions of the JAX package's native library
 // (coala_gnn_tpu/native/coala_native.cpp: sample_layer_core,
-// cg_sample_layer and cg_sample_layer_typed, cg_distribute_affinity, cg_gather_rows_f32,
+// cg_sample_layer and cg_sample_layer_typed, color_graph_core,
+// cg_color_graph, cg_color_graph_seeded, cg_color_affinity,
+// cg_distribute_affinity, cg_gather_rows_f32,
 // cg_quantize_rows, cg_encode_bf16, cg_gather_rows_bf16,
 // cg_gather_quantize_rows), with the same arithmetic and the same random
 // streams, so both give the same bytes. Built with g++ at first use into
@@ -17,10 +20,13 @@
 // round as numpy's and torch's division does. bf16 is f32 rounded to
 // nearest even, NaN quieted, stored as its uint16 bits.
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <random>
+#include <unordered_map>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -135,6 +141,174 @@ void cg_sample_layer_typed(const int64_t* indptr, const void* indices,
                            int32_t* rel_out) {
   sample_layer_core(indptr, indices, idx_width, edge_types, dst_ids, n_dst,
                     fanout, seed, nbr_out, mask_out, rel_out);
+}
+
+// ---------------------------------------------------------------------------
+// BFS graph coloring (train-node-aware variant).
+// Behavior parity with cpu_color_graph_optimized (graph_coloring.cpp:108-160):
+//   - seeds: uncolored train nodes sampled at rate
+//     base_rate * min(20, num_nodes / num_train)         (:75-79)
+//   - hop 0 pre-step: uncolored 1-hop train neighbors of each seed join the
+//     seed's color frontier                               (:125-141)
+//   - per-hop double-buffered frontier, LIFO order, first-color-wins (:143-156)
+//   - hop_out[v] = hop+1 at coloring time; after max_hop hops the remaining
+//     frontier is flushed (colored at hop max_hop+1). Unlike the reference,
+//     the flush also records the hop (the reference leaves it uninitialized —
+//     SURVEY.md "quirks", graph_coloring.cpp:159 uses cpu_flush_buffer<false>).
+// Returns the number of colors (colors are 1..num_colors).
+// cg_color_graph_seeded takes the seed-node list explicitly (seed i gets
+// color i+1) instead of RNG-sampling it — the injection point that lets
+// tests compare native vs oracle colorings EXACTLY.
+// ---------------------------------------------------------------------------
+static int64_t color_graph_core(const int64_t* indptr, const void* indices,
+                                int idx_width, int64_t num_nodes,
+                                const int64_t* train_ids, int64_t num_train,
+                                const int64_t* seed_nodes, int64_t n_seeds,
+                                int max_hop, int64_t* color_out,
+                                int32_t* hop_out) {
+  std::memset(color_out, 0, sizeof(int64_t) * num_nodes);
+  std::memset(hop_out, 0, sizeof(int32_t) * num_nodes);
+
+  std::vector<uint8_t> is_train(num_nodes, 0);
+  for (int64_t t = 0; t < num_train; t++) is_train[train_ids[t]] = 1;
+
+  typedef std::pair<int64_t, int64_t> NodeColor;
+  std::vector<NodeColor> buf[2];
+  for (int64_t s = 0; s < n_seeds; s++)
+    buf[0].emplace_back(seed_nodes[s], s + 1);
+  const int64_t color_counter = n_seeds + 1;
+
+  // hop-0 pre-step: adopt uncolored train 1-hop neighbors into seed colors.
+  const size_t n_initial = buf[0].size();
+  for (size_t s = 0; s < n_initial; s++) {
+    const int64_t v = buf[0][s].first;
+    const int64_t c = buf[0][s].second;
+    for (int64_t e = indptr[v]; e < indptr[v + 1]; e++) {
+      const int64_t u = idx_at(indices, idx_width, e);
+      if (is_train[u] && color_out[u] == 0) buf[0].emplace_back(u, c);
+    }
+  }
+
+  int hop = 0;
+  for (; hop < max_hop; hop++) {
+    std::vector<NodeColor>& cur = buf[hop % 2];
+    std::vector<NodeColor>& next = buf[(hop + 1) % 2];
+    while (!cur.empty()) {
+      const NodeColor nc = cur.back();
+      cur.pop_back();
+      if (color_out[nc.first] != 0) continue;
+      color_out[nc.first] = nc.second;
+      hop_out[nc.first] = hop + 1;
+      for (int64_t e = indptr[nc.first]; e < indptr[nc.first + 1]; e++)
+        next.emplace_back(idx_at(indices, idx_width, e), nc.second);
+    }
+  }
+  // flush: color (but don't expand) whatever the last hop enqueued.
+  std::vector<NodeColor>& last = buf[hop % 2];
+  while (!last.empty()) {
+    const NodeColor nc = last.back();
+    last.pop_back();
+    if (color_out[nc.first] == 0) {
+      color_out[nc.first] = nc.second;
+      hop_out[nc.first] = hop + 1;
+    }
+  }
+  return color_counter - 1;
+}
+
+int64_t cg_color_graph(const int64_t* indptr, const void* indices,
+                       int idx_width, int64_t num_nodes,
+                       const int64_t* train_ids, int64_t num_train,
+                       int max_hop, double base_rate, uint64_t seed,
+                       int64_t* color_out, int32_t* hop_out) {
+  const double frac =
+      num_train > 0 ? std::min(20.0, (double) num_nodes / (double) num_train)
+                    : 1.0;
+  const double rate = base_rate * frac;
+
+  std::mt19937_64 rng(seed);
+  std::uniform_real_distribution<double> uni(0.0, 1.0);
+  std::vector<int64_t> seeds;
+  for (int64_t t = 0; t < num_train; t++)
+    if (uni(rng) <= rate) seeds.push_back(train_ids[t]);
+
+  return color_graph_core(indptr, indices, idx_width, num_nodes, train_ids,
+                          num_train, seeds.data(), (int64_t) seeds.size(),
+                          max_hop, color_out, hop_out);
+}
+
+int64_t cg_color_graph_seeded(const int64_t* indptr, const void* indices,
+                              int idx_width, int64_t num_nodes,
+                              const int64_t* train_ids, int64_t num_train,
+                              const int64_t* seed_nodes, int64_t n_seeds,
+                              int max_hop, int64_t* color_out,
+                              int32_t* hop_out) {
+  return color_graph_core(indptr, indices, idx_width, num_nodes, train_ids,
+                          num_train, seed_nodes, n_seeds, max_hop, color_out,
+                          hop_out);
+}
+
+// ---------------------------------------------------------------------------
+// Color affinity: for each color c, the top-k neighbor colors by
+//   score(c, c') = sum over edges (u->v), color[v]=c, color[u]=c', c'!=c, c'!=0
+//                  of exp(-0.5 * hop[u]),
+// normalized by the total in-edge count of color-c nodes. Scoring function and
+// normalization are identical to cpu_calculate_color_affinity
+// (graph_coloring.cpp:250-252, 267-293); the reference's off-by-one color loop
+// (it skips the last color and relies on empty map rows, SURVEY.md "quirks")
+// is fixed: all colors 1..num_colors get a row at (c-1).
+// topk_out: int64 [num_colors, topk]; score_out: double [num_colors, topk];
+// unused slots are color 0 / score 0.
+// ---------------------------------------------------------------------------
+void cg_color_affinity(const int64_t* indptr, const void* indices,
+                       int idx_width, int64_t num_nodes,
+                       const int64_t* color, const int32_t* hop,
+                       int64_t num_colors, int topk,
+                       int64_t* topk_out, double* score_out) {
+  std::memset(topk_out, 0, sizeof(int64_t) * num_colors * topk);
+  std::memset(score_out, 0, sizeof(double) * num_colors * topk);
+
+  // Bucket nodes by color (counting sort) so colors parallelize cleanly.
+  std::vector<int64_t> count(num_colors + 2, 0);
+  for (int64_t v = 0; v < num_nodes; v++) count[color[v] + 1]++;
+  std::vector<int64_t> start(num_colors + 2);
+  start[0] = 0;
+  for (int64_t c = 0; c <= num_colors; c++) start[c + 1] = start[c] + count[c + 1];
+  std::vector<int64_t> nodes_of(num_nodes);
+  {
+    std::vector<int64_t> cursor(start.begin(), start.end() - 1);
+    for (int64_t v = 0; v < num_nodes; v++) nodes_of[cursor[color[v]]++] = v;
+  }
+  // nodes_of[start[c] .. start[c+1]) holds color-(c) nodes, c in 0..num_colors
+  // where bucket 0 is the uncolored set (start[0]..start[1]).
+
+#pragma omp parallel for schedule(dynamic, 16)
+  for (int64_t c = 1; c <= num_colors; c++) {
+    std::unordered_map<int64_t, double> acc;
+    double neigh_count = 0.0;
+    for (int64_t p = start[c]; p < start[c + 1]; p++) {
+      const int64_t v = nodes_of[p];
+      const int64_t lo = indptr[v], hi = indptr[v + 1];
+      neigh_count += (double) (hi - lo);
+      for (int64_t e = lo; e < hi; e++) {
+        const int64_t u = idx_at(indices, idx_width, e);
+        const int64_t cu = color[u];
+        if (cu != 0 && cu != c) acc[cu] += std::exp(-0.5 * (double) hop[u]);
+      }
+    }
+    std::vector<std::pair<int64_t, double>> v(acc.begin(), acc.end());
+    std::sort(v.begin(), v.end(), [](const std::pair<int64_t, double>& a,
+                                     const std::pair<int64_t, double>& b) {
+      if (a.second != b.second) return a.second > b.second;
+      return a.first < b.first;  // deterministic tie-break (reference: unstable)
+    });
+    const int k_out = std::min((int) v.size(), topk);
+    for (int k = 0; k < k_out; k++) {
+      topk_out[(c - 1) * topk + k] = v[k].first;
+      if (neigh_count > 0)
+        score_out[(c - 1) * topk + k] = v[k].second / neigh_count;
+    }
+  }
 }
 
 // Greedy affinity-aware seed distribution, sequential (every part computes

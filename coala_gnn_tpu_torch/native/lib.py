@@ -4,10 +4,11 @@
 
 Port of the functions of ``coala_gnn_tpu/native/lib.py`` that the port
 calls: the host sampler's ``sample_layer`` and ``sample_layer_typed``, the
-greedy
-``distribute_affinity``, and the five row functions of the staged miss
-path. bf16 comes back as its uint16 bit pattern (numpy has no bf16 type,
-and the card's machine has no ``ml_dtypes``).
+offline coloring's ``color_graph``, ``color_graph_seeded`` and
+``color_affinity``, the greedy ``distribute_affinity``, and the five row
+functions of the staged miss path. bf16 comes back as its uint16 bit
+pattern (numpy has no bf16 type, and the card's machine has no
+``ml_dtypes``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,16 @@ def get() -> ctypes.CDLL:
                                           _i32p, _i64p, _i64, _int,
                                           ctypes.c_uint64, _i64p, _f32p,
                                           _i32p]
+    lib.cg_color_graph.argtypes = [_i64p, ctypes.c_void_p, _int, _i64,
+                                   _i64p, _i64, _int, ctypes.c_double,
+                                   ctypes.c_uint64, _i64p, _i32p]
+    lib.cg_color_graph_seeded.argtypes = [_i64p, ctypes.c_void_p, _int, _i64,
+                                          _i64p, _i64, _i64p, _i64, _int,
+                                          _i64p, _i32p]
+    lib.cg_color_affinity.argtypes = [_i64p, ctypes.c_void_p, _int, _i64,
+                                      _i64p, _i32p, _i64, _int, _i64p, _f64p]
+    lib.cg_color_graph.restype = _i64
+    lib.cg_color_graph_seeded.restype = _i64
     lib.cg_distribute_affinity.argtypes = [_i64p, _i64, _i64, _int, _i64,
                                            _i64p, _i64p, _f64p, _int, _i64,
                                            _i32p, _i32p]
@@ -53,24 +64,29 @@ def get() -> ctypes.CDLL:
     lib.cg_gather_quantize_rows.argtypes = [_f32p, _i64, _i64p, _i64, _i8p,
                                             _f32p]
     for name in ("cg_sample_layer", "cg_sample_layer_typed",
-                 "cg_distribute_affinity",
+                 "cg_color_affinity", "cg_distribute_affinity",
                  "cg_gather_rows_f32", "cg_quantize_rows", "cg_encode_bf16",
                  "cg_gather_rows_bf16", "cg_gather_quantize_rows"):
         getattr(lib, name).restype = None
     return lib
 
 
+def _indices_arg(graph) -> Tuple[np.ndarray, ctypes.c_void_p, int]:
+    """(indptr int64, indices pointer, index width) of a CSC graph whose
+    ``indices`` are int32 or int64."""
+    indices = graph.indices
+    if indices.dtype not in (np.int32, np.int64):
+        raise TypeError(f"indices dtype {indices.dtype} unsupported")
+    return (np.ascontiguousarray(graph.indptr, dtype=np.int64),
+            indices.ctypes.data_as(ctypes.c_void_p), indices.dtype.itemsize)
+
+
 def _layer_args(graph, dst_ids: np.ndarray, fanout: int) -> tuple:
     """(indptr, indices pointer, index width, dst ids, nbr, mask) of one
     layer's draw; ``graph.indices`` int32 or int64."""
     dst_ids = np.ascontiguousarray(dst_ids, dtype=np.int64)
-    indices = graph.indices
-    if indices.dtype not in (np.int32, np.int64):
-        raise TypeError(f"indices dtype {indices.dtype} unsupported")
-    indptr = np.ascontiguousarray(graph.indptr, dtype=np.int64)
     n = dst_ids.shape[0]
-    return (indptr, indices.ctypes.data_as(ctypes.c_void_p),
-            indices.dtype.itemsize, dst_ids,
+    return (*_indices_arg(graph), dst_ids,
             np.empty((n, fanout), dtype=np.int64),
             np.empty((n, fanout), dtype=np.float32))
 
@@ -99,6 +115,54 @@ def sample_layer_typed(lib: ctypes.CDLL, graph, dst_ids: np.ndarray,
                               dst_ids.shape[0], fanout, seed & (2**64 - 1),
                               nbr, mask, rel)
     return nbr, mask, rel
+
+
+def color_graph(lib: ctypes.CDLL, graph, train_ids: np.ndarray,
+                max_hop: int = 10, base_rate: float = 0.005,
+                seed: int = 0) -> Tuple[int, np.ndarray, np.ndarray]:
+    """BFS coloring from train seeds drawn at ``base_rate`` (see
+    ``cg_color_graph``) -> (num_colors, color int64 [N], hop int32 [N])."""
+    train_ids = np.ascontiguousarray(train_ids, dtype=np.int64)
+    n = graph.num_nodes
+    color = np.empty(n, dtype=np.int64)
+    hop = np.empty(n, dtype=np.int32)
+    indptr, idx, width = _indices_arg(graph)
+    num_colors = lib.cg_color_graph(indptr, idx, width, n, train_ids,
+                                    train_ids.shape[0], max_hop, base_rate,
+                                    seed & (2**64 - 1), color, hop)
+    return int(num_colors), color, hop
+
+
+def color_graph_seeded(lib: ctypes.CDLL, graph, train_ids: np.ndarray,
+                       seed_nodes: np.ndarray, max_hop: int = 10
+                       ) -> Tuple[int, np.ndarray, np.ndarray]:
+    """``color_graph`` from the given seed nodes (seed i gets color i + 1)
+    instead of a random draw."""
+    train_ids = np.ascontiguousarray(train_ids, dtype=np.int64)
+    seed_nodes = np.ascontiguousarray(seed_nodes, dtype=np.int64)
+    n = graph.num_nodes
+    color = np.empty(n, dtype=np.int64)
+    hop = np.empty(n, dtype=np.int32)
+    indptr, idx, width = _indices_arg(graph)
+    num_colors = lib.cg_color_graph_seeded(
+        indptr, idx, width, n, train_ids, train_ids.shape[0], seed_nodes,
+        seed_nodes.shape[0], max_hop, color, hop)
+    return int(num_colors), color, hop
+
+
+def color_affinity(lib: ctypes.CDLL, graph, color: np.ndarray,
+                   hop: np.ndarray, num_colors: int, topk: int = 10
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per color its top-k neighbour colors and their normalised affinity
+    (see ``cg_color_affinity``) -> (topk int64 [C, K], score f64 [C, K])."""
+    color = np.ascontiguousarray(color, dtype=np.int64)
+    hop = np.ascontiguousarray(hop, dtype=np.int32)
+    topk_out = np.zeros((num_colors, topk), dtype=np.int64)
+    score_out = np.zeros((num_colors, topk), dtype=np.float64)
+    indptr, idx, width = _indices_arg(graph)
+    lib.cg_color_affinity(indptr, idx, width, graph.num_nodes, color, hop,
+                          num_colors, topk, topk_out, score_out)
+    return topk_out, score_out
 
 
 def distribute_affinity(lib: ctypes.CDLL, item: np.ndarray, offset: int,

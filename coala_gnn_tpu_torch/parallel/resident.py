@@ -57,10 +57,15 @@ fold; stages upload from pinned buffers without blocking.
 The machinery of the windows lives in ``ResidentBase``, which
 ``parallel/sharded_resident.py``'s ``ShardedResidentTrainer`` shares.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``dedup=True`` and ``nbr_cap`` sampling. A heterogeneous
-graph raises too: the JAX package trains hetero models resident only in
-its ``ShardedResidentTrainer``, and so does the port.
+``nbr_cap=P`` samples every path (windows, probes, per-step) from the
+padded neighbour table (``sampling/device_sampler.py``), exact for nodes
+of degree <= P. ``dedup=True`` changes only the per-step ``begin`` /
+``resolve`` path, as in JAX: its frontier is deduplicated, valid below the
+sampler's count, and its blocks carry a local ``adj``, so both layers'
+neighbour sums run through the gather-SpMM kernel on that ``adj``; the
+windows and their probes keep ``dedup=False``. A heterogeneous graph
+raises ``NotImplementedError``: the JAX package trains hetero models
+resident only in its ``ShardedResidentTrainer``, and so does the port.
 """
 
 from __future__ import annotations
@@ -224,14 +229,20 @@ class ResidentBase:
         """The state the shared methods read, from the subclass's
         ``graph``, ``host_fetch``, ``labels``, ``fanouts``, ``batch_size``,
         ``device``, ``cache_cfg``, ``colors``, ``stage_transport``,
-        ``direct`` and ``_use_prio``."""
+        ``nbr_cap``, ``direct`` and ``_use_prio``."""
         cfg = self.cache_cfg
         if self.stage_transport == "auto":
             self.stage_transport = "int8" if cfg.quantize else "float32"
         if self.stage_transport not in _TRANSPORT_DTYPE:
             raise ValueError(
                 f"unknown stage transport {self.stage_transport!r}")
-        self.g = to_device_graph(self.graph, self.device)
+        if self.nbr_cap is not None and self.nbr_cap < max(self.fanouts):
+            raise ValueError(
+                f"nbr_cap={self.nbr_cap} < max fanout {max(self.fanouts)}: "
+                "the padded row could not honor the take-all-in-order "
+                "slot semantics for deg <= fanout")
+        self.g = to_device_graph(self.graph, self.device,
+                                 nbr_cap=self.nbr_cap)
         self.labels_dev = torch.as_tensor(
             np.asarray(self.labels, np.int64)).to(self.device)
         self._cap0 = block_capacities(self.batch_size,
@@ -258,10 +269,17 @@ class ResidentBase:
         or as they are on a typed graph."""
         return feats if self._typed else TableInput(feats, self._slots)
 
-    def _sample(self, seeds: torch.Tensor, generator: torch.Generator):
-        blocks, ids, _ = sample_blocks_device(
-            self.g, seeds, self.fanouts, self.batch_size, generator)
-        valid = ids != self.g.num_nodes
+    def _sample(self, seeds: torch.Tensor, generator: torch.Generator,
+                dedup: bool = False):
+        """(blocks, ids, valid, safe): ``safe`` is ``ids`` with the invalid
+        entries at 0. A deduplicated frontier is valid below its count."""
+        blocks, ids, num = sample_blocks_device(
+            self.g, seeds, self.fanouts, self.batch_size, generator,
+            dedup=dedup)
+        if dedup:
+            valid = torch.arange(ids.shape[0], device=ids.device) < num
+        else:
+            valid = ids != self.g.num_nodes
         safe = torch.where(valid, ids, torch.zeros_like(ids))
         return blocks, ids, valid, safe
 
@@ -644,7 +662,8 @@ class ResidentTrainer(ResidentBase):
     batch_size: int
     device: torch.device
     colors: Optional[np.ndarray] = None  # int [num_nodes] for color counts
-    dedup: bool = False
+    dedup: bool = False                  # per-step path: deduplicated
+                                         # frontier, blocks with adj
     direct: Optional[bool] = None        # None: flat tier iff the cache
                                          # capacity covers every node
     priorities: Union[None, str, np.ndarray] = None
@@ -658,17 +677,10 @@ class ResidentTrainer(ResidentBase):
     stage_admit: bool = True             # offer staged rows to the cache
                                          # after each window
     stage_overlap: bool = False          # overlapped staged schedule
-    nbr_cap: Optional[int] = None
+    nbr_cap: Optional[int] = None        # padded neighbour table of P
+                                         # slots per node, P >= max fanout
 
     def __post_init__(self):
-        if self.dedup:
-            raise NotImplementedError(
-                "dedup=True sampling is not ported yet: ROADMAP.md queue A, "
-                "\"dedup=True and nbr_cap sampling\"")
-        if self.nbr_cap is not None:
-            raise NotImplementedError(
-                "the nbr_cap padded neighbour table is not ported yet: "
-                "ROADMAP.md queue A, \"dedup=True and nbr_cap sampling\"")
         if getattr(self.graph, "edge_types", None) is not None:
             raise NotImplementedError(
                 "ResidentTrainer reads layer 0 off the table, which the "
@@ -745,7 +757,8 @@ class ResidentTrainer(ResidentBase):
         int [batch] on the host."""
         seeds_dev = torch.as_tensor(np.asarray(seeds, np.int32)).to(
             self.device)
-        blocks, ids, valid, safe = self._sample(seeds_dev, generator)
+        blocks, ids, valid, safe = self._sample(seeds_dev, generator,
+                                                self.dedup)
         feats, hit = self._eng_lookup(safe, valid)
         n_miss = (valid & ~hit).sum(dtype=torch.int32)
         return blocks, ids, valid, feats, hit, n_miss, \

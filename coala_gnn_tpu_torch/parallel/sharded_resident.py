@@ -38,9 +38,11 @@ before an unstaged window) has no counterpart: ``train_windows`` reaches it
 only through ``_dispatch_window`` without full coverage, and it stages
 those windows instead.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``shard_topology`` (and a cache over more than one
-device), ``nbr_cap`` and ``stage_overlap``.
+``nbr_cap=P`` samples from the padded neighbour table (with its relation
+table on a typed graph), as JAX's does; with ``shard_topology`` it raises
+JAX's ``ValueError``. Not ported yet, each raising
+``NotImplementedError`` that names its ROADMAP.md item: ``shard_topology``
+(and a cache over more than one device) and ``stage_overlap``.
 """
 
 from __future__ import annotations
@@ -102,7 +104,8 @@ class ShardedResidentTrainer(ResidentBase):
     batch_size: int
     colors: Optional[np.ndarray] = None  # int [num_nodes] for color counts
     shard_topology: bool = False
-    nbr_cap: Optional[int] = None
+    nbr_cap: Optional[int] = None        # padded neighbour table of P
+                                         # slots per node, P >= max fanout
     stage_transport: str = "auto"        # float32 | bfloat16 | int8; auto =
                                          # int8 for int8 lines, else float32
     stage_admit: bool = True             # offer staged rows to the cache
@@ -112,14 +115,14 @@ class ShardedResidentTrainer(ResidentBase):
     _offer_host_rows = True
 
     def __post_init__(self):
+        if self.shard_topology and self.nbr_cap is not None:
+            raise ValueError("nbr_cap (padded neighbor table) does not "
+                             "combine with shard_topology — the table "
+                             "layout is single-replica")
         if self.shard_topology:
             raise NotImplementedError(
                 "shard_topology is not ported yet: ROADMAP.md queue A, "
                 "\"multi-GPU\"")
-        if self.nbr_cap is not None:
-            raise NotImplementedError(
-                "the nbr_cap padded neighbour table is not ported yet: "
-                "ROADMAP.md queue A, \"dedup=True and nbr_cap sampling\"")
         if self.stage_overlap:
             raise NotImplementedError(
                 "stage_overlap on ShardedResidentTrainer is not ported: "

@@ -30,15 +30,25 @@ single step from ``(seed, its run step, 0)``.
 The hetero models (``--model_type rsage|rgcn|rgat``) train on the
 synthetic graph with random edge types (``--num_edge_types``, 3 when it is
 below 2), drawn as ``examples/train.py`` draws them, on either pipeline.
+``--nbr_cap P`` samples the resident pipeline from the padded neighbour
+table. ``--distribution node_color --color_dir DIR`` reads the color
+metadata that ``python -m coala_gnn_tpu_torch.generate_colors`` writes:
+the distributor scores seeds against the cache's color counters, which
+the scheduler refreshes every ``--refresh_counter`` steps, and the cache
+lines carry their node's color. ``--save_dir`` writes a checkpoint
+(``utils/checkpoint.py``) after every epoch at step ``(epoch + 1) *
+steps_per_epoch``; ``--resume`` restores the latest one (``resume``) and
+starts at the epoch after it, the resident loop's streams continuing
+from its step.
 The flags are ``examples/train.py``'s; each one not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item, and none is ignored.
 Runs on the card (``--device cuda``, the default, raises without one)
 unless ``--device cpu`` is asked for.
 
 ``main`` is ``build`` (the dataset, sampler, loader, cache front, model
-and optimizer, and the resident trainer), ``train`` (the epoch loop, which
-returns the step losses and the epochs' times) and ``evaluate``; a caller
-may drive the three itself.
+and optimizer, and the resident trainer), ``resume`` (with ``--resume``),
+``train`` (the epoch loop, which returns the step losses and the epochs'
+times) and ``evaluate``; a caller may drive them itself.
 """
 
 from __future__ import annotations
@@ -56,9 +66,7 @@ HETERO = ("rsage", "rgcn", "rgat")
 
 #: the ROADMAP.md items that the flags not ported yet name
 _ROADMAP = {
-    "nbr_cap": "ROADMAP.md queue A, \"dedup=True and nbr_cap sampling\"",
     "multi": "ROADMAP.md queue A, \"multi-GPU\"",
-    "ckpt": "ROADMAP.md queue A, \"checkpoint and rng\"",
     "data": "ROADMAP.md queue A, \"the real datasets\"",
     "jax_only": "ROADMAP.md queue A, \"Not ported: code the system does not "
                 "need on a GPU\"",
@@ -141,17 +149,14 @@ def refuse_unported(args) -> None:
     """NotImplementedError, naming its ROADMAP.md item, for the first flag
     whose value is not ported; ValueError for a flag that the JAX CLI
     ignores where it is given (ROADMAP.md section C): ``--num_edge_types >
-    1`` with a homogeneous model, ``--window > 1`` on the host pipeline,
-    ``--profile_dir`` with ``--pipeline resident``."""
+    1`` with a homogeneous model, ``--window > 1`` or ``--nbr_cap`` on the
+    host pipeline, ``--profile_dir`` with ``--pipeline resident``,
+    ``--resume`` without ``--save_dir``, ``--color_dir`` without
+    ``--distribution node_color``; and for ``node_color`` without
+    ``--color_dir``, which it needs."""
     checks = [
-        (args.nbr_cap > 0, "--nbr_cap", "nbr_cap"),
         (args.devices > 1, f"--devices {args.devices}", "multi"),
-        (args.distribution == "node_color", "--distribution node_color",
-         "multi"),
-        (bool(args.color_dir), "--color_dir (node_color metadata)", "multi"),
         (args.shard_topology, "--shard_topology", "multi"),
-        (bool(args.save_dir) or args.resume, "--save_dir / --resume",
-         "ckpt"),
         (args.data != "synthetic" or bool(args.path) or
          args.dataset_size != "tiny",
          "real datasets (--data, --path, --dataset_size)", "data"),
@@ -172,6 +177,20 @@ def refuse_unported(args) -> None:
     if args.profile_dir and args.pipeline == "resident":
         raise ValueError("--profile_dir traces the host pipeline's epoch 0; "
                          "the JAX CLI ignores it with --pipeline resident")
+    if args.nbr_cap > 0 and args.pipeline != "resident":
+        raise ValueError(f"--nbr_cap {args.nbr_cap} lays out the topology "
+                         "of --pipeline resident; the host pipeline samples "
+                         "on the host")
+    if args.resume and not args.save_dir:
+        raise ValueError("--resume restores from --save_dir; give "
+                         "--save_dir")
+    if args.color_dir and args.distribution != "node_color":
+        raise ValueError("--color_dir is read by --distribution node_color; "
+                         f"--distribution {args.distribution} ignores it")
+    if args.distribution == "node_color" and not args.color_dir:
+        raise ValueError("--distribution node_color needs --color_dir (the "
+                         "output of python -m "
+                         "coala_gnn_tpu_torch.generate_colors)")
 
 
 @dataclasses.dataclass
@@ -180,7 +199,10 @@ class Run:
     caller may swap ``optimizer`` (over ``model``'s parameters) or set
     ``model.dropout`` between ``build`` and ``train``. ``trainer`` is the
     resident pipeline's ``ShardedResidentTrainer`` (None on the host
-    pipeline), ``window`` its clamped ``--window``."""
+    pipeline), ``window`` its clamped ``--window``, ``meta`` the
+    ``--color_dir`` metadata (None without ``node_color``). ``fresh``:
+    the resident loop's first step is a single step (where JAX
+    initialises its params), until a ``resume`` probe has run."""
 
     args: argparse.Namespace
     device: torch.device
@@ -196,6 +218,8 @@ class Run:
     sampled: int = 0             # sampled nodes trained
     trainer: Optional[Any] = None
     window: int = 1
+    meta: Optional[Any] = None   # coloring.ColorMetadata
+    fresh: bool = True
 
     @property
     def scheduler(self):
@@ -204,6 +228,10 @@ class Run:
     @property
     def hetero(self) -> bool:
         return self.args.model_type in HETERO
+
+    @property
+    def colors(self) -> Optional[np.ndarray]:
+        return None if self.meta is None else self.meta.color
 
     def put(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -227,7 +255,8 @@ class Run:
         if self.cache is None:
             return self.put(np.stack([self.store.fetch(ids)
                                       for ids in hb.input_ids]))
-        return self.cache.fetch(hb.input_ids, hb.num_input, self.store.fetch)
+        return self.cache.fetch(hb.input_ids, hb.num_input, self.store.fetch,
+                                colors=self.colors)
 
 
 def with_edge_types(ds, num_edge_types: int, seed: int):
@@ -258,6 +287,7 @@ def build(args, ds=None) -> Run:
 
     from coala_gnn_tpu_torch.cache import feature_cache as fc
     from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+    from coala_gnn_tpu_torch.coloring import load_color_metadata
     from coala_gnn_tpu_torch.data.loader import CoalaDataLoader
     from coala_gnn_tpu_torch.distribution import (DistributionScheduler,
                                                   SeedDistributor)
@@ -294,9 +324,16 @@ def build(args, ds=None) -> Run:
     print("hosts: 1 (this=0), local devices: 1")
     devices = [device]
 
+    meta = None
+    if args.distribution == "node_color":
+        meta = load_color_metadata(args.color_dir)
     distributor = SeedDistributor(
         ds.train_idx, batch_size=B, local_size=1, num_parts=1,
-        mode=args.distribution, shuffle_seed=args.seed,
+        mode=args.distribution,
+        color=None if meta is None else meta.color,
+        topk_colors=None if meta is None else meta.topk,
+        affinity=None if meta is None else meta.score,
+        shuffle_seed=args.seed,
         drop_tail=not (args.keep_tail or args.mask_tail))
     scheduler = DistributionScheduler(distributor, part_id=0, local_rank=0,
                                       refresh_counter=args.refresh_counter)
@@ -322,6 +359,8 @@ def build(args, ds=None) -> Run:
         mode = {"nvshmem": "sharded", "nccl": "sharded"}.get(
             args.cache_backend, args.cache_backend)
         cfg = fc.make_config(cache_mb=args.cache_size, dim=ds.feature_dim,
+                             num_colors=0 if meta is None
+                             else meta.num_colors,
                              dtype=dtype, quantize=args.quantize)
         cache = ShardedFeatureCache(cfg, devices, mode=mode)
         scheduler.meta_fn = cache.local_color_meta
@@ -332,7 +371,8 @@ def build(args, ds=None) -> Run:
     loader = CoalaDataLoader(scheduler=scheduler, sampler=sampler,
                              labels=ds.labels, local_size=1, prefetch=2)
     run = Run(args=args, device=device, ds=ds, model=model, optimizer=opt,
-              sampler=sampler, loader=loader, store=store, cache=cache)
+              sampler=sampler, loader=loader, store=store, cache=cache,
+              meta=meta)
     if args.pipeline == "resident":
         from coala_gnn_tpu_torch.parallel.sharded_resident import \
             ShardedResidentTrainer
@@ -340,8 +380,11 @@ def build(args, ds=None) -> Run:
         run.trainer = ShardedResidentTrainer(
             graph=ds.graph, host_fetch=store.fetch, labels=ds.labels,
             cache=cache, model=model, optimizer=opt, fanouts=fanouts,
-            batch_size=B)
-        print("pipeline: device-resident (seeds-only upload)")
+            batch_size=B, colors=run.colors,
+            nbr_cap=args.nbr_cap or None)
+        print("pipeline: device-resident (seeds-only upload"
+              + (f", padded table P={args.nbr_cap})" if args.nbr_cap
+                 else ")"))
         run.window = max(args.window, 1)
         if run.window > 1 and args.refresh_counter < run.window:
             print(f"note: clamping window {run.window} to refresh_counter "
@@ -350,15 +393,72 @@ def build(args, ds=None) -> Run:
     return run
 
 
+def steps_per_epoch(run: Run, max_steps: Optional[int] = None) -> int:
+    """The distributor's iterations per epoch, at most ``max_steps``
+    (default ``--max_steps``; 0 = no limit)."""
+    max_steps = run.args.max_steps if max_steps is None else max_steps
+    n = run.scheduler.d.num_iters
+    return min(n, max_steps) if max_steps else n
+
+
+def resume(run: Run) -> int:
+    """``--resume``, as ``examples/train.py`` does it on either loop: one
+    probe batch (the host loop: the loader's first batch and its fetch;
+    the resident loop: one ``begin`` / ``resolve`` from the RESUME stream,
+    after which its first step is no longer a single step), then the
+    latest checkpoint of ``--save_dir`` restored into the model and the
+    optimizer, the run set to start at epoch ``min(step // steps_per_epoch,
+    --epochs)`` (its step counter at the checkpoint's step), and the
+    scheduler reset to ``--seed`` + that epoch. Prints the JAX
+    CLI's line when a checkpoint was found; returns the start epoch."""
+    from coala_gnn_tpu_torch.utils import checkpoint as ckpt
+    from coala_gnn_tpu_torch.utils.rng import RESUME, step_generators
+
+    args = run.args
+    if run.trainer is None:
+        batches = iter(run.loader)
+        try:
+            run.features(next(batches))
+        finally:
+            batches.close()
+    else:
+        rt = run.trainer
+        grid = run.scheduler.run_domain().reshape(1, args.batch_size)
+        gen = step_generators(args.seed, 0, 1, RESUME, run.device)[0]
+        rt.resolve(rt.begin(grid.astype(np.int32), gen))
+        run.fresh = False
+    step0 = ckpt.restore(args.save_dir, run.model, run.optimizer)
+    start = 0
+    if step0 is not None:
+        start = min(step0 // max(steps_per_epoch(run), 1),
+                    args.epochs)
+        run.step = step0
+        print(f"resumed from step {step0} -> starting at epoch {start}")
+    run.epoch = start
+    run.scheduler.reset(args.seed + start)
+    return start
+
+
+def _save(run: Run, spe: int) -> None:
+    """``--save_dir``: the checkpoint of the epoch just trained
+    (``run.epoch``), at step ``(epoch + 1) * spe``."""
+    from coala_gnn_tpu_torch.utils import checkpoint as ckpt
+
+    ckpt.save(run.args.save_dir, run.model, run.optimizer,
+              step=(run.epoch + 1) * spe)
+    print(f"checkpoint saved to {run.args.save_dir}")
+
+
 def train(run: Run, epochs: Optional[int] = None,
           max_steps: Optional[int] = None) -> dict:
-    """The CLI's epoch loop: ``epochs`` (default ``--epochs``) epochs of at
-    most ``max_steps`` steps (default ``--max_steps``, 0 = the whole
-    epoch), each printing the JAX CLI's epoch line (and the cache's hit
-    ratio). Returns the step losses (numpy f32), the epochs' wall seconds
-    (each ending in a device sync), their feature-fetch seconds, the
-    sampled edges (the sum of the block masks) and nodes. The resident
-    pipeline runs ``train_resident``."""
+    """The CLI's epoch loop: ``epochs`` epochs (default: up to
+    ``--epochs``, from ``run.epoch``) of at most ``max_steps`` steps
+    (default ``--max_steps``, 0 = the whole epoch), each printing the JAX
+    CLI's epoch line (and the cache's hit ratio) and, with ``--save_dir``,
+    saving its checkpoint. Returns the step losses (numpy f32), the
+    epochs' wall seconds (each ending in a device sync), their
+    feature-fetch seconds, the sampled edges (the sum of the block masks)
+    and nodes. The resident pipeline runs ``train_resident``."""
     if run.trainer is not None:
         return train_resident(run, epochs, max_steps)
     from coala_gnn_tpu_torch.parallel.train import make_sharded_train_step
@@ -368,11 +468,8 @@ def train(run: Run, epochs: Optional[int] = None,
     train_step = make_sharded_train_step(run.model, run.optimizer,
                                          [run.device], B,
                                          masked=args.mask_tail)
-    epochs = args.epochs if epochs is None else epochs
-    max_steps = args.max_steps if max_steps is None else max_steps
-    steps_per_epoch = len(run.loader)
-    if max_steps:
-        steps_per_epoch = min(steps_per_epoch, max_steps)
+    epochs = args.epochs - run.epoch if epochs is None else epochs
+    spe = steps_per_epoch(run, max_steps)
     losses, epoch_s, agg_s = [], [], []
     edges = sampled = 0
     for _ in range(epochs):
@@ -382,7 +479,7 @@ def train(run: Run, epochs: Optional[int] = None,
         loss = acc = None
         batches = iter(run.loader)
         try:
-            for _, hb in zip(range(steps_per_epoch), batches):
+            for _, hb in zip(range(spe), batches):
                 dblocks = run.blocks(hb)
                 ta = time.perf_counter()
                 x = run.features(hb)
@@ -417,8 +514,10 @@ def train(run: Run, epochs: Optional[int] = None,
             s = run.cache.stats()
             print(f"Cache hit ratio: {s['hit_ratio']:.3f} "
                   f"({s['hits']} hits / {s['misses']} misses)")
+        run.loader.reset(args.seed + run.epoch + 1)
+        if args.save_dir:
+            _save(run, spe)
         run.epoch += 1
-        run.loader.reset(args.seed + run.epoch)
     return {"losses": (torch.stack(losses).float().cpu().numpy() if losses
                        else np.zeros(0, np.float32)),
             "epoch_s": epoch_s, "agg_s": agg_s, "edges": edges,
@@ -464,11 +563,8 @@ def train_resident(run: Run, epochs: Optional[int] = None,
         run.scheduler
     rt.model, rt.optimizer = run.model, run.optimizer
     K = run.window
-    epochs = args.epochs if epochs is None else epochs
-    max_steps = args.max_steps if max_steps is None else max_steps
-    steps_per_epoch = sched.d.num_iters
-    if max_steps:
-        steps_per_epoch = min(steps_per_epoch, max_steps)
+    epochs = args.epochs - run.epoch if epochs is None else epochs
+    spe = steps_per_epoch(run, max_steps)
     # the one iteration with wrapped duplicates is the epoch's last
     tail_it = -1
     if args.mask_tail and sched.d.num_iters and \
@@ -496,8 +592,9 @@ def train_resident(run: Run, epochs: Optional[int] = None,
         loss = acc = pending = None
         edge_counts = []
         it = 0
-        while it < steps_per_epoch:
-            if run.step == 0 or it == tail_it:
+        while it < spe:
+            first = run.fresh and run.step == 0
+            if first or it == tail_it:
                 # the run's first step (where JAX initialises its params)
                 # and the masked tail step: one step, no begin ahead
                 g = grid()
@@ -508,12 +605,12 @@ def train_resident(run: Run, epochs: Optional[int] = None,
                 loss, acc = rt.train_step(rt.resolve(h), g_drop, valid=v)
                 losses.append(loss.reshape(1))
                 all_edges.append(edges_of(h.blocks))
-                if run.step > 0:
+                if not first:
                     edge_counts.append(all_edges[-1])
                 run.step += 1
                 it += 1
             elif K > 1:
-                k_here = min(K, steps_per_epoch - it)
+                k_here = min(K, spe - it)
                 if tail_it >= 0 and it < tail_it < it + k_here:
                     k_here = tail_it - it   # stop the window before the tail
                 g = np.stack([grid() for _ in range(k_here)], axis=1)
@@ -528,7 +625,7 @@ def train_resident(run: Run, epochs: Optional[int] = None,
                 nxt = pending if pending is not None else rt.begin(
                     grid(), gens(run.step)[0])
                 pending = None
-                if it + 1 < steps_per_epoch and it + 1 != tail_it:
+                if it + 1 < spe and it + 1 != tail_it:
                     pending = rt.begin(grid(), gens(run.step + 1)[0])
                 loss, acc = rt.train_step(rt.resolve(nxt),
                                           gens(run.step)[1])
@@ -551,8 +648,10 @@ def train_resident(run: Run, epochs: Optional[int] = None,
         s = stats[-1]
         print(f"Cache hit ratio: {s['hit_ratio']:.3f} "
               f"({s['hits']} hits / {s['misses']} misses)")
+        sched.reset(args.seed + run.epoch + 1)
+        if args.save_dir:
+            _save(run, spe)
         run.epoch += 1
-        sched.reset(args.seed + run.epoch)
     edges = int(torch.stack(all_edges).sum()) if all_edges else 0
     return {"losses": (torch.cat(losses).float().cpu().numpy() if losses
                        else np.zeros(0, np.float32)),
@@ -610,6 +709,8 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     refuse_unported(args)
     run = build(args)
+    if args.resume:
+        resume(run)
     train(run)
     if args.eval:
         evaluate(run)

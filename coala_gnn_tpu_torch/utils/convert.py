@@ -16,6 +16,12 @@ becomes a ``torch.bfloat16`` tensor. numpy has no bf16 of its own (JAX
 hands out ``ml_dtypes.bfloat16`` arrays, which the port does not import),
 so a bf16 leaf is recognised by its dtype's name and crosses through f32,
 which holds every bf16 value exactly.
+
+``adam_state_from_optax`` carries an optax Adam / AdamW state across:
+``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq`` (mapped as the params
+are), ``count`` -> ``step``, into a ``torch.optim.Adam`` / ``AdamW`` over
+the converted model, so both frameworks can take their next step from one
+state.
 """
 
 from __future__ import annotations
@@ -97,3 +103,42 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor],
             node = node.setdefault(name, {})
         node[leaf] = arr
     return {"params": tree}
+
+
+def _adam_part(opt_state):
+    """The part of an optax state (a tuple of transform states, possibly
+    nested) that has ``count``, ``mu`` and ``nu``."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam_part(part)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer) -> None:
+    """Load an optax ``adam`` / ``adamw`` state (``jax.device_get`` of it,
+    or numpy leaves) into ``optimizer``, a ``torch.optim.Adam`` or
+    ``AdamW`` over ``model`` whose params came from the same flax tree
+    (``params_from_flax``). Each param gets ``step`` = ``count`` (f32 on
+    the host, as torch keeps it), ``exp_avg`` = ``mu`` and ``exp_avg_sq``
+    = ``nu``, on the param's device and in its dtype."""
+    adam = _adam_part(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    if any(g.get("amsgrad") for g in optimizer.param_groups):
+        raise ValueError("amsgrad keeps a state optax's adam does not have")
+    mu, nu = params_from_flax(adam.mu), params_from_flax(adam.nu)
+    step = float(np.asarray(adam.count))
+    names = dict(model.named_parameters())
+    if set(names) != set(mu):
+        raise ValueError(f"params {sorted(names)} != optax state "
+                         f"{sorted(mu)}")
+    for name, p in names.items():
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype)}

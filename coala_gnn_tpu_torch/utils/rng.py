@@ -15,9 +15,10 @@ without touching the dropout stream, and a replayed step draws what the
 window drew. The CLI's resident loop keys a window by the run step it
 starts at and a single step by its run step (``(step, 0, stream)``), so no
 two steps of a run share a stream; its eval batches sample from ``(batch,
-0, EVAL)``. On CUDA the generator is Philox; its draws differ from JAX's
-threefry, which is why the tests feed both samplers the same uniforms or
-use fanout >= max in-degree (ROADMAP.md section C).
+0, EVAL)``, and the probe step of ``--resume`` from ``(0, 0, RESUME)``.
+On CUDA the generator is Philox; its draws differ from JAX's threefry,
+which is why the tests feed both samplers the same uniforms or use
+fanout >= max in-degree (ROADMAP.md section C).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import List
 import numpy as np
 import torch
 
-SAMPLE, DROPOUT, EVAL = 0, 1, 2
+SAMPLE, DROPOUT, EVAL, RESUME = 0, 1, 2, 3
 
 
 def stream_seed(seed: int, window: int, step: int, stream: int) -> int:
@@ -39,7 +40,7 @@ def stream_seed(seed: int, window: int, step: int, stream: int) -> int:
 def step_generators(seed: int, window: int, num_steps: int, stream: int,
                     device) -> List[torch.Generator]:
     """One generator per step of ``window`` for ``stream`` (SAMPLE,
-    DROPOUT or EVAL), on ``device``. Calling it twice gives two
+    DROPOUT, EVAL or RESUME), on ``device``. Calling it twice gives two
     independent copies of the same streams."""
     gens = []
     for step in range(num_steps):

@@ -252,9 +252,10 @@ def test_cli_resident_runs_every_model_on_cpu(capsys):
     (["--model_type", "rgcn", "--devices", "2"], NotImplementedError,
      "multi-GPU"),
     (["--shard_topology"], NotImplementedError, "multi-GPU"),
-    (["--distribution", "node_color"], NotImplementedError, "multi-GPU"),
-    (["--nbr_cap", "8"], NotImplementedError, "nbr_cap"),
-    (["--save_dir", "ckpt"], NotImplementedError, "checkpoint"),
+    (["--distribution", "node_color"], ValueError, "--color_dir"),
+    (["--nbr_cap", "2", "--fan_out", "4,3"], ValueError,
+     "nbr_cap=2 < max fanout 4"),
+    (["--resume"], ValueError, "--save_dir"),
     (["--data", "igb"], NotImplementedError, "the real datasets"),
     (["--rng_impl", "rbg"], NotImplementedError, "Not ported"),
     (["--profile_dir", "trace"], ValueError, "--profile_dir"),

@@ -483,20 +483,20 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu():
     (["--model_type", "rgcn", "--pipeline", "resident", "--cache_size", "1",
       "--devices", "2"], "multi-GPU"),
     (["--model_type", "rsage", "--devices", "2"], "multi-GPU"),
-    (["--model_type", "rgat", "--nbr_cap", "8"], "nbr_cap"),
-    (["--nbr_cap", "8"], "nbr_cap"),
+    (["--model_type", "rgat", "--shard_topology"], "multi-GPU"),
+    (["--data", "igb"], "the real datasets"),
     (["--devices", "2"], "multi-GPU"),
-    (["--distribution", "node_color"], "multi-GPU"),
-    (["--color_dir", "colors"], "multi-GPU"),
+    (["--distribution", "node_color", "--devices", "2"], "multi-GPU"),
+    (["--path", "data"], "the real datasets"),
     (["--shard_topology"], "multi-GPU"),
-    (["--save_dir", "ckpt"], "checkpoint"),
-    (["--resume"], "checkpoint"),
+    (["--dataset_size", "full"], "the real datasets"),
+    (["--rng_impl", "threefry2x32"], "Not ported"),
     (["--pipeline", "resident", "--cache_size", "1", "--shard_topology"],
      "multi-GPU"),
-    (["--pipeline", "resident", "--cache_size", "1", "--nbr_cap", "8"],
-     "nbr_cap"),
-    (["--pipeline", "resident", "--cache_size", "1", "--resume"],
-     "checkpoint"),
+    (["--pipeline", "resident", "--cache_size", "1", "--devices", "2"],
+     "multi-GPU"),
+    (["--pipeline", "resident", "--cache_size", "1", "--data", "igb"],
+     "the real datasets"),
     (["--data", "ogbn-arxiv"], "the real datasets"),
     (["--rng_impl", "rbg"], "Not ported"),
 ])

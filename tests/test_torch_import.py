@@ -7,7 +7,10 @@ trains one window at full coverage and staged windows under pressure with
 bf16 and int8 transport (fused native and gather + encode stores), and
 the host pipeline runs (``run_host`` under pressure, the CLI with a cache
 and eval), and so does the CLI's resident pipeline
-(``parallel/sharded_resident.py``) for SAGE and RGCN."""
+(``parallel/sharded_resident.py``) for SAGE and RGCN; the coloring
+(``coloring/``, ``generate_colors.py``) writes its metadata, and the
+resident CLI trains on the padded table with ``node_color``, saves a
+checkpoint (``utils/checkpoint.py``) and resumes from it."""
 
 import os
 import subprocess
@@ -67,6 +70,27 @@ for kind in ("sage", "rgcn"):
               "8", "--max_steps", "3", "--cache_size", "1", "--eval",
               "--pipeline", "resident", "--window", "2", "--model_type",
               kind])
+import os, shutil, tempfile
+from coala_gnn_tpu_torch import generate_colors
+from coala_gnn_tpu_torch.coloring import load_color_metadata
+from coala_gnn_tpu_torch.utils import checkpoint
+tmp = tempfile.mkdtemp()
+try:
+    colors = os.path.join(tmp, "colors")
+    generate_colors.main(["--num_nodes", "300", "--feature_dim", "8",
+                          "--out", colors])
+    assert load_color_metadata(colors).num_colors > 0
+    flags = ["--device", "cpu", "--num_nodes", "300", "--feature_dim", "8",
+             "--batch_size", "8", "--fan_out", "3,2", "--hidden_channels",
+             "8", "--max_steps", "3", "--cache_size", "1", "--pipeline",
+             "resident", "--window", "2", "--nbr_cap", "4",
+             "--distribution", "node_color", "--color_dir", colors,
+             "--save_dir", os.path.join(tmp, "ck")]
+    cli.main(flags)
+    cli.main(flags + ["--epochs", "2", "--resume"])
+    assert checkpoint.latest_step(os.path.join(tmp, "ck")) == 6
+finally:
+    shutil.rmtree(tmp)
 jaxish = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("coala_gnn_tpu", "jax", "jaxlib",
                                        "flax", "optax", "ml_dtypes")

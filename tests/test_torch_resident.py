@@ -245,19 +245,25 @@ def test_per_step_path_with_misses_matches_jax(setup):
 
 
 def test_unported_paths_raise(setup):
-    """What stays unported raises and names its ROADMAP.md item: dedup=True
-    and nbr_cap sampling. int8 lines on a bf16 flat table are ported (the
-    bf16 model dtype; tests/test_torch_bf16.py holds them to JAX) and build
-    their flat int8 table."""
+    """dedup=True and nbr_cap sampling are ported
+    (tests/test_torch_resident_nbr_dedup.py) and build; a table narrower
+    than the largest fanout raises JAX's ValueError. int8 lines on a bf16
+    flat table are ported (the bf16 model dtype; tests/test_torch_bf16.py
+    holds them to JAX) and build their flat int8 table."""
     ds, fanouts, _, params0, grids = setup
     tt = _torch_trainer(ds, fanouts, params0)
-    for kw in ({"dedup": True}, {"nbr_cap": 2 * max(fanouts)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ResidentTrainer(graph=ds.graph, host_fetch=None,
-                            labels=ds.labels, cache_cfg=tt.cache_cfg,
-                            model=tt.model, optimizer=tt.optimizer,
-                            fanouts=fanouts, batch_size=B, device="cpu",
-                            **kw)
+
+    def build(**kw):
+        return ResidentTrainer(graph=ds.graph, host_fetch=None,
+                               labels=ds.labels, cache_cfg=tt.cache_cfg,
+                               model=tt.model, optimizer=tt.optimizer,
+                               fanouts=fanouts, batch_size=B, device="cpu",
+                               **kw)
+
+    assert build(dedup=True).dedup
+    assert build(nbr_cap=2 * max(fanouts)).g.nbr_table is not None
+    with pytest.raises(ValueError, match="nbr_cap"):
+        build(nbr_cap=max(fanouts) - 1)
     bf16_int8 = dataclasses.replace(tt.cache_cfg, dtype=torch.bfloat16,
                                     quantize=True)
     rt = ResidentTrainer(graph=ds.graph, host_fetch=None, labels=ds.labels,

@@ -121,7 +121,15 @@ def test_fits_device_graph():
 
 
 def test_unported_options_raise(tiny_dataset):
+    """dedup=True and the nbr_cap table are ported
+    (tests/test_torch_device_sampler_dedup.py); what the JAX module refuses
+    the port refuses too: a table of fewer than one slot per node."""
+    with pytest.raises(ValueError, match="nbr_cap must be >= 1"):
+        tds.to_device_graph(tiny_dataset.graph, "cpu", nbr_cap=0)
+    with pytest.raises(ValueError, match="nbr_cap must be >= 1"):
+        jds.to_device_graph(tiny_dataset.graph, nbr_cap=0)
     tg = tds.to_device_graph(tiny_dataset.graph, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.sample_blocks_device(tg, torch.arange(4, dtype=torch.int32),
-                                 [2], 4, torch.Generator(), dedup=True)
+    blocks, _, num = tds.sample_blocks_device(
+        tg, torch.arange(4, dtype=torch.int32), [2], 4, torch.Generator(),
+        dedup=True)
+    assert blocks[0].adj is not None and int(num) >= 4

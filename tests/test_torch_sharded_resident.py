@@ -416,14 +416,17 @@ def test_exchange_is_the_local_lookup(data):
     assert cache.stats()["hits"] == 0          # count_stats=False
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"shard_topology": True}, "multi-GPU"),
-    ({"nbr_cap": 32}, "nbr_cap"),
-    ({"stage_overlap": True}, "staged miss path"),
+@pytest.mark.parametrize("kw,error,item", [
+    ({"shard_topology": True}, NotImplementedError, "multi-GPU"),
+    ({"shard_topology": True, "nbr_cap": 32}, ValueError, "shard_topology"),
+    ({"stage_overlap": True}, NotImplementedError, "staged miss path"),
 ])
-def test_unported_options_raise(data, kw, item):
+def test_unported_options_raise(data, kw, error, item):
+    """What is not ported raises naming its ROADMAP.md item; nbr_cap is
+    ported (tests/test_torch_resident_nbr_dedup.py) and keeps JAX's
+    ValueError with shard_topology."""
     ds, _, fanouts = data
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         _port(ds, fanouts, "sage", FULL, **kw)
 
 
