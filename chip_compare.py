@@ -5,8 +5,9 @@ one CUDA card, in one process, in turns: other, this, this, other.
 
 Builds OTHER_CHECKOUT/coala_gnn_tpu_torch/csrc/gather_spmm.cu with this
 checkout's nvcc flags (into this checkout's coala_gnn_tpu_torch/_build/)
-beside this checkout's own, and times with ``chip_smoke.median_ms`` (L2
-flushed, median of 25, after a warm-up) on the same inputs:
+beside this checkout's own (both nvcc runs at once), and times with
+``chip_smoke.median_ms`` (L2 flushed, median of 25, after a warm-up) on
+the same inputs:
 
   - the forward, f32, bf16 and int8 (+ row scales) tables at the training
     step's layer-0 shape, and f32 at GAT layer 1's combine (D = 16);
@@ -15,18 +16,20 @@ flushed, median of 25, after a warm-up) on the same inputs:
     transpose (built once beforehand, as the GAT layer keeps it); an older
     one zeroes the table and adds into it (its wrapper's fill included);
   - grad_w (f32 table) at GAT's two combine shapes;
-  - adj's transpose at the host-packed step's layer-1 shape and at GAT's
-    two combine shapes, each checkout allocating as its wrapper does
-    (row_ptr, slot and, where its form needs it, scratch), and the device
-    operations one call issues (torch.profiler), counted after every
-    timing, with this checkout's transposes timed once more after that
-    (a profiler session slows the card's later launches).
+  - adj's transpose at the host-packed step's layer-1 shape, at GAT's
+    two combine shapes, at RGAT's stacked layers 0 and 1 (the host CLI's
+    step) and at GAT layer 0 on the host sampler's layout with its padded
+    rows at row 0, each checkout allocating as its wrapper does (row_ptr,
+    slot and, where its form needs it, scratch), and the device
+    operations one call issues (``chip_smoke.device_ops``: the nodes of a
+    CUDA graph that captures the call), counted after every timing.
 
 Checks that both checkouts' forward outputs are equal bit for bit, their
 grad_w within its f32 bound of the plain version (and reports whether the
 two are equal bit for bit), their grad_x and transposes equal to the
-plain versions. Prints one line per entry and a
-JSON line; needs one card, and exits with a non-zero code without one.
+plain versions (so to each other, bit for bit). Prints one line per entry
+and a JSON line; needs one card, and exits with a non-zero code without
+one.
 """
 
 from __future__ import annotations
@@ -42,18 +45,28 @@ import sys
 SOURCE = os.path.join("coala_gnn_tpu_torch", "csrc", "gather_spmm.cu")
 
 
-def load(src: str) -> ctypes.CDLL:
-    """Build ``src`` with this checkout's nvcc flags unless built; load."""
+def build(src: str) -> tuple:
+    """Start building ``src`` with this checkout's nvcc flags unless built
+    -> (library path, the build's process or None)."""
     from coala_gnn_tpu_torch.utils.build import BUILD_DIR, NVCC_FLAGS, find_nvcc
 
     with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
     out = os.path.join(BUILD_DIR, f"libcompare_{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", out, src], check=True,
-                       capture_output=True, text=True)
-    lib = ctypes.CDLL(out)
+    if os.path.exists(out):
+        return out, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    return out, subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", out, src],
+                                 stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def load(path: str, proc) -> ctypes.CDLL:
+    """Wait for ``build``'s process, then load and type the library."""
+    if proc is not None and proc.wait():
+        raise RuntimeError(f"nvcc failed for {path}: "
+                           f"{proc.stderr.read()[-2000:]}")
+    lib = ctypes.CDLL(path)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     sizes = [i64, i32, i32, i32, ptr]
     for name in ("gather_spmm_f32", "gather_spmm_bf16",
@@ -71,6 +84,14 @@ def load(src: str) -> ctypes.CDLL:
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = i64
     return lib
+
+
+def form_of(lib, s: int, nf: int) -> str:
+    """The transpose's form in ``lib`` for this shape: one-block where it
+    takes no scratch, else above one block (this checkout's grid form)."""
+    if lib.gather_spmm_transpose_scratch(s, nf) == 0:
+        return "one-block"
+    return "above one block"
 
 
 def forward(torch, lib, x, scale, adj, w):
@@ -119,9 +140,9 @@ def grad_w(torch, lib, x, adj, g):
 
 def transpose(torch, lib, adj, s):
     """adj's transpose (row_ptr, slot) through ``lib``, allocated as that
-    checkout's wrapper does: a library that can say which form a shape
-    takes gets scratch only for the multi-pass form, an older one always
-    (s + nf + its scan tiles)."""
+    checkout's wrapper does: a library that can say how much scratch a
+    shape takes gets that much (none for the one-block form), an older
+    one always s + nf + its scan tiles."""
     nf = adj.numel()
     if hasattr(lib, "gather_spmm_transpose_scratch"):
         words = lib.gather_spmm_transpose_scratch(s, nf)
@@ -169,8 +190,9 @@ def main() -> int:
         gather_spmm_grad_x_reference, grad_w_error_bound)
 
     smi = cs.smi_string()
-    libs = {"other": load(os.path.join(sys.argv[1], SOURCE)),
-            "this": load(SOURCE)}
+    built = {"other": build(os.path.join(sys.argv[1], SOURCE)),
+             "this": build(SOURCE)}
+    libs = {k: load(*v) for k, v in built.items()}
     cs.warm_up(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     layer0 = (cs.N_NODES + 1, 6 * cs.BATCH, cs.FANOUTS[0], cs.DIM)
@@ -224,15 +246,21 @@ def main() -> int:
               f"{res[name]['bitwise_equal']}")
     packed, s_packed = cs.host_packed_adj(torch, gen)
     counted = []
-    for name, adj, s in [
-            ("adj_transpose host-packed layer 1", packed, s_packed),
-            *((f"adj_transpose GAT layer {layer}",
-               head_stacked_adj(None, cap_src, (cap_dst, F), cs.HEADS,
-                                "cuda"), S)
-              for layer, (S, N, F, D, cap_src, cap_dst) in enumerate(gat))]:
-        form = ("one-block" if libs["this"].gather_spmm_transpose_scratch(
-            s, adj.numel()) == 0 else "multi-pass")
-        name += f" (S {s}, N*F {adj.numel()}, this: {form})"
+    shapes = [("adj_transpose host-packed layer 1", packed, s_packed),
+              *((f"adj_transpose GAT layer {layer}",
+                 head_stacked_adj(None, cap_src, (cap_dst, F), cs.HEADS,
+                                  "cuda"), S)
+                for layer, (S, N, F, D, cap_src, cap_dst) in enumerate(gat)),
+              ("adj_transpose RGAT layer 0",
+               *cs.rgat_stacked_adj(torch, gen, 0)),
+              ("adj_transpose RGAT layer 1",
+               *cs.rgat_stacked_adj(torch, gen, 1)),
+              ("adj_transpose GAT layer 0 host layout, padded rows at row 0",
+               *cs.gat_host_adj(torch, gen))]
+    for name, adj, s in shapes:
+        name += (f" (S {s}, N*F {adj.numel()}, other: "
+                 f"{form_of(libs['other'], s, adj.numel())}, this: "
+                 f"{form_of(libs['this'], s, adj.numel())})")
         want = adj_transpose_reference(adj, s)
         for k in libs:
             got = transpose(torch, libs[k], adj, s)
@@ -243,20 +271,16 @@ def main() -> int:
                           *(lambda lib=libs[k]: transpose(torch, lib, adj, s)
                             for k in libs))
         counted.append((name, adj, s))
-    for name, adj, s in counted:      # last: a profiler session slows the
-        res[name]["device_ops"] = {   # card's later launches
+    for name, adj, s in counted:
+        res[name]["device_ops"] = {
             k: len(cs.device_ops(torch, lambda lib=libs[k]: transpose(
                 torch, lib, adj, s))) for k in libs}
-    for name, adj, s in counted:      # which this shows
-        res[name]["this_ms_after_profiler"] = cs.median_ms(
-            torch, lambda: transpose(torch, libs["this"], adj, s))
     for name, r in res.items():
         print(f"{name}: other {r['other_ms'][0]:.4f} {r['other_ms'][1]:.4f}, "
               f"this {r['this_ms'][0]:.4f} {r['this_ms'][1]:.4f} ms "
               f"(median of 25 each, L2 flushed; {smi})"
-              + (f"; device operations per call {r['device_ops']}, this "
-                 f"after a profiler session {r['this_ms_after_profiler']:.4f}"
-                 " ms" if "device_ops" in r else ""))
+              + (f"; device operations per call {r['device_ops']}"
+                 if "device_ops" in r else ""))
     print(json.dumps({"card": smi, "entries": res}))
     return 0
 

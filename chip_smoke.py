@@ -25,7 +25,13 @@ trainer CLI's hetero models, and the CLI's ``--pipeline resident``
      feat, a bf16 model's combine), and the
      transpose and grad_x on an adj with repeated rows; the transpose again
      at the host-packed step's layer-1 shape, where it must take its
-     one-block form; prints the transpose's form at each shape, and each
+     one-block form, and at every shape above one block at full width
+     (RGAT's stacked layers 0 and 1, GAT layer 0 contiguous and on the
+     host sampler's layout with and without its padded rows at row 0),
+     bitwise and timed; then one call at each shape captured in a CUDA
+     graph: one node (device operation) each, replayed bitwise; prints
+     the
+     transpose's form at each shape, and each
      kernel's registers and spills; times each against its plain version,
      its bound (bytes or operations over the card's published peak) and,
      for the f32 forward, the one PyTorch call of the same function
@@ -84,9 +90,8 @@ trainer CLI's hetero models, and the CLI's ``--pipeline resident``
      per batch; holds the forward at layers 0 and 1, grad_x and adj's
      transpose at layer 1 against their plain versions on one real
      host-packed step's inputs (the transpose bitwise, in its one-block
-     form), and last counts the device operations of one transpose call
-     there with torch.profiler (must be one; last, because after a
-     profiler session the card's launches run slower); host-packed-bf16
+     form), and counts the device operations of one transpose call there
+     (``device_ops``, must be one); host-packed-bf16
      (bf16 lines, f32 model: bench.py's run_host(bf16=True)) beside
      host-packed;
  11. resident-bf16 (bench.py's row: bf16 flat table at full coverage, a
@@ -416,11 +421,62 @@ def host_packed_adj(torch, gen):
 
 def transpose_form(adj, s) -> str:
     """Which form the card's transpose takes for this shape (the C side's
-    choice, by shared memory)."""
+    choice, by the shape and the card's capacity): one-block where it
+    needs no scratch, else grid."""
     from coala_gnn_tpu_torch.ops.gather_spmm import transpose_scratch
 
     words = transpose_scratch(s, adj.numel(), adj.device)
-    return "one-block" if words == 0 else "multi-pass"
+    return "one-block" if words == 0 else "grid"
+
+
+def rgat_stacked_adj(torch, gen, layer: int, device="cuda"):
+    """(adj, S) of RGAT's stacked combine on the host CLI's step at the
+    flagship config, layer 0 or 1: a typed block (3 relations, 4 heads),
+    ~20% of slots masked and pointed at their own dst row, as the host
+    sampler pads them, each relation's dead slots at their own dst row
+    (``live_or_own``), stacked by ``head_stacked_adj``."""
+    from coala_gnn_tpu_torch.models.layers import head_stacked_adj
+    from coala_gnn_tpu_torch.ops.aggregate import live_or_own
+    from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
+
+    rels = 3
+    cap_dst, n_src = block_capacities(BATCH, FANOUTS)[layer]
+    f = FANOUTS[layer]
+    adj = torch.randint(0, n_src, (cap_dst, f), generator=gen,
+                        device=device, dtype=torch.int32)
+    own = torch.arange(cap_dst, device=device,
+                       dtype=torch.int32)[:, None].expand(cap_dst, f)
+    mask = torch.rand(cap_dst, f, generator=gen, device=device) >= 0.2
+    adj = torch.where(mask, adj, own)
+    rel = torch.randint(0, rels, (cap_dst, f), generator=gen, device=device)
+    live = mask[None] & (rel[None] == torch.arange(rels, device=device)[
+        :, None, None])
+    stacked = head_stacked_adj(live_or_own(adj[None], live), n_src,
+                               (cap_dst, f), HEADS, device, rels)
+    return stacked, rels * n_src * HEADS
+
+
+def gat_host_adj(torch, gen, padded: float = 0.06, device="cuda"):
+    """(adj, S) of GAT layer 0's head-stacked combine on the host
+    sampler's layout: the last ``padded`` share of the dst rows are
+    padding, whose slots all name source row 0 (head-stacked rows 0-3);
+    of the others ~20% of slots masked and pointed at their own dst row,
+    the rest random source rows. ``padded=0`` is the same shape without
+    the skew."""
+    from coala_gnn_tpu_torch.models.layers import head_stacked_adj
+    from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
+
+    cap_dst, n_src = block_capacities(BATCH, FANOUTS)[0]
+    f = FANOUTS[0]
+    adj = torch.randint(0, n_src, (cap_dst, f), generator=gen,
+                        device=device, dtype=torch.int32)
+    own = torch.arange(cap_dst, device=device,
+                       dtype=torch.int32)[:, None].expand(cap_dst, f)
+    adj = torch.where(torch.rand(cap_dst, f, generator=gen, device=device)
+                      < 0.2, own, adj)
+    adj[cap_dst - int(padded * cap_dst):] = 0
+    return (head_stacked_adj(adj, n_src, (cap_dst, f), HEADS, device),
+            n_src * HEADS)
 
 
 def check_transpose(torch, adj, s, what: str) -> str:
@@ -436,21 +492,55 @@ def check_transpose(torch, adj, s, what: str) -> str:
     return transpose_form(adj, s)
 
 
-def device_ops(torch, fn) -> list:
-    """Names of the device operations (kernels, memsets, copies) that one
-    call of ``fn`` issues, read by torch.profiler after a call outside
-    it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+#: CUgraphNodeType values (cuda.h) -> names
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "child graph", 5: "empty", 6: "event wait",
+                    7: "event record", 10: "mem alloc", 11: "mem free"}
 
+
+def capture(torch, fn) -> tuple:
+    """(graph, what fn returned): one call of ``fn``, after a call outside
+    it, captured in a CUDA graph that keeps its node list."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-            and "#" not in e.name and not e.name.startswith("ProfilerStep")]
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def graph_ops(graph) -> list:
+    """The types of a captured graph's nodes, read through the driver API
+    (cuGraphGetNodes, cuGraphNodeGetType)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    require(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+            "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    require(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+            "cuGraphGetNodes failed")
+    kinds = []
+    for i in range(n.value):
+        kind = ctypes.c_int(-1)
+        require(cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                      ctypes.byref(kind)) == 0,
+                "cuGraphNodeGetType failed")
+        kinds.append(GRAPH_NODE_TYPES.get(kind.value, f"type {kind.value}"))
+    return kinds
+
+
+def device_ops(torch, fn) -> list:
+    """The device operations (kernels, memsets, copies) that one call of
+    ``fn`` enqueues: the nodes of a CUDA graph that captures the call, by
+    type. torch.profiler gave the same counts in a fresh process, but in a
+    long one its later sessions recorded no device events at all."""
+    graph, _ = capture(torch, fn)
+    ops = graph_ops(graph)
+    graph.reset()
+    return ops
 
 
 def gat_combine_shapes():
@@ -636,7 +726,70 @@ def phase_kernels(torch) -> dict:
           f"N*F={adj.numel()}: {form} form, bitwise equal to the plain "
           "version (its device operations per call: phase 10); "
           + describe("adj_transpose", t))
+    shapes = phase_transposes(torch, gen) + [("host-packed layer 1", adj,
+                                              S)]
+    captured_transposes(torch, shapes)
     return res
+
+
+def phase_transposes(torch, gen) -> list:
+    """adj's transpose at the port's shapes above one block, each at full
+    width: RGAT's stacked layers 0 and 1 on the host CLI's step (3
+    relations, 4 heads, dead slots at their own row), GAT layer 0's
+    contiguous head-stacked adj, and GAT layer 0 on the host sampler's
+    layout with its padded rows' slots naming row 0 and without them.
+    Each bitwise equal to its plain version, its form printed, timed
+    against its bound. Returns (label, adj, S) for the CUDA-graph check,
+    which phase 2 takes last."""
+    from coala_gnn_tpu_torch.models.layers import head_stacked_adj
+    from coala_gnn_tpu_torch.ops.gather_spmm import (adj_transpose,
+                                                     adj_transpose_reference)
+
+    *_, cap_src, cap_dst = gat_combine_shapes()[0]
+    shapes = [("RGAT layer 0", *rgat_stacked_adj(torch, gen, 0)),
+              ("RGAT layer 1", *rgat_stacked_adj(torch, gen, 1)),
+              ("GAT layer 0 contiguous",
+               head_stacked_adj(None, cap_src, (cap_dst, FANOUTS[0]), HEADS,
+                                "cuda"), cap_src * HEADS),
+              ("GAT layer 0 host layout, padded rows at row 0",
+               *gat_host_adj(torch, gen)),
+              ("GAT layer 0 host layout, no padded rows",
+               *gat_host_adj(torch, gen, padded=0.0))]
+    for label, adj, s in shapes:
+        form = check_transpose(torch, adj, s, label)
+        t = {}
+        timed(torch, t, lambda: adj_transpose(adj, s),
+              lambda: adj_transpose_reference(adj, s), transpose_work(adj, s))
+        print(f"phase 2: adj_transpose {label} S={s} N*F={adj.numel()}: "
+              f"{form} form, bitwise equal to the plain version; "
+              + describe("adj_transpose", t))
+    return shapes
+
+
+def captured_transposes(torch, shapes) -> None:
+    """One transpose call at each of phase 2's shapes captured in a CUDA
+    graph: one node (one device operation) in either form, and the graph
+    replayed twice, bitwise equal to the plain version."""
+    from coala_gnn_tpu_torch.ops.gather_spmm import (adj_transpose,
+                                                     adj_transpose_reference)
+
+    for label, adj, s in shapes:
+        graph, got = capture(torch, lambda: adj_transpose(adj, s))
+        ops = graph_ops(graph)
+        want = adj_transpose_reference(adj, s)
+        for _ in range(2):
+            got[1].fill_(-7)
+            graph.replay()
+            torch.cuda.synchronize()
+            require(bool(torch.equal(got[0], want[0]) and
+                         torch.equal(got[1], want[1])),
+                    f"adj_transpose {label}: CUDA graph replay differs")
+        graph.reset()
+        print(f"phase 2: adj_transpose {label}: {transpose_form(adj, s)} "
+              f"form, {len(ops)} device operation(s) per call {ops}; its "
+              "CUDA graph replayed twice, bitwise equal to the plain version")
+        require(len(ops) == 1, f"adj_transpose {label}: {len(ops)} device "
+                "operations per call")
 
 
 def make_trainer(torch, ds, store, dtype, device, dropout=0.5, lr=1e-3,
@@ -1486,10 +1639,9 @@ def phase_host_step(torch, ds, device="cuda") -> dict:
           f"transpose ({form} form, bitwise equal to the plain version): "
           + describe("adj_transpose", t_t) + "; grad_x over it: "
           + describe("grad_x", t_x))
-    # last: after a profiler session the card's launches run slower
     ops = device_ops(torch, lambda: adj_transpose(adj, s))
     print(f"phase 10: host-packed layer 1 real step: adj_transpose issues "
-          f"{len(ops)} device operation(s) per call (torch.profiler): {ops}")
+          f"{len(ops)} device operation(s) per call: {ops}")
     require(form == "one-block" and len(ops) == 1,
             f"host-packed real step: transpose in {form} form, device "
             f"operations per call {ops}")

@@ -95,30 +95,39 @@
 // (g finite) and is skipped.
 //
 // The transpose (gather_spmm_adj_transpose): count per row (atomics), an
-// exclusive scan, a placement by atomics, then an ordering pass that puts
-// each row's slots in slot order: slot j lands at row_ptr[r] + #{slots of
-// row r below j}, found by a walk over row r's placed slots. That walk
-// costs sum over rows of (slots per row)^2: one per slot on GAT's
-// contiguous layout, where every row is named by one slot, a few on a
-// sampled layer's. Out-of-range indices are skipped; slot entries past
-// row_ptr[S] hold -1. Its work is a few int32 per slot, so what bounds it
-// is the chain of dependent passes, each a launch and a trip to device
-// memory. Two forms, chosen by the shape alone:
-//   - one launch, one block of kScanThreads, where the counts and the
-//     placed slots (S + N * F int32) fit the block's shared memory (227 KB
+// exclusive scan, a placement by atomics in any order, then an ordering
+// that puts each row's slots in slot order. Out-of-range indices are
+// skipped; slot entries past row_ptr[S] hold -1. Its work is a few int32
+// per slot, so what bounds it is the chain of dependent passes: each pass
+// is short (a few MB at most), and the time goes into what separates them.
+// So each of its two forms is one launch, its passes separated by barriers
+// on chip:
+//   - one block of kScanThreads, where the counts and the placed slots
+//     (S + N * F int32, at most 2^16) fit the block's shared memory (227 KB
 //     on this card: the per-step adj of a sampled layer 1, S 6,144 x 5,120
 //     slots, and GAT layer 1's kept one, S 24,576 x 20,480): every pass
-//     runs in shared memory between barriers, and only adj (read once
+//     runs in shared memory between __syncthreads, and only adj (read once
 //     where it fits the registers), row_ptr and slot touch device memory.
 //     The placement's cursors are the scanned counts themselves: after it,
 //     count[r] holds row r's end, so no memset and no scratch. One SM does
 //     all of it, so the design counts its instructions and bank conflicts
 //     (see the kernel);
-//   - else (GAT layer 0: S 270,336 x 245,760 slots, 2 MB) the multi-pass
-//     form over device-memory scratch: two memsets, count, a three-pass
-//     scan over tiles, placement and ordering, each a grid of its own.
-// GAT builds it once per shape (its adj depends only on shapes); a sampled
-// layer whose input needs a gradient builds it every step.
+//   - above that (GAT layer 0, 516k words; RGAT's stacked layers 1 and 0,
+//     135k and 1.5M words) a cooperative grid of resident blocks, the
+//     passes between grid.sync(), the counts and the placed slots in
+//     device-memory scratch that the kernel zeroes itself (the 50 MB L2
+//     holds it). Its ordering ranks each row's placed slots with work per
+//     row, not per slot: one lane's registers up to kLaneSlots (16) slots,
+//     a warp's lanes up to 32, and a longer row a whole block through a
+//     bitmap of its slots in shared memory (rank_long_row), so a skewed
+//     row (a layout's padding naming a few rows) costs its bitmap, not
+//     deg^2. Counting and placement aggregate a warp's atomics per row
+//     (__match_any_sync).
+// The form is chosen before the launch by the shape and by what the device
+// was asked once (shared memory, resident blocks); a refused launch is an
+// error, never a retry in another form. GAT builds it once per shape (its
+// adj depends only on shapes); a sampled layer whose input needs a
+// gradient builds it every step.
 //
 // Vector width: each lane moves VB bytes per access, the largest of 16,
 // 8, 4, 2, 1 that divides both D * sizeof(T) and the base addresses, so any
@@ -129,10 +138,10 @@
 // passes 2^31 at 10M x 1024.
 //
 // The kernels allocate nothing, launch on the caller's stream and do not
-// synchronise (the multi-pass transpose clears its scratch with
-// cudaMemsetAsync on that stream). Each entry point returns
-// cudaGetLastError(), or the error of a refused launch attribute.
+// synchronise; the transpose's grid form zeroes its own scratch. Each
+// entry point returns cudaGetLastError(), or the error of a refused launch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -140,17 +149,19 @@
 
 #include <algorithm>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kThreads = 256;     // forward, narrow grad_w, grad_x and
-                                  // multi-pass transpose blocks
+constexpr int kThreads = 256;     // forward, narrow grad_w and grad_x
+                                  // blocks
 constexpr int kBatch = 4;         // slots whose reads are in flight together
 constexpr int kRowsPerBlock = 8;  // grad_w, wide rows: one warp per dst row
 constexpr int kRowsPerGroup = 8;  // grad_x: table rows per lane group
-constexpr int kScanThreads = 1024;
-constexpr int kSlotBatch = 8;     // one-block transpose: slots per thread
-                                  // in registers (a sampled layer 1's all)
+constexpr int kScanThreads = 1024;  // transpose blocks
+constexpr int kSlotBatch = 8;     // transpose: slots per thread in
+                                  // registers (a sampled layer 1's all)
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // VB bytes of a row, as one load.
@@ -432,16 +443,6 @@ grad_x_kernel(const int32_t* __restrict__ row_ptr,
 
 // ---- the transpose of adj: row_ptr [S + 1], slot [N * F] ------------------
 
-__global__ void __launch_bounds__(kThreads)
-count_rows_kernel(const int32_t* __restrict__ adj, int64_t nf, int64_t s,
-                  int32_t* __restrict__ counts) {
-  for (int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x; j < nf;
-       j += (int64_t)gridDim.x * kThreads) {
-    const int64_t r = adj[j];
-    if (!out_of_range(r, s)) atomicAdd(counts + r, 1);
-  }
-}
-
 // Exclusive scan of v over the block -> (this thread's prefix, the block's
 // total). Threads with nothing to add pass 0.
 __device__ __forceinline__ int32_t block_scan(int32_t v, int32_t* total) {
@@ -470,77 +471,6 @@ __device__ __forceinline__ int32_t block_scan(int32_t v, int32_t* total) {
   const int32_t out = warp_sums[wid] + incl - v;
   __syncthreads();                    // warp_sums is reused by the next call
   return out;
-}
-
-// The exclusive scan of counts [s] into row_ptr [s + 1], in three passes
-// over tiles of kScanThreads rows (one row per thread, coalesced): the
-// tiles' sums, their scan by one block, each tile's scan plus its offset.
-__global__ void __launch_bounds__(kScanThreads)
-tile_sums_kernel(const int32_t* __restrict__ counts, int64_t s,
-                 int32_t* __restrict__ tile_sums) {
-  const int64_t i = (int64_t)blockIdx.x * kScanThreads + threadIdx.x;
-  __shared__ int32_t total;
-  block_scan(i < s ? counts[i] : 0, &total);
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-scan_tile_sums_kernel(int32_t* __restrict__ tile_sums, int64_t tiles,
-                      int32_t* __restrict__ row_ptr, int64_t s) {
-  __shared__ int32_t total;
-  int32_t carry = 0;
-  for (int64_t t0 = 0; t0 < tiles; t0 += kScanThreads) {  // in order
-    const int64_t t = t0 + threadIdx.x;
-    const int32_t v = t < tiles ? tile_sums[t] : 0;
-    const int32_t excl = block_scan(v, &total);
-    if (t < tiles) tile_sums[t] = carry + excl;
-    carry += total;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) row_ptr[s] = carry;
-}
-
-// Also clears counts: they become the placement's cursors.
-__global__ void __launch_bounds__(kScanThreads)
-scan_tiles_kernel(int32_t* __restrict__ counts, int64_t s,
-                  const int32_t* __restrict__ tile_offsets,
-                  int32_t* __restrict__ row_ptr) {
-  const int64_t i = (int64_t)blockIdx.x * kScanThreads + threadIdx.x;
-  __shared__ int32_t total;
-  const int32_t excl = block_scan(i < s ? counts[i] : 0, &total);
-  if (i < s) {
-    row_ptr[i] = tile_offsets[blockIdx.x] + excl;
-    counts[i] = 0;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-place_slots_kernel(const int32_t* __restrict__ adj, int64_t nf, int64_t s,
-                   const int32_t* __restrict__ row_ptr,
-                   int32_t* __restrict__ cursor,
-                   int32_t* __restrict__ placed) {
-  for (int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x; j < nf;
-       j += (int64_t)gridDim.x * kThreads) {
-    const int64_t r = adj[j];
-    if (!out_of_range(r, s))
-      placed[row_ptr[r] + atomicAdd(cursor + r, 1)] = static_cast<int32_t>(j);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-order_slots_kernel(const int32_t* __restrict__ adj, int64_t nf, int64_t s,
-                   const int32_t* __restrict__ row_ptr,
-                   const int32_t* __restrict__ placed,
-                   int32_t* __restrict__ slot) {
-  for (int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x; j < nf;
-       j += (int64_t)gridDim.x * kThreads) {
-    const int64_t r = adj[j];
-    if (out_of_range(r, s)) continue;
-    const int beg = row_ptr[r], end = row_ptr[r + 1];
-    int rank = 0;
-    for (int p = beg; p < end; ++p) rank += placed[p] < j;
-    slot[beg + rank] = static_cast<int32_t>(j);
-  }
 }
 
 // kSlotBatch slots of adj from j0 on, one per kScanThreads stride, into r
@@ -632,6 +562,410 @@ transpose_one_block_kernel(const int32_t* __restrict__ adj, int s, int nf,
   }
 }
 
+// ---- the transpose above one block: the grid form -------------------------
+//
+// One cooperative launch: the one-block passes (count, scan, placement,
+// ordering) run across a grid of resident blocks, separated by
+// grid.sync(). Block b owns rows [b * per, (b + 1) * per): it zeroes and
+// scans their counts (each thread a run of rows) and writes their row_ptr.
+// The counts and the placed slots live in device-memory scratch, which the
+// kernel zeroes itself and the 50 MB L2 holds; what another block wrote is
+// read with __ldcg, from L2 past this SM's L1. The placement runs in any
+// order; the ordering then ranks each row's placed slots with work per
+// row, not per slot. The rows go to the warps in tiles of 32, dealt round
+// the grid (a layout's heavy rows are contiguous, and contiguous ownership
+// gave their blocks all the work): a row of at most kLaneSlots slots is
+// ranked by one lane in registers, one of at most 32 by the lanes of its
+// warp, and a longer row is listed and ranked later by a whole block
+// (rank_long_row: a bitmap of its slots in shared memory, O(deg + slot
+// range / 32)), the list dealt round the blocks, so a few heavy rows (the
+// padding naming rows 0-3) cost their bitmaps, not deg^2. Counting and
+// placement send one atomic per row and warp (__match_any_sync).
+
+constexpr int kLaneSlots = 16;    // rows of at most this many: one lane
+constexpr int kWindow = 8192;     // rank_long_row's bitmap words; the
+                                  // block's shared memory is 2 x kWindow
+
+// kSlotBatch slots' rows, slot j = j0 + k * step + threadIdx.x for batch
+// entry k, into r: -1 past nf or out of range.
+__device__ __forceinline__ void load_rows(const int32_t* __restrict__ adj,
+                                          int64_t j0, int64_t step,
+                                          int64_t nf, int s, int32_t* r) {
+#pragma unroll
+  for (int k = 0; k < kSlotBatch; ++k) {
+    const int64_t j = j0 + k * step + threadIdx.x;
+    const int32_t v = j < nf ? __ldg(adj + j) : -1;
+    r[k] = v >= 0 && v < s ? v : -1;
+  }
+}
+
+// Each lane's row r (-1: none) gets one more slot: lanes of the warp that
+// name the same row add to count[r] once, through their leader, and each
+// gets the old count plus its rank among them (lane order, which is slot
+// order). Every lane of the warp calls it.
+__device__ __forceinline__ int32_t add_slot(int32_t* count, int32_t r) {
+  const unsigned peers = __match_any_sync(kFullMask, r);
+  const int lane = threadIdx.x % kWarp, leader = __ffs(peers) - 1;
+  int32_t base = 0;
+  if (r >= 0 && lane == leader) base = atomicAdd(count + r, __popc(peers));
+  base = __shfl_sync(kFullMask, base, leader);
+  return base + __popc(peers & ((1u << lane) - 1));
+}
+
+// A row's placed slots, read k = 0, 1, ...: from the tile's copy in
+// shared memory, or from the placed scratch.
+struct SharedSeg {
+  const int32_t* p;
+  __device__ int32_t operator()(int k) const { return p[k]; }
+};
+struct PlacedSeg {
+  const int32_t* p;
+  __device__ int32_t operator()(int k) const { return __ldcg(p + k); }
+};
+
+// A row of 1 <= d <= kLaneSlots placed slots, sorted by one lane in
+// registers (above 2 slots a bitonic network over kLaneSlots, INT32_MAX
+// past d) and stored at out[0, d) (out may be the source).
+template <class Seg>
+__device__ __forceinline__ void lane_rank(Seg seg, int32_t* out, int d) {
+  if (d <= 2) {                         // most sampled rows: no network
+    const int32_t a = seg(0), z = d == 2 ? seg(1) : a;
+    out[0] = min(a, z);
+    if (d == 2) out[1] = max(a, z);
+    return;
+  }
+  int32_t v[kLaneSlots];
+#pragma unroll
+  for (int k = 0; k < kLaneSlots; ++k) v[k] = k < d ? seg(k) : INT32_MAX;
+#pragma unroll
+  for (int k = 2; k <= kLaneSlots; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < kLaneSlots; ++i) {
+        const int c = j == k >> 1 ? i ^ (k - 1) : i ^ j;
+        if (c > i) {
+          const int32_t a = min(v[i], v[c]), z = max(v[i], v[c]);
+          v[i] = a;
+          v[c] = z;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kLaneSlots; ++k)
+    if (k < d) out[k] = v[k];
+}
+
+// A row of d <= 32 placed slots, ranked by the lanes of one warp (every
+// lane calls it with the same row): lane l holds slot l, its rank is the
+// number of the row's slots below it. Every lane reads before any writes,
+// so out may be the source.
+template <class Seg>
+__device__ __forceinline__ void warp_rank(Seg seg, int32_t* out, int d) {
+  const int lane = threadIdx.x % kWarp;
+  const int32_t v = lane < d ? seg(lane) : INT32_MAX;
+  int rank = 0;
+  for (int q = 0; q < d; ++q) rank += __shfl_sync(kFullMask, v, q) < v;
+  if (lane < d) out[rank] = v;
+}
+
+// kSlotBatch of a row's placed slots seg[0, d), i = i0 + k * kScanThreads +
+// threadIdx.x for batch entry k, into v: -1 past d.
+__device__ __forceinline__ void load_seg(const int32_t* seg, int d, int i0,
+                                         int32_t* v) {
+#pragma unroll
+  for (int k = 0; k < kSlotBatch; ++k) {
+    const int i = i0 + k * kScanThreads + threadIdx.x;
+    v[k] = i < d ? __ldcg(seg + i) : -1;
+  }
+}
+
+// A long row's d placed slots seg[0, d), ranked by the block into
+// slot[beg, beg + d): the slots' range [lo, hi] in windows of kWindow
+// words x 32 bits; in each, a bit per slot (bits), the exclusive scan of
+// the words' popcounts (pre), and a slot's rank is carry + pre[word] + the
+// bits below it. The slots stay in registers where one batch holds them.
+// Every thread of the block calls it.
+__device__ void rank_long_row(const int32_t* seg, int32_t* __restrict__ slot,
+                              int beg, int d, uint32_t* bits, int32_t* pre) {
+  __shared__ int32_t lo_s, hi_s, total;
+  constexpr int kStep = kScanThreads * kSlotBatch;
+  const int t = threadIdx.x, lane = t % kWarp;
+  const bool held = d <= kStep;
+  if (t == 0) {
+    lo_s = INT32_MAX;
+    hi_s = -1;
+  }
+  int32_t v[kSlotBatch];
+  int32_t lo = INT32_MAX, hi = -1;
+  for (int i0 = 0; i0 < d; i0 += kStep) {
+    load_seg(seg, d, i0, v);
+#pragma unroll
+    for (int k = 0; k < kSlotBatch; ++k) {
+      if (v[k] < 0) continue;
+      lo = min(lo, v[k]);
+      hi = max(hi, v[k]);
+    }
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    lo = min(lo, __shfl_xor_sync(kFullMask, lo, off));
+    hi = max(hi, __shfl_xor_sync(kFullMask, hi, off));
+  }
+  __syncthreads();
+  if (lane == 0) {
+    atomicMin(&lo_s, lo);
+    atomicMax(&hi_s, hi);
+  }
+  __syncthreads();
+  const int32_t first = lo_s, last = hi_s;
+  int32_t carry = 0;
+  for (int64_t base = first; base <= last; base += (int64_t)kWindow * 32) {
+    const int64_t need = (last - base) / 32 + 1;
+    const int words = static_cast<int>(need < kWindow ? need : kWindow);
+    const int64_t top = base + (int64_t)words * 32;
+    for (int w = t; w < words; w += kScanThreads) bits[w] = 0;
+    __syncthreads();
+    for (int i0 = 0; i0 < d; i0 += kStep) {
+      if (!held) load_seg(seg, d, i0, v);
+#pragma unroll
+      for (int k = 0; k < kSlotBatch; ++k) {
+        if (v[k] < base || v[k] >= top) continue;
+        const int x = static_cast<int>(v[k] - base);
+        atomicOr(bits + (x >> 5), 1u << (x & 31));
+      }
+    }
+    __syncthreads();
+    const int per = (words + kScanThreads - 1) / kScanThreads;
+    const int w0 = min(t * per, words), w1 = min(w0 + per, words);
+    int32_t sum = 0;
+    for (int w = w0; w < w1; ++w) sum += __popc(bits[w]);
+    int32_t run = carry + block_scan(sum, &total);
+    for (int w = w0; w < w1; ++w) {
+      pre[w] = run;
+      run += __popc(bits[w]);
+    }
+    __syncthreads();
+    for (int i0 = 0; i0 < d; i0 += kStep) {
+      if (!held) load_seg(seg, d, i0, v);
+#pragma unroll
+      for (int k = 0; k < kSlotBatch; ++k) {
+        if (v[k] < base || v[k] >= top) continue;
+        const int x = static_cast<int>(v[k] - base);
+        const uint32_t below = bits[x >> 5] & ((1u << (x & 31)) - 1);
+        slot[beg + pre[x >> 5] + __popc(below)] = v[k];
+      }
+    }
+    carry += total;
+    __syncthreads();                  // bits and pre: the next window's
+  }
+}
+
+// The grid form, launched cooperatively with every block resident.
+// scratch: count [s], the blocks' totals [gridDim.x], n_long, the long
+// rows (more than a warp's slots) [nf / 33], placed [nf]. buf: 2 x kWindow
+// words of shared memory, for the scan's counts, the ordering's tiles (a
+// share per warp) and rank_long_row's bitmap.
+__global__ void __launch_bounds__(kScanThreads)
+transpose_grid_kernel(const int32_t* __restrict__ adj, int s, int nf,
+                      int32_t* __restrict__ row_ptr,
+                      int32_t* __restrict__ slot,
+                      int32_t* __restrict__ scratch) {
+  extern __shared__ int32_t buf[];
+  __shared__ int32_t total, offset_s, grand_s;
+  cg::grid_group grid = cg::this_grid();
+  const int t = threadIdx.x, lane = t % kWarp;
+  const int b = static_cast<int>(blockIdx.x), nb = static_cast<int>(gridDim.x);
+  int32_t* count = scratch;
+  int32_t* totals = count + s;
+  int32_t* n_long = totals + nb;
+  int32_t* longs = n_long + 1;
+  int32_t* placed = longs + nf / (kWarp + 1);
+  const int64_t per = ((int64_t)s + nb - 1) / nb;
+  const int lo = static_cast<int>(b * per < s ? b * per : s);
+  const int own = static_cast<int>(lo + per < s ? lo + per : s) - lo;
+  int32_t* own_count = count + lo;
+
+  for (int i = t; i < own; i += kScanThreads) own_count[i] = 0;
+  if (b == 0 && t == 0) *n_long = 0;
+  grid.sync();
+
+  // count, the slots' rows kept in registers where one batch holds them
+  const int64_t step = (int64_t)nb * kScanThreads, chunk = step * kSlotBatch;
+  const int64_t first = (int64_t)b * kScanThreads;
+  const bool held = nf <= chunk;
+  int32_t r[kSlotBatch];
+  for (int64_t j0 = 0; j0 < nf; j0 += chunk) {
+    load_rows(adj, j0 + first, step, nf, s, r);
+#pragma unroll
+    for (int k = 0; k < kSlotBatch; ++k) add_slot(count, r[k]);
+  }
+  grid.sync();
+
+  // scan of the own rows: where the shared buffer holds them, read
+  // coalesced into it, thread t scans a run of consecutive rows there, and
+  // the prefixes wait there for the offset; else in tiles of kScanThreads
+  const bool staged = own <= 2 * kWindow;
+  int32_t carry = 0;
+  if (staged) {
+    for (int i0 = t; i0 < own; i0 += kScanThreads * kSlotBatch) {
+      int32_t c[kSlotBatch];
+#pragma unroll
+      for (int k = 0; k < kSlotBatch; ++k) {
+        const int i = i0 + k * kScanThreads;
+        c[k] = i < own ? __ldcg(own_count + i) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kSlotBatch; ++k)
+        if (i0 + k * kScanThreads < own) buf[i0 + k * kScanThreads] = c[k];
+    }
+    __syncthreads();
+    const int per_t = ((own + kScanThreads - 1) / kScanThreads) | 1;
+    const int i0 = min(t * per_t, own), i1 = min(i0 + per_t, own);
+    int32_t sum = 0;
+    for (int i = i0; i < i1; ++i) sum += buf[i];
+    int32_t run = block_scan(sum, &total);
+    for (int i = i0; i < i1; ++i) {
+      const int32_t c = buf[i];
+      buf[i] = run;
+      run += c;
+    }
+    carry = total;
+  } else {
+    for (int i0 = 0; i0 < own; i0 += kScanThreads) {
+      const int i = i0 + t;
+      const int32_t c = i < own ? __ldcg(own_count + i) : 0;
+      const int32_t excl = block_scan(c, &total);
+      if (i < own) own_count[i] = carry + excl;
+      carry += total;
+    }
+  }
+  if (t == 0) totals[b] = carry;
+  grid.sync();
+  if (t < kWarp) {
+    int32_t before = 0, all = 0;
+    for (int q0 = lane; q0 < nb; q0 += kWarp * kSlotBatch) {
+      int32_t v[kSlotBatch];
+#pragma unroll
+      for (int k = 0; k < kSlotBatch; ++k) {
+        const int q = q0 + k * kWarp;
+        v[k] = q < nb ? __ldcg(totals + q) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kSlotBatch; ++k) {
+        all += v[k];
+        before += q0 + k * kWarp < b ? v[k] : 0;
+      }
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) {
+      all += __shfl_xor_sync(kFullMask, all, off);
+      before += __shfl_xor_sync(kFullMask, before, off);
+    }
+    if (lane == 0) {
+      offset_s = before;
+      grand_s = all;
+    }
+  }
+  __syncthreads();
+  const int32_t offset = offset_s, grand = grand_s;
+  for (int i = t; i < own; i += kScanThreads) {
+    const int32_t v = (staged ? buf[i] : __ldcg(own_count + i)) + offset;
+    own_count[i] = v;
+    row_ptr[lo + i] = v;
+  }
+  if (b == 0 && t == 0) row_ptr[s] = grand;
+  grid.sync();
+
+  // placement, any order: count[r] advances to row r's end
+  for (int64_t j0 = 0; j0 < nf; j0 += chunk) {
+    if (!held) load_rows(adj, j0 + first, step, nf, s, r);
+#pragma unroll
+    for (int k = 0; k < kSlotBatch; ++k) {
+      const int32_t p = add_slot(count, r[k]);
+      if (r[k] >= 0)
+        placed[p] = static_cast<int32_t>(j0 + first + k * step + t);
+    }
+  }
+  for (int64_t p = grand + first + t; p < nf; p += step) slot[p] = -1;
+  grid.sync();
+
+  // ordering: tiles of 32 rows dealt round the grid's warps, a lane per
+  // row. A tile's slots are one range of placed; where the warp's share of
+  // buf holds it, the warp copies it in coalesced, ranks its rows there
+  // and copies it out coalesced to slot, else its rows read and write
+  // their own slots. Rows of more than a warp's slots are listed.
+  constexpr int kTileWords = 2 * kWindow / (kScanThreads / kWarp);
+  int32_t* tile = buf + (t / kWarp) * kTileWords;
+  // Round i gives warp w the tile i * warps + (w + i * shift) % warps:
+  // each round deals one tile to every warp, shifted by ~0.618 of the
+  // warps per round, so heavy tiles a multiple of the warps apart (RGAT's
+  // relations) do not all fall to the same warps
+  const int warps = nb * (kScanThreads / kWarp);
+  const int w = b * (kScanThreads / kWarp) + t / kWarp;
+  const int shift = static_cast<int>((int64_t)warps * 618 / 1000) | 1;
+  for (int64_t i = 0; i * warps * kWarp < s; ++i) {
+    const int64_t q = i * warps + (w + i * shift) % warps;
+    const int64_t row = q * kWarp + lane;
+    int beg = 0, d = 0;
+    if (row < s) {
+      beg = __ldcg(row_ptr + row);
+      d = __ldcg(count + row) - beg;
+    }
+    if (__all_sync(kFullMask, row >= s)) continue;
+    const int first_beg = __shfl_sync(kFullMask, beg, 0);
+    int span = d ? beg + d - first_beg : 0;
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2)
+      span = max(span, __shfl_xor_sync(kFullMask, span, off));
+    const bool in_tile = span <= kTileWords;
+    if (in_tile) {                        // its loads in flight together
+      for (int i0 = lane; i0 < span; i0 += kWarp * kSlotBatch) {
+        int32_t v[kSlotBatch];
+#pragma unroll
+        for (int k = 0; k < kSlotBatch; ++k) {
+          const int i = i0 + k * kWarp;
+          v[k] = i < span ? __ldcg(placed + first_beg + i) : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < kSlotBatch; ++k)
+          if (i0 + k * kWarp < span) tile[i0 + k * kWarp] = v[k];
+      }
+      __syncwarp();
+    }
+    int32_t* seg = tile + (beg - first_beg);
+    if (in_tile ? d > 1 && d <= kLaneSlots : d > 0 && d <= kLaneSlots) {
+      if (in_tile) lane_rank(SharedSeg{seg}, seg, d);
+      else lane_rank(PlacedSeg{placed + beg}, slot + beg, d);
+    }
+    unsigned mid = __ballot_sync(kFullMask, d > kLaneSlots && d <= kWarp);
+    while (mid) {
+      const int src = __ffs(mid) - 1;
+      mid &= mid - 1;
+      const int b_src = __shfl_sync(kFullMask, beg, src);
+      const int d_src = __shfl_sync(kFullMask, d, src);
+      int32_t* s_src = tile + (b_src - first_beg);
+      if (in_tile) warp_rank(SharedSeg{s_src}, s_src, d_src);
+      else warp_rank(PlacedSeg{placed + b_src}, slot + b_src, d_src);
+    }
+    if (in_tile) {
+      __syncwarp();
+      for (int i = lane; i < span; i += kWarp) slot[first_beg + i] = tile[i];
+      __syncwarp();                       // the tile's copy: the next's
+    }
+    if (d > kWarp) longs[atomicAdd(n_long, 1)] = static_cast<int32_t>(row);
+  }
+  grid.sync();
+  const int n = __ldcg(n_long);
+  for (int q = b; q < n; q += nb) {       // the long rows, dealt round
+    const int row = __ldcg(longs + q);
+    const int beg = __ldcg(row_ptr + row);
+    rank_long_row(placed + beg, slot, beg, __ldcg(count + row) - beg,
+                  reinterpret_cast<uint32_t*>(buf), buf + kWindow);
+  }
+}
+
 // Largest vector width (bytes, at least sizeof(T)) that divides both the
 // row's bytes and the base address of every row-major operand.
 template <typename T>
@@ -657,11 +991,6 @@ int lanes_for(int64_t row_bytes, int vb) {
 unsigned group_blocks(int64_t rows, int lanes) {
   const int64_t per = kThreads / lanes;
   return static_cast<unsigned>((rows + per - 1) / per);
-}
-
-unsigned stride_blocks(int64_t items) {
-  const int64_t b = (items + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(b < 4096 ? (b > 0 ? b : 1) : 4096);
 }
 
 // Whether a grid of `blocks` is resident on the card at once (one wave).
@@ -777,34 +1106,68 @@ void grad_x_vb(const void* row_ptr, const void* slot, const void* w,
       static_cast<const float*>(g), static_cast<float*>(gx), s, f, d, lanes);
 }
 
-// The most int32 words (s + nf) the one-block transpose holds in one
-// block's shared memory on the current device, its static shared memory
-// left out, and at most 2^16 (a placed entry packs a row and a slot in 16
-// bits each). The first call on a device raises the kernel's dynamic
-// shared memory limit to that (above 48 KB it must be asked for) and keeps
-// the answer, so a launch pays for neither; -1 if the device refused.
-int64_t one_block_words() {
+// What the current device holds of the transpose, asked once per device.
+// The first call also raises the kernels' dynamic shared memory limits
+// (above 48 KB it must be asked for), so a launch pays for none of it.
+struct TransposeLimits {
+  int64_t one_block = 0;  // s + nf words of the one-block form, at most
+                          // 2^16 (its placed entry packs a row and a slot
+                          // in 16 bits each)
+  int grid = 0;           // blocks of the grid form, all resident (0: the
+                          // device has no cooperative launch)
+};
+
+constexpr int kGridBytes = 2 * kWindow * sizeof(int32_t);
+
+const TransposeLimits* transpose_limits() {
   constexpr int kMaxDevices = 64;
-  static int64_t words[kMaxDevices] = {};   // 0: not asked yet
+  static TransposeLimits limits[kMaxDevices];
+  static bool asked[kMaxDevices] = {};
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return -1;
-  if (words[dev] == 0) {
-    int optin = 0;
-    cudaFuncAttributes attr;
-    if (cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev) != cudaSuccess ||
-        cudaFuncGetAttributes(&attr, transpose_one_block_kernel) !=
-            cudaSuccess)
-      return -1;
-    const int bytes = optin - static_cast<int>(attr.sharedSizeBytes);
-    if (cudaFuncSetAttribute(transpose_one_block_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes) != cudaSuccess)
-      return -1;
-    words[dev] = std::min(bytes / static_cast<int>(sizeof(int32_t)), 1 << 16);
-  }
-  return words[dev];
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return nullptr;
+  TransposeLimits& l = limits[dev];
+  if (asked[dev]) return &l;
+  int optin = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaFuncAttributes one;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&one, transpose_one_block_kernel) != cudaSuccess)
+    return nullptr;
+  const int one_bytes = optin - static_cast<int>(one.sharedSizeBytes);
+  if (cudaFuncSetAttribute(transpose_one_block_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           one_bytes) != cudaSuccess ||
+      cudaFuncSetAttribute(transpose_grid_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kGridBytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, transpose_grid_kernel, kScanThreads, kGridBytes) !=
+          cudaSuccess)
+    return nullptr;
+  l.one_block = std::min(one_bytes / static_cast<int>(sizeof(int32_t)),
+                         1 << 16);
+  l.grid = coop ? per_sm * sms : 0;
+  asked[dev] = true;
+  return &l;
+}
+
+// Whether the transpose of nf slots over s rows takes the one-block form
+// (else the grid form).
+bool fits_one_block(const TransposeLimits& l, int64_t s, int64_t nf) {
+  return s + nf <= l.one_block;
+}
+
+// int32 words of the long-row list: n_long and at most nf / 33 rows.
+int64_t long_rows_words(int64_t nf) { return 1 + nf / (kWarp + 1); }
+
+// The launch's own error, else whatever cudaGetLastError holds (cleared).
+int launch_error(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // The error a failed query left, never cudaSuccess.
@@ -817,14 +1180,13 @@ int failed_query() {
 
 extern "C" {
 
-// int32 scratch words the transpose of nf slots over s rows needs on the
-// current device: 0 where one block holds it in shared memory (the
-// one-launch form), else s + nf + its scan tiles (the multi-pass form);
-// -1 if the device cannot be asked.
+// int32 scratch words the transpose needs on the current device: 0 for
+// the one-block form; for the grid form count [s], the blocks' totals, the
+// long-row list and placed [nf]; -1 if the device cannot be asked.
 int64_t gather_spmm_transpose_scratch(int64_t s, int64_t nf) {
-  const int64_t words = one_block_words();
-  if (words < 0) return -1;
-  return s + nf <= words ? 0 : s + nf + (s + kScanThreads - 1) / kScanThreads;
+  const TransposeLimits* l = transpose_limits();
+  if (!l) return -1;
+  return fits_one_block(*l, s, nf) ? 0 : s + l->grid + long_rows_words(nf) + nf;
 }
 
 // x [s, d] f32, adj [n, f] int32, w [n, f] f32 -> out [n, d] f32.
@@ -876,49 +1238,32 @@ int gather_spmm_grad_w_bf16(const void* x, const void* adj, const void* g,
 }
 
 // The transpose of adj [nf] (int32, rows in [0, s)): row_ptr [s + 1] and
-// slot [nf] (each row's slots in slot order; -1 past row_ptr[s]). scratch
-// is int32 [gather_spmm_transpose_scratch(s, nf)], null where that is 0:
-// then one launch, else the multi-pass form's eight device operations.
+// slot [nf] (each row's slots in slot order; -1 past row_ptr[s]), in one
+// launch whatever the form. scratch is int32
+// [gather_spmm_transpose_scratch(s, nf)], null where that is 0.
 int gather_spmm_adj_transpose(const void* adj, void* row_ptr, void* slot,
                               void* scratch, int64_t s, int64_t nf,
                               void* stream_p) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_p);
   const int32_t* a = static_cast<const int32_t*>(adj);
   int32_t* rp = static_cast<int32_t*>(row_ptr);
-  const int64_t need = gather_spmm_transpose_scratch(s, nf);
-  if (need < 0) return failed_query();
-  if (need == 0) {
+  int32_t* sl = static_cast<int32_t*>(slot);
+  int32_t* scr = static_cast<int32_t*>(scratch);
+  int si = static_cast<int>(s), nfi = static_cast<int>(nf);
+  const TransposeLimits* l = transpose_limits();
+  if (!l) return failed_query();
+  if (fits_one_block(*l, s, nf)) {
     const int bytes = static_cast<int>((s + nf) * sizeof(int32_t));
-    transpose_one_block_kernel<<<1, kScanThreads, bytes, st>>>(
-        a, static_cast<int>(s), static_cast<int>(nf), rp,
-        static_cast<int32_t*>(slot));
+    transpose_one_block_kernel<<<1, kScanThreads, bytes, st>>>(a, si, nfi,
+                                                               rp, sl);
     return static_cast<int>(cudaGetLastError());
   }
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int32_t* counts = static_cast<int32_t*>(scratch);
-  int32_t* placed = counts + s;
-  int32_t* tile_sums = placed + nf;
-  const int64_t tiles = (s + kScanThreads - 1) / kScanThreads;
-  cudaMemsetAsync(counts, 0, s * sizeof(int32_t), st);
-  cudaMemsetAsync(slot, 0xff, nf * sizeof(int32_t), st);
-  const unsigned blocks = stride_blocks(nf);
-  if (nf > 0) count_rows_kernel<<<blocks, kThreads, 0, st>>>(a, nf, s, counts);
-  if (tiles > 0) {
-    tile_sums_kernel<<<static_cast<unsigned>(tiles), kScanThreads, 0, st>>>(
-        counts, s, tile_sums);
-  }
-  scan_tile_sums_kernel<<<1, kScanThreads, 0, st>>>(tile_sums, tiles, rp, s);
-  if (tiles > 0) {
-    scan_tiles_kernel<<<static_cast<unsigned>(tiles), kScanThreads, 0, st>>>(
-        counts, s, tile_sums, rp);
-  }
-  if (nf > 0) {
-    place_slots_kernel<<<blocks, kThreads, 0, st>>>(a, nf, s, rp, counts,
-                                                    placed);
-    order_slots_kernel<<<blocks, kThreads, 0, st>>>(
-        a, nf, s, rp, placed, static_cast<int32_t*>(slot));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (scr == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (l->grid == 0) return static_cast<int>(cudaErrorNotSupported);
+  void* args[] = {&a, &si, &nfi, &rp, &sl, &scr};
+  return launch_error(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(transpose_grid_kernel), dim3(l->grid),
+      dim3(kScanThreads), args, kGridBytes, st));
 }
 
 // gx [s, d] f32 = the gather over the transpose (row_ptr [s + 1], slot

@@ -72,8 +72,7 @@ class DeviceHeteroBlock(NamedTuple):
         return self.mask.shape[1]
 
 
-def hetero_blocks_to_device(blocks: Sequence, device="cpu"
-                            ) -> list:
+def hetero_blocks_to_device(blocks: Sequence, device) -> list:
     """Host blocks (``sampling.neighbor.Block`` with ``rel``) ->
     DeviceHeteroBlocks on ``device``."""
     out = []

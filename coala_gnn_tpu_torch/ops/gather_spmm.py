@@ -324,24 +324,24 @@ def gather_spmm_grad_w(x: torch.Tensor, adj: torch.Tensor,
 
 def transpose_scratch(s: int, nf: int, device: torch.device) -> int:
     """int32 scratch words the card's transpose of ``nf`` slots over ``s``
-    rows needs on ``device`` (the C side decides, by the shape alone): 0
-    where one thread block holds the whole transpose in shared memory (one
-    launch; row_ptr and slot are its only allocations), else
-    s + nf + scan tiles (the multi-pass form over device memory)."""
+    rows needs on ``device`` (the C side decides, by the shape and the
+    device's capacity): 0 for the one-block form, which needs none; for the
+    cooperative grid form count [s], the blocks' totals, the long-row list
+    and placed [nf]."""
     lib = _library()
     with torch.cuda.device(device):
         words = lib.gather_spmm_transpose_scratch(s, nf)
     if words < 0:
-        raise RuntimeError("gather_spmm_transpose_scratch: the card's shared "
-                           "memory limit could not be read")
+        raise RuntimeError("gather_spmm_transpose_scratch: the card's limits "
+                           "could not be read")
     return words
 
 
 def adj_transpose(adj: torch.Tensor, s: int) -> Transpose:
     """The transpose of int32 ``adj`` [N, F] over ``s`` table rows (see
-    ``Transpose``): the plain version on the CPU, on the card one kernel
-    in one block's shared memory where the shape fits it, else the
-    multi-pass kernels (count, scan, placement, slot order)."""
+    ``Transpose``): the plain version on the CPU, on the card one launch
+    (one block where ``transpose_scratch`` is 0, else the cooperative
+    grid)."""
     if adj.dtype != torch.int32 or adj.dim() != 2 or not adj.is_contiguous():
         raise TypeError("adj_transpose: adj must be contiguous int32 [N, F]")
     _check_int32_rows(s, adj.numel())

@@ -3,9 +3,14 @@ converter of utils/convert.py: the save / ``latest_step`` / restore round
 trip of tests/test_utils.py:25-42 (the JAX package's orbax checkpoint, the
 same ``step_<n>`` naming), a restore onto a model on the CPU, and an optax
 Adam / AdamW state carried into ``torch.optim.Adam`` / ``AdamW`` whose next
-step matches optax's (1e-5)."""
+step matches optax's (1e-5). A save cut short (a stale ``step_<n>.tmp-*``
+sibling, or a ``step_<n>/`` without ``state.pt``) leaves the last complete
+checkpoint the latest, as orbax's temporary directory does for JAX, and the
+CLI's ``--resume`` then resumes from it. ``hetero_blocks_to_device`` takes
+no default device."""
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +24,8 @@ from coala_gnn_tpu.models.layers import DeviceBlock as JBlock
 from coala_gnn_tpu.sampling.neighbor import block_capacities
 from coala_gnn_tpu.utils import checkpoint as jax_ckpt
 from coala_gnn_tpu_torch.models.gnn import make_model
+from coala_gnn_tpu_torch import train as cli
+from coala_gnn_tpu_torch.models import hetero as th
 from coala_gnn_tpu_torch.utils import checkpoint as ckpt
 from coala_gnn_tpu_torch.utils.convert import (adam_state_from_optax,
                                                params_from_flax)
@@ -138,3 +145,113 @@ def test_optax_adam_state_carries_over(adamw):
                                    rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="Adam state"):
         adam_state_from_optax(optax.sgd(0.1).init(params), model, opt)
+
+
+def _interrupt(path, step, how):
+    """What a save to ``step`` leaves when it is killed before its end:
+    its temporary sibling directory with a partial file (this module's
+    save), or, as the port's save did before it wrote into a sibling,
+    ``step_<step>/`` holding only the temporary file."""
+    if how == "tmp_dir":
+        tmp = os.path.join(path, f"step_{step}.tmp-123")
+        os.makedirs(tmp)
+        with open(os.path.join(tmp, ckpt.FILE), "wb") as fh:
+            fh.write(b"PK partial")
+    else:
+        out = os.path.join(path, f"step_{step}")
+        os.makedirs(out)
+        with open(os.path.join(out, f"{ckpt.FILE}.123.tmp"), "wb") as fh:
+            fh.write(b"PK partial")
+
+
+@pytest.mark.parametrize("how", ["tmp_dir", "tmp_file"])
+def test_interrupted_save_leaves_the_last_complete_step(tmp_path, how):
+    """After save(d, m, o, 4), a save to step 8 cut short: latest_step
+    stays 4 and restore loads step 4's state bitwise; JAX's latest_step
+    agrees where the cut save left a temporary sibling. A later complete
+    save to step 8 replaces what the cut one left and removes its
+    temporary sibling."""
+    model, opt = _trained()
+    path = str(tmp_path)
+    ckpt.save(path, model, opt, step=4)
+    _interrupt(path, 8, how)
+    assert ckpt.latest_step(path) == 4
+    if how == "tmp_dir":
+        assert jax_ckpt.latest_step(path) == 4
+    fresh, fopt = _trained(steps=1)
+    assert ckpt.restore(path, fresh, fopt) == 4
+    _same(fresh.state_dict(), model.state_dict())
+    _same(fopt.state_dict()["state"], opt.state_dict()["state"])
+    ckpt.save(path, fresh, fopt, step=8)
+    assert ckpt.latest_step(path) == 8
+    assert os.listdir(os.path.join(path, "step_8")) == [ckpt.FILE]
+    assert sorted(os.listdir(path)) == ["step_4", "step_8"]
+
+
+def test_save_replaces_an_existing_step(tmp_path):
+    """A second save to the same step replaces the first whole, and leaves
+    no temporary directory behind."""
+    model, opt = _trained(steps=1)
+    other, oopt = _trained(steps=3)
+    ckpt.save(str(tmp_path), model, opt, step=5)
+    ckpt.save(str(tmp_path), other, oopt, step=5)
+    assert os.listdir(tmp_path) == ["step_5"]
+    fresh, fopt = _trained(steps=0)
+    assert ckpt.restore(str(tmp_path), fresh, fopt) == 5
+    _same(fresh.state_dict(), other.state_dict())
+
+
+def test_save_removes_what_killed_saves_left(tmp_path):
+    """A run killed between a re-save's two renames leaves its step only
+    as ``step_8.old-<pid>`` (and another run's temporary sibling may
+    remain): latest_step skips it and takes step 4, and the next save to
+    step 8 removes every such sibling."""
+    model, opt = _trained()
+    path = str(tmp_path)
+    ckpt.save(path, model, opt, step=4)
+    ckpt.save(path, model, opt, step=8)
+    os.replace(os.path.join(path, "step_8"),
+               os.path.join(path, "step_8.old-99"))
+    _interrupt(path, 8, "tmp_dir")
+    assert ckpt.latest_step(path) == 4
+    ckpt.save(path, model, opt, step=8)
+    assert sorted(os.listdir(path)) == ["step_4", "step_8"]
+    fresh, fopt = _trained(steps=1)
+    assert ckpt.restore(path, fresh, fopt) == 8
+    _same(fresh.state_dict(), model.state_dict())
+
+
+@pytest.mark.parametrize("how", ["tmp_dir", "tmp_file"])
+def test_resume_after_an_interrupted_save(tmp_path, capsys, how):
+    """The CLI's --resume on the resident loop after a save to step 8 was
+    cut short: it resumes from step 4 and trains epochs 1-2 exactly as the
+    uninterrupted 3-epoch run did (test_torch_cli_flags.py's
+    test_resident_resume_equals_uninterrupted_run, the cut save added)."""
+    import test_torch_cli_flags as tcf
+
+    fanout = int(tcf.synthetic_graph(num_nodes=tcf.N, avg_degree=4,
+                                     feature_dim=8, num_classes=4, seed=0
+                                     ).graph.in_degrees().max())
+    _, params = tcf.tcr._params("sage", fanout, tcf.BATCH, tcf.DIM)
+    full, part = str(tmp_path / "full"), str(tmp_path / "part")
+    extra = ["--max_steps", "4", "--window", "2", "--epochs", "3"]
+    run, _ = tcf._port(tcf._argv(fanout, extra=extra + ["--save_dir", full]),
+                       params)
+    ref = cli.train(run)["losses"]
+    shutil.copytree(os.path.join(full, "step_4"),
+                    os.path.join(part, "step_4"))
+    _interrupt(part, 8, how)
+    run, _ = tcf._port(tcf._argv(fanout, extra=extra + ["--save_dir", part,
+                                                        "--resume"]), params)
+    assert cli.resume(run) == 1 and run.step == 4 and not run.fresh
+    got = cli.train(run)["losses"]
+    np.testing.assert_array_equal(got, ref[4:])
+    assert "resumed from step 4 -> starting at epoch 1" in \
+        capsys.readouterr().out
+    assert ckpt.latest_step(part) == 12
+
+
+def test_hetero_blocks_to_device_needs_a_device():
+    """No default device: the caller names it (as ``to_device_graph``)."""
+    with pytest.raises(TypeError):
+        th.hetero_blocks_to_device([])

@@ -251,30 +251,45 @@ def test_forward_at_training_shapes(cuda):
                 atol=1e-5)
 
 
-def _one_block_words(device) -> int:
-    """The largest S + 1 + N * F whose transpose takes the one-block form
-    on ``device`` (the C side's shared-memory limit, found by bisection)."""
+def _form(s: int, nf: int, device) -> str:
+    """The transpose's form on ``device`` for this shape: one-block where
+    it takes no scratch, else the cooperative grid."""
+    return "one-block" if transpose_scratch(s, nf, device) == 0 else "grid"
+
+
+def _one_block_limit(device) -> int:
+    """The largest S + N * F (S = a third of it) whose transpose takes the
+    one-block form on ``device`` (the C side's shared-memory limit, found
+    by bisection)."""
     lo, hi = 1, 2**22                 # fits(lo), not fits(hi)
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        lo, hi = ((mid, hi) if transpose_scratch(0, mid - 1, device) == 0
-                  else (lo, mid))
+        fits = _form(mid // 3, mid - mid // 3, device) == "one-block"
+        lo, hi = (mid, hi) if fits else (lo, mid)
     return lo
 
 
 @pytest.mark.cuda
 def test_transpose_kernel_equals_plain(cuda):
-    """Both forms of the transpose equal the plain version bit for bit:
-    the main path's shapes (a sampled layer 1's per-step adj, masked slots
-    naming their own dst row; GAT's layers 1 and 0, head-stacked), S and
-    N * F at the one-block limit and one past it, N * F = 0, every slot
-    naming one row (longer than a block), out-of-range entries and rows
-    named by no slot. Each small case runs again over S + the limit rows
-    (never named), which takes the multi-pass form."""
+    """Both forms of the transpose equal the plain version bit for bit, in
+    one device operation per call: the main path's shapes (a sampled layer
+    1's per-step adj, masked slots naming their own dst row; GAT's layers 1
+    and 0, head-stacked; RGAT's stacked layers 0 and 1 with dead slots at
+    their own row; GAT layer 0 on the host sampler's layout, its padded
+    rows' slots all naming row 0, and the same without them; GAT layer
+    0's shape with 20% of its slots at row 0), the one-block limit and
+    one past it in S and in N * F (with out-of-range entries and
+    without), N * F = 0, every slot naming one row (longer than a warp,
+    and over many of the long-row bitmap's windows), out-of-range entries
+    and rows named by no slot. Each small case runs
+    again over S + the one-block limit rows (never named), which takes the
+    grid form."""
+    import chip_smoke as cs
     from coala_gnn_tpu_torch.models.layers import head_stacked_adj
 
-    words = _one_block_words(torch.device("cuda"))
-    assert 48 * 1024 // 4 < words < 232_448 // 4 + 1
+    dev = torch.device("cuda")
+    one = _one_block_limit(dev)
+    assert 48 * 1024 // 4 < one < 232_448 // 4 + 1
 
     def ints(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=cuda, device="cuda",
@@ -284,38 +299,48 @@ def test_transpose_kernel_equals_plain(cuda):
     own = torch.arange(1024, device="cuda", dtype=torch.int32)[:, None]
     packed = torch.where(torch.rand(1024, 5, generator=cuda, device="cuda")
                          < 0.2, own.expand(1024, 5), packed)
-    s_lim = words // 3
-    nf_lim = words - 1 - s_lim
+    cases = [(packed, 6144, "one-block"),
+             (head_stacked_adj(None, 6144, (1024, 5), 4, "cuda"), 6144 * 4,
+              "one-block"),
+             (*cs.rgat_stacked_adj(torch, cuda, 1), "grid"),
+             (*cs.rgat_stacked_adj(torch, cuda, 0), "grid"),
+             (head_stacked_adj(None, 67_584, (6144, 10), 4, "cuda"),
+              67_584 * 4, "grid"),
+             (*cs.gat_host_adj(torch, cuda), "grid"),
+             (*cs.gat_host_adj(torch, cuda, padded=0.0), "grid")]
+    s_lim = one // 3
+    nf_lim = one - s_lim
+    cases += [(ints(-3, s_lim + 3, (nf_lim, 1)), s_lim, "one-block"),
+              (ints(-3, s_lim + 3, (nf_lim + 1, 1)), s_lim, "grid"),
+              (ints(-3, s_lim + 3, (nf_lim, 1)), s_lim + 1, "grid"),
+              (ints(0, s_lim, (nf_lim, 1)), s_lim + 1, "grid")]
     small = [(ints(0, 50, (300, 7)), 50),                   # repeated rows
              (ints(900, 910, (40, 3)), 5000),               # unnamed rows
              (ints(-5, 105, (64, 9)), 100),                 # out of range
              (torch.zeros(0, 5, device="cuda", dtype=torch.int32), 100),
              (torch.full((600, 5), 17, device="cuda", dtype=torch.int32),
               50)]                                          # one long row
-    cases = [(packed, 6144, True),
-             (head_stacked_adj(None, 6144, (1024, 5), 4, "cuda"), 6144 * 4,
-              True),
-             (head_stacked_adj(None, 67_584, (6144, 10), 4, "cuda"),
-              67_584 * 4, False),
-             (ints(-3, s_lim + 3, (nf_lim, 1)), s_lim, True),
-             (ints(-3, s_lim + 3, (nf_lim, 1)), s_lim + 1, False),
-             (ints(0, s_lim, (nf_lim + 1, 1)), s_lim, False)]
-    cases += [(adj, s, True) for adj, s in small]
-    cases += [(adj, s + words, False) for adj, s in small]
-    skew, _ = _adj_w(cuda, 270_336, 24_576, 10)
+    cases += [(adj, s, "one-block") for adj, s in small]
+    cases += [(adj, s + one, "grid") for adj, s in small]
+    spread = torch.full((400_000, 5), 7, device="cuda", dtype=torch.int32)
+    spread[::3] = ints(0, 1000, (spread[::3].shape[0], 5))
+    cases.append((spread, 1000, "grid"))        # rows over many windows
+    skew, _ = _adj_w(cuda, 270_336, 24_576, 10)    # GAT layer 0's shape,
     skew[torch.rand(skew.shape, generator=cuda, device="cuda") < 0.2] = 0
-    cases.append((skew, 270_336, False))
-    for adj, s, one_block in cases:
+    cases.append((skew, 270_336, "grid"))          # 20% of slots at row 0
+    for adj, s, form in cases:
         nf = adj.numel()
-        assert (transpose_scratch(s, nf, adj.device) == 0) == one_block, \
-            (s, nf)
+        got_form = _form(s, nf, adj.device)
+        assert got_form == form, (s, nf, got_form)
         before = LAUNCHES["adj_transpose"]
         got = adj_transpose(adj, s)
         torch.cuda.synchronize()
         assert LAUNCHES["adj_transpose"] == before + 1
         want = adj_transpose_reference(adj, s)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
-            (s, nf, one_block)
+            (s, nf, got_form)
+    for adj, s, form in cases[:7]:
+        assert len(cs.device_ops(torch, lambda: adj_transpose(adj, s))) == 1
 
 
 @pytest.mark.cuda

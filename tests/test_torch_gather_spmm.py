@@ -10,7 +10,9 @@ tests' own (both sides sum the same f32 products, in another association
 order on the Pallas side); the int8 form compares against Pallas on JAX's
 ``dequantize_rows`` output, so both sides sum the same dequantised rows.
 The backward sums the same products as autograd and ``jax.grad`` in
-another order (a row dot, an index_add_ over repeated rows): 1e-5 too."""
+another order (a row dot, an index_add_ over repeated rows): 1e-5 too.
+The card's transposes (one block; the cooperative grid) are modelled step
+by step in numpy and held to a transpose built by hand, exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -329,6 +331,11 @@ def _adj_case(rng, case):
         return np.zeros((0, 4), np.int32), 10
     if case == "one_long_row":     # every slot names one row, > a block
         return np.full((300, 5), 4, np.int32), 10
+    if case == "skewed":           # ~6% of slots naming 4 rows (padding)
+        adj = rng.integers(0, 3000, size=(600, 10)).astype(np.int32)
+        adj[rng.random(adj.shape) < 0.06] = rng.integers(0, 4)
+        adj[:4, :] = np.arange(4)[:, None]
+        return adj, 3000
     adj = rng.integers(0, 20, size=(10, 5)).astype(np.int32)
     adj[[0, 3, 7], [1, 4, 0]] = [-1, 20, 99]            # out of range
     return adj, 20
@@ -388,6 +395,142 @@ def test_one_block_transpose_algorithm(rng, case):
         got = _one_block_transpose(adj, s, rng)
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
+
+
+def _bitmap_rank(seg, window):
+    """A long row's ranks as the grid transpose's block computes them: the
+    slots' range [lo, hi] in windows of ``window`` words x 32 bits, in
+    each a bit per slot, the exclusive scan of the words' popcounts, and a
+    slot's rank = carry + its word's prefix + the bits below it in its
+    word. Returns the slots in rank order."""
+    seg = np.asarray(seg, np.int64)
+    out = np.full(seg.size, -1, np.int64)
+    carry, base = 0, int(seg.min())
+    while base <= seg.max():
+        words = min(window, (int(seg.max()) - base) // 32 + 1)
+        x = seg - base
+        inside = (x >= 0) & (x < words * 32)
+        bits = np.zeros(words, np.uint64)
+        np.bitwise_or.at(bits, x[inside] >> 5,
+                         np.uint64(1) << (x[inside] & 31).astype(np.uint64))
+        pop = np.array([bin(int(w)).count("1") for w in bits], np.int64)
+        pre = carry + np.cumsum(pop) - pop
+        for v, xv in zip(seg[inside], x[inside]):
+            below = int(bits[xv >> 5]) & ((1 << int(xv & 31)) - 1)
+            out[pre[xv >> 5] + bin(below).count("1")] = v
+        carry += int(pop.sum())
+        base += window * 32
+    return out
+
+
+def _lane_sort(seg, lane_slots=16):
+    """A short row as one lane sorts it: a bitonic network over
+    ``lane_slots`` registers, INT32_MAX past the row, each stage k a flip
+    (i with i ^ (k - 1)) then half-cleaners (i with i ^ j)."""
+    v = list(seg) + [2**31 - 1] * (lane_slots - len(seg))
+    k = 2
+    while k <= lane_slots:
+        j = k >> 1
+        while j:
+            for i in range(lane_slots):
+                c = i ^ (k - 1) if j == k >> 1 else i ^ j
+                if c > i:
+                    v[i], v[c] = min(v[i], v[c]), max(v[i], v[c])
+            j >>= 1
+        k <<= 1
+    return v[:len(seg)]
+
+
+def _grid_transpose(adj, s, rng, blocks, window, lane_slots=16, warp=32):
+    """The grid transpose's algorithm in numpy: blocks own row ranges
+    (counts zeroed and scanned per block, then offset by the totals of the
+    blocks before); the placement's warps run in a random order, each
+    warp's lanes that name one row sharing one atomic (consecutive
+    positions in lane order); then each row ranked with work per row: up
+    to ``lane_slots`` placed slots by one lane's sorting network
+    (``_lane_sort``), up to a warp by the lanes' shuffles (each slot's rank
+    the number of the row's slots below it), longer rows listed (in a random order) and dealt round the
+    blocks, each ranked by its bitmap (``_bitmap_rank``)."""
+    flat = adj.reshape(-1).astype(np.int64)
+    nf = flat.size
+    r = np.where((flat >= 0) & (flat < s), flat, -1)
+    per = -(-s // blocks)
+    count = np.zeros(s, np.int64)
+    np.add.at(count, r[r >= 0], 1)
+    totals = []
+    for b in range(blocks):                       # each block's own scan
+        lo, hi = min(b * per, s), min(b * per + per, s)
+        c = count[lo:hi].copy()
+        count[lo:hi] = np.cumsum(c) - c
+        totals.append(int(c.sum()))
+    row_ptr = np.zeros(s + 1, np.int64)
+    for b in range(blocks):
+        lo, hi = min(b * per, s), min(b * per + per, s)
+        count[lo:hi] += sum(totals[:b])
+        row_ptr[lo:hi] = count[lo:hi]
+    grand = row_ptr[s] = sum(totals)
+    placed = np.full(nf, -7, np.int64)
+    for w0 in rng.permutation(np.arange(0, nf, warp)):   # warps, any order
+        lanes = np.arange(w0, min(w0 + warp, nf))
+        for row in dict.fromkeys(r[lanes].tolist()):    # leaders
+            if row < 0:
+                continue
+            peers = lanes[r[lanes] == row]              # lane order
+            placed[count[row] + np.arange(peers.size)] = peers
+            count[row] += peers.size
+    slot = np.full(nf, -7, np.int64)
+    slot[grand:] = -1
+    longs = []
+    for tile in rng.permutation(-(-s // warp)):   # tiles, any order
+        for row in range(tile * warp, min(tile * warp + warp, s)):
+            beg, d = row_ptr[row], count[row] - row_ptr[row]
+            if d > warp:
+                longs.append(row)
+            elif d <= lane_slots:                 # a lane's network
+                slot[beg:beg + d] = _lane_sort(placed[beg:beg + d])
+            else:                                 # the warp's ranks
+                v = placed[beg:beg + d]
+                for x in v:
+                    slot[beg + int((v < x).sum())] = x
+    longs = [longs[i] for i in rng.permutation(len(longs))]
+    for b in range(blocks):                       # dealt round: q % blocks
+        for row in longs[b::blocks]:
+            beg, d = row_ptr[row], count[row] - row_ptr[row]
+            slot[beg:beg + d] = _bitmap_rank(placed[beg:beg + d], window)
+    return row_ptr, slot
+
+
+@pytest.mark.parametrize("case", TRANSPOSE_CASES + ["skewed"])
+def test_grid_transpose_algorithm(rng, case):
+    """The card's grid transpose, step by step in numpy, gives the
+    transpose by hand whatever order the placement's warps, the tiles and
+    the long-row list take: 1 to 5 blocks, and bitmap windows from the
+    card's 8,192 words down to one word (every long row then spans many
+    windows)."""
+    adj, s = _adj_case(rng, case)
+    want = _transpose_by_hand(adj, s)
+    for blocks, window in [(3, 8192), (5, 2048), (1, 1), (2, 2)]:
+        got = _grid_transpose(adj, s, rng, blocks, window)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("d", range(1, 17))
+def test_transpose_lane_sort_network(rng, d):
+    """One lane's network sorts every row length up to 16, the padding
+    past the row included."""
+    seg = rng.permutation(1000)[:d]
+    assert _lane_sort(seg) == sorted(seg.tolist())
+
+
+@pytest.mark.parametrize("d,window", [(33, 1), (33, 8192), (100, 2),
+                                      (513, 4), (1024, 8192), (3000, 16),
+                                      (4096, 1), (20_000, 64)])
+def test_transpose_long_row_bitmap_rank(rng, d, window):
+    """A long row's bitmap ranks put its slots in ascending order, over one
+    window or many (slot ids spread over ~10 x d)."""
+    seg = rng.permutation(10 * d)[:d]
+    np.testing.assert_array_equal(_bitmap_rank(seg, window), np.sort(seg))
 
 
 @pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])

@@ -401,7 +401,7 @@ def test_relation_masking_is_exact(dss):
     params = jm.init(jax.random.key(0), jblocks, jnp.asarray(x))
     tm = th.make_hetero_model("rgcn", ds.feature_dim, 8, 8, 3, 1)
     tm.load_state_dict(params_from_flax(jax.device_get(params)))
-    blocks = th.hetero_blocks_to_device([blk])
+    blocks = th.hetero_blocks_to_device([blk], "cpu")
     out = tm(blocks, torch.from_numpy(x)).detach()
     np.testing.assert_allclose(
         out.numpy(), np.asarray(jm.apply(params, jblocks, jnp.asarray(x))),
@@ -418,7 +418,7 @@ def test_blocks_to_device_needs_edge_types(dss):
     b = NeighborSampler(synthetic_graph(**KW).graph, [3], 4, seed=0) \
         .sample(dss[0].train_idx[:4]).blocks
     with pytest.raises(ValueError, match="edge types"):
-        th.hetero_blocks_to_device(b)
+        th.hetero_blocks_to_device(b, "cpu")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
