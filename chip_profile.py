@@ -48,6 +48,18 @@ model through the same loop, beside them. ``cli-resident-MODEL``
 it: one warm-up epoch of 8 steps, then one traced epoch of one window of
 8.
 
+    python3 chip_profile.py --refscale PATH [--quantize] [--cprofile]
+
+profiles the reference-scale leg on a graph that
+``python -m coala_gnn_tpu_torch.reference_scale --generate`` wrote into
+PATH: its trainer (``reference_scale.make_trainer``: 4096 MB cache, f32
+lines or with ``--quantize`` int8 lines, int8 transport, degree
+priorities, SAGE at hidden 256, fanout [10, 5], batch 1024) after the
+degree-top prewarm and one K = 32 warm-up window, then one traced staged
+K = 32 window (probe, host gather, upload, the window, the offer);
+``--cprofile`` runs that window under Python's cProfile instead and
+prints the host functions by cumulative and own time.
+
     python3 chip_profile.py --against OTHER_CHECKOUT ROW ...
 
 times the same f32 rows of this checkout and of OTHER_CHECKOUT (an older
@@ -250,6 +262,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = cs.smi_string()
     print(f"card: {smi}")
+    if args[:1] == ["--refscale"]:
+        return refscale(torch, cs, args[1], "--quantize" in args, smi,
+                        "--cprofile" in args)
     ds = synthetic_graph(num_nodes=cs.N_NODES, avg_degree=15,
                          feature_dim=cs.DIM, num_classes=cs.CLASSES, seed=0)
     store = HostFeatureStore(ds.features, use_native=False)
@@ -286,31 +301,79 @@ def main() -> int:
             grid = cs.make_grids(ds, 1, STEPS, cs.BATCH, rng)
             run_steps = lambda: rt.train_windows(grid, seed=1)
         torch.cuda.synchronize()
-        wall, events = profile_window(torch, run_steps)
-        cs.require(bool(events), f"{model_type}: the trace holds no device "
-                                 "event")
-        busy = busy_us((e.time_range.start, e.time_range.end)
-                       for e in events)
-        total = sum(e.time_range.end - e.time_range.start for e in events)
-        by_name: dict = {}
-        for e in events:
-            by_name[e.name] = (by_name.get(e.name, 0.0) + e.time_range.end
-                               - e.time_range.start)
-        ours = {k: v for k, v in by_name.items()
-                if any(t in k for t in OURS)}
-        print(f"{model_type}: {STEPS} steps, wall {1000 * wall:.2f} ms "
-              f"(profiler on), device busy {busy / 1000:.3f} ms = "
-              f"{busy / 1000 / STEPS:.3f} ms/step, idle share "
-              f"{1 - busy / (1e6 * wall):.4f}; device event sum "
-              f"{total / 1000:.3f} ms over {len(events)} events ({smi})")
-        for k, v in sorted(ours.items(), key=lambda kv: -kv[1]):
-            print(f"  gather-SpMM {v / 1000:.4f} ms "
-                  f"({100 * v / total:.2f}% of device time) {k[:100]}")
-        print(f"  gather-SpMM total {sum(ours.values()) / 1000:.4f} ms = "
-              f"{100 * sum(ours.values()) / total:.2f}% of device time")
-        for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
-            print(f"  top {v / 1000:.4f} ms {k[:100]}")
+        report(torch, cs, model_type, STEPS, run_steps, smi)
         del rt
+    return 0
+
+
+def report(torch, cs, label: str, steps: int, run_steps, smi: str) -> None:
+    """Trace one call of ``run_steps`` (``steps`` steps) and print its
+    wall time, device busy time and idle share, the gather-SpMM kernels'
+    share and the 14 largest device events."""
+    wall, events = profile_window(torch, run_steps)
+    cs.require(bool(events), f"{label}: the trace holds no device event")
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in events)
+    total = sum(e.time_range.end - e.time_range.start for e in events)
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = (by_name.get(e.name, 0.0) + e.time_range.end
+                           - e.time_range.start)
+    ours = {k: v for k, v in by_name.items() if any(t in k for t in OURS)}
+    print(f"{label}: {steps} steps, wall {1000 * wall:.2f} ms (profiler "
+          f"on), device busy {busy / 1000:.3f} ms = "
+          f"{busy / 1000 / steps:.3f} ms/step, idle share "
+          f"{1 - busy / (1e6 * wall):.4f}; device event sum "
+          f"{total / 1000:.3f} ms over {len(events)} events ({smi})")
+    for k, v in sorted(ours.items(), key=lambda kv: -kv[1]):
+        print(f"  gather-SpMM {v / 1000:.4f} ms "
+              f"({100 * v / total:.2f}% of device time) {k[:100]}")
+    print(f"  gather-SpMM total {sum(ours.values()) / 1000:.4f} ms = "
+          f"{100 * sum(ours.values()) / total:.2f}% of device time")
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
+        print(f"  top {v / 1000:.4f} ms {k[:100]}")
+
+
+def refscale(torch, cs, path: str, quantize: bool, smi: str,
+             cprofile: bool = False) -> int:
+    """``--refscale``: the reference-scale leg's trainer, one traced
+    staged window (module docstring); with ``cprofile`` the window runs
+    under Python's cProfile instead of torch.profiler, for the host's
+    share."""
+    from coala_gnn_tpu_torch import reference_scale as rs
+    from coala_gnn_tpu_torch.graph.datasets import load_preprocessed
+
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    ds = load_preprocessed(path, num_classes=meta["num_classes"])
+    k = 32
+    rt, cfg = rs.make_trainer(ds, 4096, cs.BATCH, cs.FANOUTS, cs.HIDDEN,
+                              "int8", quantize, "cuda")
+    rs.prewarm_top(rt, ds)
+    rng = np.random.default_rng(0)
+    rt.train_windows(cs.make_grids(ds, 1, k, cs.BATCH, rng), seed=0)
+    grid = cs.make_grids(ds, 1, k, cs.BATCH, rng)
+    torch.cuda.synchronize()
+    rt.timers.reset()
+    rt.timers.tallies.clear()
+    label = (f"refscale {meta['num_nodes']} nodes, "
+             f"{'int8' if quantize else 'f32'} lines, {cfg.capacity} lines")
+    if cprofile:
+        import cProfile
+        import pstats
+
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.runcall(rt.train_windows, grid, seed=0, first_window=1)
+        torch.cuda.synchronize()
+        print(f"{label}: one K = {k} window under cProfile, wall "
+              f"{1000 * (time.perf_counter() - t0):.1f} ms ({smi})")
+        for key in ("cumulative", "tottime"):
+            pstats.Stats(prof, stream=sys.stdout).sort_stats(
+                key).print_stats(22)
+    else:
+        report(torch, cs, label, k,
+               lambda: rt.train_windows(grid, seed=0, first_window=1), smi)
+    print("timers of the traced window:\n" + rt.timers.report())
     return 0
 
 

@@ -165,7 +165,35 @@ trainer CLI's hetero models, and the CLI's ``--pipeline resident``
      colored lines, SAGE's launches; (5) ``--save_dir`` / ``--resume``:
      the resident CLI's SAGE restored bitwise and its resumed epoch's
      losses equal to the uninterrupted run's (1e-5), the host CLI's
-     restore bitwise.
+     restore bitwise;
+ 18. the reference's on-disk layouts through the trainer CLI (``--data``,
+     ``--path``), written into a temporary directory with the port's own
+     ``synthetic_graph``: IGB's homogeneous layout (100k papers, IGB's dim
+     1024, avg degree 15, 19 classes, float32 labels, ``edge_index`` [E,
+     2]), the preprocessed layout through ``python -m
+     coala_gnn_tpu_torch.create_csc_graph``, IGB-hetero's (4 node types,
+     4 edge directories, 8 relations with the reverses); ``--data igb``
+     SAGE resident (``--window 8``) and on the host pipeline,
+     ``--data preprocessed`` SAGE resident, ``--data igb-hetero`` RGAT (4
+     heads) on the host pipeline, each at hidden 256, fanout 10,5, batch
+     1024, the 1024 MB cache cold, 4 + 16 steps, with phase 16's checks
+     and prints (the CLI prints its hit ratio per epoch), the features
+     still a memory map of their file (IGB-hetero's flattened table is
+     built in RAM, as in JAX); every kernel of one real step of each row
+     against its plain version, timed (D = 1024 at layer 0, RGAT's
+     stacked calls over 8 relations);
+ 19. the reference-scale leg (``coala_gnn_tpu_torch.reference_scale``) at
+     reduced depth: ``generate`` at 1M nodes, avg degree 15, dim 1024
+     (4.1 GB in the temporary directory), then ``run_single`` with a
+     410 MB f32 cache (~10% coverage, as 4096 MB is of 41 GB) and again
+     with int8 lines: int8 transport, degree priorities and prewarm, K =
+     32, 1 warm-up + 1 measured window; staged windows, no replay, loss
+     finite and falling over the warm-up window from above 0, one f32
+     launch per step; prints the record (the JAX script's keys, the card);
+     the kernel on one staged step's frontier against its plain version,
+     and the int8 kernel on a table of more than 2^31 elements;
+ 20. ``entry()``'s forward on the card against the port on the CPU (2e-3
+     / 2e-4) and ``dryrun_multichip(1)`` on the card.
 
 Every failure ends the script with a non-zero code. The line before the
 last two is a JSON object with the kernels' launches, errors, times,
@@ -173,17 +201,20 @@ bounds and library times (phase 15's stacked shapes, phase 16's bf16
 RGAT calls and phase 17's dedup step as entries of their own, named by
 kernel, model and layer); the last line is ``{"ok": true, "device":
 {...}}``. Writes coala_gnn_tpu_torch/_build/ (the kernels and the native
-host library, built there at first use) and, in phase 17, a color
-directory and checkpoints under a ``tempfile`` directory that it removes.
+host library, built there at first use) and, in phases 17-19, a color
+directory, checkpoints and the datasets (~6 GB) under ``tempfile``
+directories that it removes.
 Imports nothing of JAX or of coala_gnn_tpu.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -992,16 +1023,17 @@ def phase_staged_step(torch, rt, ds, gather_spmm, gather_spmm_reference,
     step's mask, as ``ResidentTrainer._window`` hands them to the kernel.
     Also holds that table against the graph's features: every valid
     frontier row is its node's row, exactly with f32 lines and f32
-    transport, within half a quantisation step with int8 lines and int8
+    transport, within half a quantisation step with int8 lines or int8
     transport."""
     from coala_gnn_tpu_torch.ops.aggregate import frontier_adj
     from coala_gnn_tpu_torch.utils.rng import SAMPLE, step_generators
 
     seed = 14
-    quantized = rt.cache_cfg.quantize
-    require(rt.stage_transport == ("int8" if quantized else "float32"),
-            f"{label}: staged check needs f32 lines with f32 transport or "
-            f"int8 lines with int8 transport, not {rt.stage_transport}")
+    quantized = rt.cache_cfg.quantize or rt.stage_transport == "int8"
+    require(rt.stage_transport == "int8" or not quantized and
+            rt.stage_transport == "float32",
+            f"{label}: staged check needs f32 or int8 transport (int8 with "
+            f"int8 lines), not {rt.stage_transport}")
     grid = torch.as_tensor(make_grids(ds, 1, K_PRESSURE, batch, rng)[0],
                            device=rt.device)
     stage = rt._build_stage(rt._probe_window(grid, seed, 0))
@@ -1031,8 +1063,9 @@ def phase_staged_step(torch, rt, ds, gather_spmm, gather_spmm_reference,
     err = max_err(torch, out, ref, f"{label}: one staged step's layer-0 "
                                    "inputs")
     print(f"{label}: frontier rows vs node features: max abs diff "
-          f"{float(row_err.max()):.3g} ({'int8' if quantized else 'f32'} "
-          f"lines); kernel on a staged step's layer-0 inputs (frontier "
+          f"{float(row_err.max()):.3g} "
+          f"({'int8' if rt.cache_cfg.quantize else 'f32'} lines, "
+          f"{rt.stage_transport} transport); kernel on a staged step's layer-0 inputs (frontier "
           f"{tuple(feats.shape)} {feats.dtype}, {n_hit} cache rows + "
           f"{n_stage} stage rows, adj {tuple(adj.shape)}): max_abs_err "
           f"{err:.3g}")
@@ -2681,6 +2714,333 @@ def phase_ports(torch, ds, store, smi) -> tuple:
     return total, errs, entries
 
 
+#: phase 18: the IGB layouts (IGB-tiny's 100k papers at IGB's dim 1024)
+IGB_PAPERS, IGB_DIM, IGB_CLASSES = 100_000, 1024, 19
+#: phase 18's rows: (tag, --data, --model_type, more flags, launches per
+#: measured step); every row at the flagship widths, 4 + 16 steps
+DATA_ROWS = (
+    ("igb-sage-resident", "igb", "sage",
+     dict(pipeline="resident", window=8), RESIDENT_PER_STEP["sage"]),
+    ("igb-sage-host", "igb", "sage", {}, ADJ_SAGE_PER_STEP),
+    ("preprocessed-sage-resident", "preprocessed", "sage",
+     dict(pipeline="resident", window=8), RESIDENT_PER_STEP["sage"]),
+    ("igb-hetero-rgat-host", "igb-hetero", "rgat", {},
+     HETERO_PER_STEP["rgat"]))
+#: phase 19: the reference-scale leg at reduced depth: 1M of its 10M nodes
+#: at dim 1024 (4.1 GB of features), a cache of the same ~10% coverage
+#: that 4096 MB is of 41 GB, K = 32, 1 warm-up + 1 measured window
+REFSCALE_NODES, REFSCALE_MB = 1_000_000, 410
+
+
+def write_igb_layout(ds, out: str, size: str = "tiny") -> str:
+    """IGB's homogeneous raw layout of ``ds`` under ``out`` (as
+    examples/make_igb_fixture.py writes it: float32 features and labels,
+    ``edge_index`` [E, 2] int32 (src, dst) in CSC order), plus the
+    preprocessed layout's features, labels and train split in
+    ``out/preprocessed`` (its csc_*.npy come from create_csc_graph)."""
+    import os
+
+    paper = os.path.join(out, size, "processed", "paper")
+    cites = os.path.join(out, size, "processed", "paper__cites__paper")
+    pre = os.path.join(out, "preprocessed")
+    for d in (paper, cites, pre):
+        os.makedirs(d, exist_ok=True)
+    np.save(os.path.join(paper, "node_feat.npy"), ds.features)
+    np.save(os.path.join(paper, "node_label_19.npy"),
+            ds.labels.astype(np.float32))
+    dst = np.repeat(np.arange(ds.graph.num_nodes, dtype=np.int32),
+                    np.diff(ds.graph.indptr))
+    np.save(os.path.join(cites, "edge_index.npy"),
+            np.stack([ds.graph.indices.astype(np.int32), dst], axis=1))
+    np.save(os.path.join(pre, "features.npy"), ds.features)
+    np.save(os.path.join(pre, "labels.npy"), ds.labels.astype(np.int32))
+    np.save(os.path.join(pre, "train_idx.npy"),
+            ds.train_idx.astype(np.int64))
+    return out
+
+
+def write_igb_hetero_layout(out: str, num_paper: int, dim: int,
+                            size: str = "tiny", avg_degree: int = 8,
+                            seed: int = 0) -> str:
+    """IGB-hetero's raw layout under ``out``, as
+    examples/make_igb_fixture.py's ``write_igb_hetero_fixture`` writes it
+    (the same draws): 4 node types of one dim, the papers the synthetic
+    graph, 4 edge directories of [E, 2] (src, dst), paper labels
+    float32."""
+    import os
+
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
+
+    rng = np.random.default_rng(seed)
+    ds = synthetic_graph(num_nodes=num_paper, avg_degree=avg_degree,
+                         feature_dim=dim, num_classes=19, seed=seed)
+    counts = {"paper": num_paper, "author": max(num_paper // 2, 8),
+              "institute": max(num_paper // 20, 4),
+              "fos": max(num_paper // 10, 4)}
+    base = os.path.join(out, size, "processed")
+    for t, n in counts.items():
+        os.makedirs(os.path.join(base, t), exist_ok=True)
+        feat = (ds.features if t == "paper" else
+                rng.normal(0, 1, size=(n, dim)).astype(np.float32))
+        np.save(os.path.join(base, t, "node_feat.npy"), feat)
+    np.save(os.path.join(base, "paper", "node_label_19.npy"),
+            ds.labels.astype(np.float32))
+    dst = np.repeat(np.arange(num_paper, dtype=np.int32),
+                    np.diff(ds.graph.indptr))
+    src = np.asarray(ds.graph.indices, dtype=np.int32)
+
+    def dump(d, s, t):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+        np.save(os.path.join(base, d, "edge_index.npy"),
+                np.stack([np.asarray(s, np.int32),
+                          np.asarray(t, np.int32)], axis=1))
+    dump("paper__cites__paper", src, dst)
+    n_pa = num_paper * 2
+    dump("paper__written_by__author",
+         rng.integers(0, counts["paper"], n_pa),
+         rng.integers(0, counts["author"], n_pa))
+    n_ai = counts["author"]
+    dump("author__affiliated_to__institute",
+         np.arange(n_ai), rng.integers(0, counts["institute"], n_ai))
+    dump("paper__topic__fos", rng.integers(0, counts["paper"], num_paper),
+         rng.integers(0, counts["fos"], num_paper))
+    return out
+
+
+def machine_report(path: str) -> str:
+    """Host RAM (total, available), free disk under ``path`` and CPU
+    count of this machine."""
+    import os
+
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":")
+            mem[k] = int(v.split()[0]) / 2**20      # kB -> GiB
+    disk = shutil.disk_usage(path)
+    return (f"host RAM {mem['MemTotal']:.1f} GiB ({mem['MemAvailable']:.1f} "
+            f"available, page cache {mem['Cached']:.1f}), disk free under "
+            f"the temporary directory {disk.free / 2**30:.1f} of "
+            f"{disk.total / 2**30:.1f} GiB, {os.cpu_count()} CPUs")
+
+
+def data_entries(tag: str, row_counts: dict, checked: dict) -> list:
+    """Kernels JSON entries of one row's real-step calls: the row's
+    launches of each kernel split over the step's calls of it."""
+    entries = []
+    for (name, layer), e in checked.items():
+        calls = sum(1 for n, _ in checked if n == name)
+        entries.append({"name": f"{name} {tag} layer {layer}",
+                        "counter": name,
+                        "launches": row_counts.get(name, 0) // calls,
+                        **{k: v for k, v in e.items() if k != "form"}})
+    return entries
+
+
+def phase_data(torch, smi, tmp: str) -> tuple:
+    """Phase 18: the reference's on-disk layouts through the trainer CLI
+    (``train.build`` loading ``--data`` / ``--path``): IGB's homogeneous
+    layout (100k papers, dim 1024, avg degree 15, 19 classes), its
+    preprocessed layout through ``python -m
+    coala_gnn_tpu_torch.create_csc_graph``, IGB-hetero's (100k papers, 4
+    node types, 8 relations with the reverses); the ``DATA_ROWS`` at
+    hidden 256, fanout 10,5, batch 1024, the 1024 MB cache cold at the
+    start, 4 + 16 steps (``cli_row``'s checks and prints), each kernel of
+    one real step against its plain version. Returns (launches by
+    kernel, kernels JSON entries)."""
+    import os
+
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
+
+    t0 = time.perf_counter()
+    print(f"phase 18: {machine_report(tmp)}")
+    igb = os.path.join(tmp, "igb")
+    write_igb_layout(synthetic_graph(
+        num_nodes=IGB_PAPERS, avg_degree=15, feature_dim=IGB_DIM,
+        num_classes=IGB_CLASSES, seed=0), igb)
+    pre = os.path.join(igb, "preprocessed")
+    done = subprocess.run(
+        [sys.executable, "-m", "coala_gnn_tpu_torch.create_csc_graph",
+         "--edge_index", os.path.join(igb, "tiny", "processed",
+                                      "paper__cites__paper",
+                                      "edge_index.npy"),
+         "--num_nodes", str(IGB_PAPERS), "--out", pre],
+        capture_output=True, text=True, timeout=600)
+    require(done.returncode == 0, f"create_csc_graph failed: "
+            f"{done.stderr[-2000:]}")
+    igbh = write_igb_hetero_layout(os.path.join(tmp, "igbh"), IGB_PAPERS,
+                                   IGB_DIM, avg_degree=15)
+    print(f"phase 18: wrote the IGB, preprocessed ("
+          f"{done.stdout.strip().splitlines()[-1]}) and IGB-hetero layouts "
+          f"in {time.perf_counter() - t0:.1f} s")
+    paths = {"igb": igb, "preprocessed": pre, "igb-hetero": igbh}
+    total, entries = {}, []
+    for tag, data, kind, flags, per_step in DATA_ROWS:
+        row_counts, run, _ = cli_row(
+            torch, None, smi, "phase 18", tag, kind, per_step, data=data,
+            path=paths[data], dataset_size="tiny", num_classes=IGB_CLASSES,
+            **flags)
+        require(isinstance(run.ds.features, np.memmap) ==
+                (data != "igb-hetero"), f"{tag}: features copied into RAM")
+        if kind in HETERO_KINDS:
+            require(run.ds.graph.num_edge_types == 8,
+                    f"{tag}: {run.ds.graph.num_edge_types} relations, "
+                    "expected IGB-hetero's 4 and their reverses")
+        add_counts(total, row_counts)
+        calls = (resident_step_calls(torch, run) if run.trainer is not None
+                 else hetero_step_calls(torch, run))
+        entries += data_entries(tag, row_counts, step_kernels(
+            torch, f"phase 18: {tag}", calls))
+        del run
+        torch.cuda.empty_cache()
+    return total, entries
+
+
+def int8_past_2_31(torch) -> dict:
+    """The int8 kernel on a table of more than 2^31 elements (2,101,248 x
+    1024, as int8 lines of a 4 GB cache at dim 1024 hold ~4.2M rows), adj
+    reaching its last rows, against its plain version: the 64-bit row
+    offsets. Returns its entry (error, times, bound)."""
+    from coala_gnn_tpu_torch.ops.gather_spmm import (gather_spmm,
+                                                     gather_spmm_reference)
+
+    rows, d = (1 << 31) // 1024 + 4096, 1024
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randint(-127, 128, (rows, d), dtype=torch.int8,
+                      device="cuda", generator=gen)
+    scale = torch.rand(rows, device="cuda", generator=gen) / 127
+    n, f = 6 * BATCH, FANOUTS[0]
+    adj = torch.randint(rows - 200_000, rows, (n, f), dtype=torch.int32,
+                        device="cuda", generator=gen)
+    adj[0, 0] = rows - 1
+    w = torch.rand(n, f, device="cuda", generator=gen)
+    e = {"max_abs_err": max_err(torch, gather_spmm(x, adj, w, scale),
+                                gather_spmm_reference(x, adj, w, scale),
+                                "int8 table past 2^31 elements")}
+    timed(torch, e, lambda: gather_spmm(x, adj, w, scale),
+          lambda: gather_spmm_reference(x, adj, w, scale),
+          forward_work(torch, x, scale, adj, w))
+    print(f"phase 19: int8 kernel on a {rows} x {d} table "
+          f"({rows * d} elements, past 2^31), adj in its last 200,000 "
+          f"rows: max_abs_err {e['max_abs_err']:.3g}; "
+          + describe("gather_spmm[int8]", e))
+    return e
+
+
+def phase_refscale(torch, smi, tmp: str) -> tuple:
+    """Phase 19: ``reference_scale.generate`` at ``REFSCALE_NODES`` (avg
+    degree 15, dim 1024, 19 classes, communities of 2048, p_intra 0.9,
+    seed 0) into ``tmp``, then ``run_single`` with f32 lines and with int8
+    lines (``--quantize``): ``REFSCALE_MB``, int8 transport, degree
+    priorities and prewarm, SAGE at hidden 256, fanout 10,5, batch 1024,
+    K = 32, 1 + 1 windows. Checks staged windows with hits, misses and no
+    replay, finite losses falling over the warm-up window from a first
+    loss above 0, one f32 launch per step; prints the record; holds the
+    kernel against its plain version on one staged step's frontier, and
+    the int8 kernel on a table past 2^31 elements. Returns (launches by
+    kernel, worst error by kernel)."""
+    import os
+
+    from coala_gnn_tpu_torch import reference_scale as rs
+    from coala_gnn_tpu_torch.ops.gather_spmm import (gather_spmm,
+                                                     gather_spmm_reference)
+
+    path = os.path.join(tmp, "refscale")
+    t0 = time.perf_counter()
+    meta = rs.generate(path, REFSCALE_NODES, 15, 1024, 19, 2048, 0.9, 0)
+    print(f"phase 19: generated {REFSCALE_NODES} nodes x 1024 "
+          f"({meta['feature_bytes'] / 2**30:.2f} GiB of features) in "
+          f"{time.perf_counter() - t0:.1f} s (topology "
+          f"{meta['gen_topology_s']} s, features {meta['gen_features_s']} "
+          f"s); {machine_report(tmp)}")
+    total, errs = {}, {"gather_spmm[float32]": 0.0}
+    for quantize in (False, True):
+        tag = "int8 lines" if quantize else "f32 lines"
+        seen = {}
+
+        def after(rt, ds):
+            seen["counts"] = launches()
+            require(not rt.direct and rt.stage_transport == "int8" and
+                    rt._store is not None and
+                    rt.cache.base.data.dtype == (torch.int8 if quantize
+                                                 else torch.float32),
+                    f"{tag}: not staged {tag} with int8 transport and the "
+                    "native host store")
+            require("replay" not in rt.timers.totals, f"{tag}: replayed")
+            require(rt.g.indices.is_cuda and on_card(torch, rt),
+                    f"{tag}: state off the card")
+            seen["err"] = phase_staged_step(
+                torch, rt, ds, gather_spmm, gather_spmm_reference,
+                np.random.default_rng(19), label=f"phase 19 ({tag})")
+
+        t0 = time.perf_counter()
+        reset_launches()
+        out = rs.run_single(path, REFSCALE_MB, BATCH, "10,5", HIDDEN,
+                            K_PRESSURE, 1, 1, "int8", quantize=quantize,
+                            device="cuda", on_trainer=after)
+        counts = {k: v for k, v in seen["counts"].items() if v}
+        require(counts == {"gather_spmm[float32]": 2 * K_PRESSURE},
+                f"{tag}: launches {counts}, expected one f32 forward per "
+                f"step of 2 windows of {K_PRESSURE}")
+        add_counts(total, counts)
+        warm = out["warm_loss_first_last"]
+        require(np.isfinite(warm + out["loss_first_last"]).all() and
+                warm[0] > 0 and warm[1] < warm[0],
+                f"{tag}: warm-up losses not finite and falling from above 0 "
+                f"{warm}")
+        require(0 < out["hit_ratio"] < 1, f"{tag}: hit ratio "
+                f"{out['hit_ratio']}")
+        errs["gather_spmm[float32]"] = max(errs["gather_spmm[float32]"],
+                                           seen["err"])
+        print(f"phase 19: reference scale, {tag} (run_single, "
+              f"{time.perf_counter() - t0:.1f} s with set-up): "
+              f"{out['ms_per_step']} ms/step, edges/s {out['edges_per_s']}, "
+              f"hit ratio {out['hit_ratio']}, stage rows per window "
+              f"{out['stage_rows_per_window']} ({smi}); record "
+              + json.dumps(out))
+        torch.cuda.empty_cache()
+    errs["gather_spmm[int8]"] = int8_past_2_31(torch)["max_abs_err"]
+    torch.cuda.empty_cache()
+    return total, errs
+
+
+def phase_entry(torch, smi) -> dict:
+    """Phase 20: ``entry()``'s forward on the card against the port on the
+    CPU (SMALL_RTOL / SMALL_ATOL), its two f32 launches; then
+    ``dryrun_multichip(1)`` on the card (both pipelines, their checks).
+    Returns the launches by kernel."""
+    from coala_gnn_tpu_torch import entry
+
+    reset_launches()
+    fn, args = entry.entry("cuda")
+    out = fn(*args)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches().items() if v}
+    require(counts == {"gather_spmm[float32]": 2}, f"entry(): launches "
+            f"{counts}, expected one forward per layer")
+    fn_cpu, args_cpu = entry.entry("cpu")
+    ref = fn_cpu(*args_cpu).numpy()
+    np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=SMALL_RTOL,
+                               atol=SMALL_ATOL)
+    print(f"phase 20: entry() logits {tuple(out.shape)} on the card vs the "
+          f"CPU port: max diff {np.abs(out.cpu().numpy() - ref).max():.3g} "
+          f"(rtol {SMALL_RTOL} atol {SMALL_ATOL}); launches {counts}")
+    total = dict(counts)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = entry.dryrun_multichip(1, "cuda")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches().items() if v}
+    require(counts.get("gather_spmm[float32]", 0) > 0,
+            f"dryrun_multichip(1): launches {counts}")
+    add_counts(total, counts)
+    print(f"phase 20: dryrun_multichip(1) on the card in "
+          f"{time.perf_counter() - t0:.1f} s: host hit ratio "
+          f"{got['host']['hit_ratio']:.4f}, window hit ratio "
+          f"{got['window']['hit_ratio']:.4f}, launches {counts} ({smi})")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2769,9 +3129,25 @@ def main() -> int:
     for name, err in port_errs.items():
         worst(name, err)
     print(f"phase 17: done in {time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        t0 = time.perf_counter()
+        data_launches, data_entries_ = phase_data(torch, smi, tmp)
+        print(f"phase 18: done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ref_launches, ref_errs = phase_refscale(torch, smi, tmp)
+        for name, err in ref_errs.items():
+            worst(name, err)
+        print(f"phase 19: done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp)
+    t0 = time.perf_counter()
+    entry_launches = phase_entry(torch, smi)
+    print(f"phase 20: done in {time.perf_counter() - t0:.1f} s")
     for counts in (gat_launches, int8_launches, host_launches,
                    bf16_launches, hetero_launches, resident_launches,
-                   port_launches):
+                   port_launches, data_launches, ref_launches,
+                   entry_launches):
         for name, n in counts.items():
             main_launches[name] = main_launches.get(name, 0) + n
 
@@ -2794,7 +3170,8 @@ def main() -> int:
                 **kern[name]} for name, where in replaces.items()]
     kernels += [{"route": "cuda", "source": src,
                  "replaces": replaces[e["counter"]], **e}
-                for e in hetero_entries + resident_entries + port_entries]
+                for e in hetero_entries + resident_entries + port_entries
+                + data_entries_]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never launched on the "
                 "main path")

@@ -8,8 +8,9 @@ trainer CLI reads with ``--distribution node_color --color_dir``.
     python -m coala_gnn_tpu_torch.generate_colors --num_nodes 200000 \\
         --feature_dim 256 --out colors200k
 
-Only the synthetic graph is ported; ``--data`` and the other dataset
-flags raise ``NotImplementedError`` naming their ROADMAP.md item.
+``--data`` picks the graph as the trainer CLI does (``train.load``): the
+synthetic graph, or a dataset on disk through ``--path``,
+``--dataset_size`` and ``--num_classes``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ import time
 
 from coala_gnn_tpu_torch.coloring import (generate_color_metadata,
                                           save_color_metadata)
-from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
 
 
 def parse_args(argv=None):
@@ -42,16 +42,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Prints the JAX script's two lines; returns the metadata."""
+    from coala_gnn_tpu_torch.train import load
+
     args = parse_args(argv)
-    if (args.data != "synthetic" or args.path
-            or args.dataset_size != "tiny"):
-        raise NotImplementedError(
-            "real datasets (--data, --path, --dataset_size) are not ported "
-            "yet: ROADMAP.md queue A, \"the real datasets\"")
-    ds = synthetic_graph(num_nodes=args.num_nodes,
-                         avg_degree=args.avg_degree,
-                         feature_dim=args.feature_dim,
-                         num_classes=args.num_classes, seed=args.seed)
+    ds = load(args)
     t0 = time.perf_counter()
     meta = generate_color_metadata(ds.graph, ds.train_idx,
                                    max_hop=args.max_hop,

@@ -169,8 +169,10 @@ class HostScratch:
     card. ``get`` hands out buffer i of a name, ``upload`` copies a buffer
     to the device without blocking and records a CUDA event; the next
     ``get`` of that buffer (two windows later) waits on the event before
-    the host may write it again. A buffer grows when a request outgrows it
-    and is otherwise reused, so steady windows allocate nothing."""
+    the host may write it again. A buffer grows when a request outgrows it,
+    to 1/8 more than the request (pinning a 1.3 GB stage buffer takes ~0.2
+    s, and a window's stage varies by a few percent), and is otherwise
+    reused, so steady windows allocate nothing."""
 
     def __init__(self, pin_memory: bool):
         self._pin = pin_memory
@@ -190,7 +192,7 @@ class HostScratch:
             if ev is not None:
                 ev.synchronize()
         if buf is None or buf.numel() < n:
-            buf = pair[i] = torch.empty(n, dtype=dtype,
+            buf = pair[i] = torch.empty(n + n // 8, dtype=dtype,
                                         pin_memory=self._pin)
         return buf[:n].view(shape)
 
@@ -349,15 +351,22 @@ class ResidentBase:
             return (fmt, *self._readback(out, "probe"))
 
     def _probe_miss_ids(self, probe: Probe) -> np.ndarray:
-        """Wait for a probe's readback -> sorted unique miss ids."""
+        """Wait for a probe's readback -> sorted unique miss ids. The flat
+        form is deduplicated through a node bitmap on the host, O(ids +
+        nodes): ``np.unique``'s hash took 1.36 s of a 1.57 s window on 2.2M
+        ids at 10M nodes (PERF.md)."""
         fmt, host, ev = probe
         with self.timers.time("probe_wait"):
             if ev is not None:
                 ev.synchronize()
-        arr = host.numpy()
-        if fmt == "bitmap":
-            return np.flatnonzero(arr[:self.graph.num_nodes]).astype(np.int32)
-        return np.unique(arr[arr >= 0]).astype(np.int32)
+        with self.timers.time("probe_ids"):
+            arr = host.numpy()
+            if fmt == "bitmap":
+                seen = arr[:self.graph.num_nodes]
+            else:
+                seen = np.zeros(self.graph.num_nodes, bool)
+                seen[arr[arr >= 0]] = True
+            return np.flatnonzero(seen).astype(np.int32)
 
     def _build_stage(self, probe: Probe, evicted=None):
         """Probe readback -> host gather of the unique miss rows -> stage on
@@ -395,9 +404,10 @@ class ResidentBase:
             u_cap = stage_cap(n)
             gid = np.full(u_cap, -1, np.int64)
             gid[:n] = mids
-            enc = self._scratch.get("enc", (u_cap, dim), tdt)
-            scale = (self._scratch.get("scale", (u_cap,), torch.float32)
-                     if tr == "int8" else None)
+            with self.timers.time("stage_alloc"):
+                enc = self._scratch.get("enc", (u_cap, dim), tdt)
+                scale = (self._scratch.get("scale", (u_cap,), torch.float32)
+                         if tr == "int8" else None)
             with self.timers.time("host_gather"):
                 self._gather_encoded(gid, enc, scale)
                 if self._offer_host_rows:

@@ -130,9 +130,11 @@ def to_device_graph(graph, device, nbr_cap: Optional[int] = None,
     indptr = np.concatenate([indptr, indptr[-1:]])
 
     def padded(a) -> torch.Tensor:
-        a = np.concatenate([np.asarray(a).astype(np.int32),
-                            np.zeros(1, np.int32)])
-        return torch.from_numpy(a).to(device)
+        # one int32 host copy of a (maybe memory-mapped) array, plus a pad
+        out = np.empty(len(a) + 1, np.int32)
+        out[:-1] = a
+        out[-1] = 0
+        return torch.from_numpy(out).to(device)
 
     def put(a) -> Optional[torch.Tensor]:
         return None if a is None else torch.from_numpy(a).to(device)

@@ -27,9 +27,15 @@ windows stop before it. Every step draws from its own streams
 (``utils/rng.py``): a window from ``(seed, its first run step, k)``, a
 single step from ``(seed, its run step, 0)``.
 
-The hetero models (``--model_type rsage|rgcn|rgat``) train on the
-synthetic graph with random edge types (``--num_edge_types``, 3 when it is
-below 2), drawn as ``examples/train.py`` draws them, on either pipeline.
+``--data synthetic`` (the default) builds the synthetic graph of
+``--num_nodes`` / ``--avg_degree`` / ``--feature_dim``; any other name goes
+to ``graph.datasets.load_dataset`` with ``--path``, ``--dataset_size`` and
+``--num_classes`` (``igb``, ``igb-hetero``, ``ogb-mag-hetero``,
+``preprocessed``; the features stay a memory map of their file). The
+hetero models (``--model_type rsage|rgcn|rgat``) train on a typed graph's
+own relations, or on random edge types (``--num_edge_types``, 3 when it is
+below 2) drawn onto a graph that has none, as ``examples/train.py`` draws
+them, on either pipeline.
 ``--nbr_cap P`` samples the resident pipeline from the padded neighbour
 table. ``--distribution node_color --color_dir DIR`` reads the color
 metadata that ``python -m coala_gnn_tpu_torch.generate_colors`` writes:
@@ -67,7 +73,6 @@ HETERO = ("rsage", "rgcn", "rgat")
 #: the ROADMAP.md items that the flags not ported yet name
 _ROADMAP = {
     "multi": "ROADMAP.md queue A, \"multi-GPU\"",
-    "data": "ROADMAP.md queue A, \"the real datasets\"",
     "jax_only": "ROADMAP.md queue A, \"Not ported: code the system does not "
                 "need on a GPU\"",
 }
@@ -157,9 +162,6 @@ def refuse_unported(args) -> None:
     checks = [
         (args.devices > 1, f"--devices {args.devices}", "multi"),
         (args.shard_topology, "--shard_topology", "multi"),
-        (args.data != "synthetic" or bool(args.path) or
-         args.dataset_size != "tiny",
-         "real datasets (--data, --path, --dataset_size)", "data"),
         (bool(args.rng_impl), "--rng_impl (a JAX PRNG family)", "jax_only"),
     ]
     for bad, what, item in checks:
@@ -273,11 +275,27 @@ def with_edge_types(ds, num_edge_types: int, seed: int):
         ds.graph, edge_types=types, num_edge_types=n))
 
 
+def load(args):
+    """The dataset of the flags: the synthetic graph for ``--data
+    synthetic``, else ``load_dataset(--data, path=--path,
+    dataset_size=--dataset_size, num_classes=--num_classes)``."""
+    from coala_gnn_tpu_torch.graph.datasets import (load_dataset,
+                                                    synthetic_graph)
+
+    if args.data == "synthetic":
+        return synthetic_graph(num_nodes=args.num_nodes,
+                               avg_degree=args.avg_degree,
+                               feature_dim=args.feature_dim,
+                               num_classes=args.num_classes, seed=args.seed)
+    return load_dataset(args.data, path=args.path,
+                        dataset_size=args.dataset_size,
+                        num_classes=args.num_classes)
+
+
 def build(args, ds=None) -> Run:
     """Everything the CLI trains with, printing what ``examples/train.py``
     prints: the model with the JAX CLI's dropout 0.5, Adam (AdamW with
-    ``--decay``). ``ds``: the dataset to train on (default: the synthetic
-    graph of the flags)."""
+    ``--decay``). ``ds``: the dataset to train on (default: ``load``'s)."""
     if args.pipeline == "resident" and args.cache_size <= 0:
         raise SystemExit("--pipeline resident requires --cache_size > 0")
     device = torch.device(args.device)
@@ -291,7 +309,6 @@ def build(args, ds=None) -> Run:
     from coala_gnn_tpu_torch.data.loader import CoalaDataLoader
     from coala_gnn_tpu_torch.distribution import (DistributionScheduler,
                                                   SeedDistributor)
-    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
     from coala_gnn_tpu_torch.models.gnn import make_model
     from coala_gnn_tpu_torch.models.hetero import make_hetero_model
     from coala_gnn_tpu_torch.parallel.sharded_cache import \
@@ -307,10 +324,7 @@ def build(args, ds=None) -> Run:
         raise ValueError("--num_layers must match --fan_out")
 
     if ds is None:
-        ds = synthetic_graph(num_nodes=args.num_nodes,
-                             avg_degree=args.avg_degree,
-                             feature_dim=args.feature_dim,
-                             num_classes=args.num_classes, seed=args.seed)
+        ds = load(args)
     hetero = args.model_type in HETERO
     if hetero:
         ds = with_edge_types(ds, args.num_edge_types, args.seed)

@@ -256,7 +256,7 @@ def test_cli_resident_runs_every_model_on_cpu(capsys):
     (["--nbr_cap", "2", "--fan_out", "4,3"], ValueError,
      "nbr_cap=2 < max fanout 4"),
     (["--resume"], ValueError, "--save_dir"),
-    (["--data", "igb"], NotImplementedError, "the real datasets"),
+    (["--data", "ogbn-arxiv"], NotImplementedError, "Not ported"),
     (["--rng_impl", "rbg"], NotImplementedError, "Not ported"),
     (["--profile_dir", "trace"], ValueError, "--profile_dir"),
 ])

@@ -159,5 +159,6 @@ def test_generate_colors_cli_writes_jax_arrays(tmp_path, capsys):
         a = np.load(tmp_path / "port" / f"{name}.npy")
         b = np.load(tmp_path / "jax" / f"{name}.npy")
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
-    with pytest.raises(NotImplementedError, match="the real datasets"):
-        generate_colors.main(["--data", "igb", "--out", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="Not ported"):
+        generate_colors.main(["--data", "ogbn-arxiv", "--out",
+                              str(tmp_path)])

@@ -484,20 +484,20 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu():
       "--devices", "2"], "multi-GPU"),
     (["--model_type", "rsage", "--devices", "2"], "multi-GPU"),
     (["--model_type", "rgat", "--shard_topology"], "multi-GPU"),
-    (["--data", "igb"], "the real datasets"),
+    (["--data", "ogbn-products"], "Not ported"),
     (["--devices", "2"], "multi-GPU"),
     (["--distribution", "node_color", "--devices", "2"], "multi-GPU"),
-    (["--path", "data"], "the real datasets"),
+    (["--data", "ogbn-papers100M", "--path", "data"], "Not ported"),
     (["--shard_topology"], "multi-GPU"),
-    (["--dataset_size", "full"], "the real datasets"),
+    (["--data", "ogbn-mag", "--dataset_size", "full"], "Not ported"),
     (["--rng_impl", "threefry2x32"], "Not ported"),
     (["--pipeline", "resident", "--cache_size", "1", "--shard_topology"],
      "multi-GPU"),
     (["--pipeline", "resident", "--cache_size", "1", "--devices", "2"],
      "multi-GPU"),
-    (["--pipeline", "resident", "--cache_size", "1", "--data", "igb"],
-     "the real datasets"),
-    (["--data", "ogbn-arxiv"], "the real datasets"),
+    (["--pipeline", "resident", "--cache_size", "1", "--data",
+      "ogbn-arxiv"], "Not ported"),
+    (["--data", "ogbn-arxiv"], "Not ported"),
     (["--rng_impl", "rbg"], "Not ported"),
 ])
 def test_cli_refuses_every_unported_flag(flags, item):

@@ -10,7 +10,11 @@ and eval), and so does the CLI's resident pipeline
 (``parallel/sharded_resident.py``) for SAGE and RGCN; the coloring
 (``coloring/``, ``generate_colors.py``) writes its metadata, and the
 resident CLI trains on the padded table with ``node_color``, saves a
-checkpoint (``utils/checkpoint.py``) and resumes from it."""
+checkpoint (``utils/checkpoint.py``) and resumes from it; the real-dataset
+layouts (IGB, its preprocessed form through ``create_csc_graph``,
+IGB-hetero) train through the CLI, the reference-scale leg
+(``reference_scale``) generates and runs, and ``entry`` runs its forward
+and ``dryrun_multichip(1)``."""
 
 import os
 import subprocess
@@ -91,6 +95,35 @@ try:
     assert checkpoint.latest_step(os.path.join(tmp, "ck")) == 6
 finally:
     shutil.rmtree(tmp)
+from coala_gnn_tpu_torch import create_csc_graph, entry, reference_scale
+tmp = tempfile.mkdtemp()
+try:
+    chip_smoke.write_igb_layout(ds, os.path.join(tmp, "igb"))
+    create_csc_graph.main([
+        "--edge_index", os.path.join(tmp, "igb", "tiny", "processed",
+                                     "paper__cites__paper", "edge_index.npy"),
+        "--num_nodes", "200", "--out", os.path.join(tmp, "igb",
+                                                    "preprocessed")])
+    chip_smoke.write_igb_hetero_layout(os.path.join(tmp, "igbh"), 100, 8)
+    for data, path, kind in (("igb", "igb", "sage"),
+                             ("preprocessed", "igb/preprocessed", "sage"),
+                             ("igb-hetero", "igbh", "rgcn")):
+        cli.main(["--device", "cpu", "--data", data, "--path",
+                  os.path.join(tmp, path), "--num_classes", "19",
+                  "--batch_size", "8", "--fan_out", "3,2",
+                  "--hidden_channels", "8", "--max_steps", "2",
+                  "--cache_size", "1", "--model_type", kind, "--pipeline",
+                  "resident", "--window", "2"])
+    rs = os.path.join(tmp, "rs")
+    reference_scale.generate(rs, 3000, 5, 16, 5, 256, 0.9, 0)
+    out = reference_scale.run_single(rs, 1, 16, "3,2", 8, 2, 1, 1, "int8",
+                                     device="cpu")
+    assert 0 < out["hit_ratio"] < 1 and out["card"] == "cpu"
+finally:
+    shutil.rmtree(tmp)
+fn, fargs = entry.entry("cpu")
+assert fn(*fargs).shape == (32, 8)
+entry.dryrun_multichip(1, "cpu")
 jaxish = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("coala_gnn_tpu", "jax", "jaxlib",
                                        "flax", "optax", "ml_dtypes")
