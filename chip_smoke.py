@@ -11,8 +11,9 @@ set-associative f32 cache of ~50% of the rows, degree priorities, staged
 windows of K = 32 through the native host tier); then GAT and GCN at the
 same config, the int8 cache lines on both tiers, and the bf16 model dtype
 (resident-bf16, a bf16 GAT and GCN, int8 lines on a bf16 table), the
-trainer CLI's hetero models, and the CLI's ``--pipeline resident``
-(``ShardedResidentTrainer``). Phases:
+trainer CLI's hetero models, the CLI's ``--pipeline resident``
+(``ShardedResidentTrainer``), and the CLI's host pipeline data-parallel
+over two ranks. Phases:
 
   1. device: a CUDA card must be present; prints its name and power limit;
   2. kernels vs plain: builds the gather-SpMM kernels from the checkout and
@@ -193,7 +194,25 @@ trainer CLI's hetero models, and the CLI's ``--pipeline resident``
      the kernel on one staged step's frontier against its plain version,
      and the int8 kernel on a table of more than 2^31 elements;
  20. ``entry()``'s forward on the card against the port on the CPU (2e-3
-     / 2e-4) and ``dryrun_multichip(1)`` on the card.
+     / 2e-4) and ``dryrun_multichip(1)`` on the card;
+ 21. data-parallel training on the host pipeline (``train.train_rank``,
+     one process per rank, ``parallel/multihost.launch``) at the flagship
+     widths with a 64 MB cache per rank, 4 warm-up + 16 measured steps:
+     (1) the CLI's host SAGE in an NCCL process group of one rank, bitwise
+     the one-card path (losses, cache state, hit counts, launches); (2)
+     two ranks on the one card over gloo (its CUDA collectives stage
+     through the host) in each cache mode: sharded, node_local over hosts
+     of one rank (isolated's routing under the node_local name), isolated,
+     and sharded with int8 lines; per rank: finite, falling losses, the
+     launches of every measured step (2 forwards, 1 transpose, 1 grad_x),
+     state on the card, the bytes handed to the all-to-alls equal to
+     ``comm_model.step_traffic``'s count and the gradient all-reduce's
+     payload; then 4 dropout-0 steps of each mode against the same two
+     ranks on the CPU (2e-3 / 2e-4; they run at the same time); prints
+     ms/step, edges/s per card, hit ratio, overflow slots and exchange
+     bytes per step beside the backend and the card; gloo on one card
+     checks correctness, it is no NCCL speed; (3) two ranks over NCCL on
+     two cards where the machine has them, else a line saying why not.
 
 Every failure ends the script with a non-zero code. The line before the
 last two is a JSON object with the kernels' launches, errors, times,
@@ -209,6 +228,7 @@ Imports nothing of JAX or of coala_gnn_tpu.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import shutil
 import statistics
@@ -3041,6 +3061,248 @@ def phase_entry(torch, smi) -> dict:
     return total
 
 
+MULTI_MB = 64           # cache MB per rank: ~60% of the 205 MB of rows
+MULTI_WARM, MULTI_MEAS = 4, 16    # over two ranks, ~30% on one
+MULTI_SMALL = 4         # steps of the card-vs-CPU comparison, dropout 0
+MULTI_MODES = (("sharded", False), ("node_local", False),
+               ("isolated", False), ("sharded", True))
+
+
+def multi_mesh(mesh, mode: str):
+    """The rank's mesh for ``mode``: node_local over hosts of one rank
+    each (its group of 1 routes every id to the rank itself, isolated's
+    routing under the node_local name; the miss decision still spans
+    every rank), the mesh as it is otherwise."""
+    import dataclasses
+
+    if mode != "node_local":
+        return mesh
+    return dataclasses.replace(mesh, local_size=1,
+                               host_group=mesh.block_group(1))
+
+
+def watch_fetches(cache) -> list:
+    """(miss count that decided the miss path, overflow slots) of every
+    fetch the cache front resolves from now on."""
+    seen, resolve = [], cache.fetch_complete
+
+    def fetch_complete(handle, *args, **kwargs):
+        seen.append((handle.miss_count(), int(handle.overflow.sum())))
+        return resolve(handle, *args, **kwargs)
+
+    cache.fetch_complete = fetch_complete
+    return seen
+
+
+def multi_rank(mesh, ds, measure: bool) -> list:
+    """Phase 21's rank body (every rank runs it, ``multihost.launch``):
+    per mode of ``MULTI_MODES`` the trainer CLI's host SAGE at the flagship
+    widths on this rank's mesh, a ``MULTI_MB`` cache per rank. With
+    ``measure``: ``MULTI_WARM`` warm-up + ``MULTI_MEAS`` measured steps at
+    the CLI's dropout 0.5, recording the measured steps' launches, the
+    bytes handed to the collectives, each fetch's miss count and overflow
+    slots, the summed hit counts and the time. Then, from fresh weights,
+    ``MULTI_SMALL`` steps at dropout 0: the losses that the same run on
+    the CPU is held to."""
+    import torch
+
+    from coala_gnn_tpu_torch import train as cli
+
+    out = []
+    for mode, quant in MULTI_MODES:
+        rec = {"mode": mode, "quantize": quant}
+        m = multi_mesh(mesh, mode)
+        args = cli.parse_args(cli_args("sage", device=str(mesh.device),
+                                       cache_size=MULTI_MB,
+                                       cache_backend=mode, quantize=quant))
+        if measure:
+            run = cli.build(args, ds=ds, mesh=m)
+            fetches = watch_fetches(run.cache)
+            warm = cli.train(run, epochs=1, max_steps=MULTI_WARM)
+            sync(torch, mesh.device)
+            reset_launches()
+            mesh.ledger.reset()
+            fetches.clear()
+            meas = cli.train(run, epochs=1, max_steps=MULTI_MEAS)
+            sync(torch, mesh.device)
+            rec.update(
+                losses=np.concatenate([warm["losses"], meas["losses"]]),
+                launches={k: v for k, v in launches().items() if v},
+                ledger=mesh.ledger.snapshot(), fetches=list(fetches),
+                stats=meas["stats"][0], dt=meas["epoch_s"][0],
+                edges=meas["edges"], n_req=run.sampler.caps[0][1],
+                route=run.cache.n_route, on_card=on_card_cli(torch, run),
+                param_bytes=4 * sum(p.numel()
+                                    for p in run.model.parameters()))
+            del run
+        run = cli.build(args, ds=ds, mesh=m)
+        run.model.dropout = 0.0
+        rec["small"] = cli.train(run, epochs=1,
+                                 max_steps=MULTI_SMALL)["losses"]
+        del run
+        out.append(rec)
+    return out
+
+
+def multi_bytes(rec: dict) -> dict:
+    """What ``comm_model.step_traffic`` says a rank hands to the
+    all-to-alls over ``rec``'s measured steps, by phase (the fill's summed
+    over the fetches that filled, each sized from its miss count)."""
+    from coala_gnn_tpu_torch.parallel import comm_model
+
+    G = rec["route"]
+
+    def traffic(misses=0):
+        return comm_model.step_traffic(
+            rec["mode"], rec["n_req"], n_dev=2,
+            local=G if rec["mode"] == "node_local" else 2, dim=DIM,
+            int8_response=rec["quantize"], misses=misses)
+
+    ex = traffic()["exchange"]["off_device"]
+    want = {p: MULTI_MEAS * ex[p] for p in ("request", "response",
+                                             "hitbits")}
+    want["fill"] = sum(traffic(m)["fill_miss_step"]["off_device"]
+                       for m, _ in rec["fetches"] if m)
+    return want
+
+
+def check_multi(ranks: list, cpu: list, tag: str, smi: str,
+                backend: str) -> dict:
+    """Phase 21's checks and prints for one launch of ``multi_rank``
+    (``ranks``: each rank's records) against the CPU run's (``cpu``);
+    returns the measured steps' launches summed over ranks and modes."""
+    total = {}
+    for i, (mode, quant) in enumerate(MULTI_MODES):
+        name = f"{mode}{'-int8' if quant else ''}"
+        for r, rank in enumerate(ranks):
+            rec = rank[i]
+            what = f"phase 21 {tag} {name} rank {r}"
+            losses = rec["losses"]
+            q = losses.size // 4
+            require(np.isfinite(losses).all() and
+                    losses[-q:].mean() < losses[:q].mean(),
+                    f"{what}: losses not finite and falling {losses}")
+            np.testing.assert_allclose(rec["small"], cpu[r][i]["small"],
+                                       rtol=SMALL_RTOL, atol=SMALL_ATOL,
+                                       err_msg=what + " vs the CPU run")
+            want = {k: v * MULTI_MEAS for k, v in ADJ_SAGE_PER_STEP.items()}
+            require(rec["launches"] == want, f"{what}: launches "
+                    f"{rec['launches']}, expected {want}")
+            require(rec["on_card"], f"{what}: state off the card")
+            led = rec["ledger"]
+            got = {p: led["handed"].get(p, 0) - led["kept"].get(p, 0)
+                   for p in ("request", "response", "hitbits", "fill")}
+            require(got == multi_bytes(rec), f"{what}: bytes handed to the "
+                    f"all-to-alls {got}, comm_model {multi_bytes(rec)}")
+            require(led["handed"]["grad"] ==
+                    MULTI_MEAS * (rec["param_bytes"] + 8),
+                    f"{what}: gradient all-reduce {led['handed']['grad']}")
+            add_counts(total, rec["launches"])
+        rec = ranks[0][i]
+        st = rec["stats"]
+        over = sum(o for rank in ranks for _, o in rank[i]["fetches"])
+        ex = sum(multi_bytes(rec).values()) / MULTI_MEAS
+        diff = max(np.abs(rank[i]["small"] - c[i]["small"]).max()
+                   for rank, c in zip(ranks, cpu))
+        print(f"phase 21: {tag} {name} (CLI --devices 2 --cache_backend "
+              f"{mode}{' --quantize' if quant else ''} --cache_size "
+              f"{MULTI_MB}, route {rec['route']}): "
+              f"{1000 * rec['dt'] / MULTI_MEAS:.3f} ms/step, "
+              f"train_edges_per_s_per_card {rec['edges'] / rec['dt']:.1f} "
+              f"(rank 0; {MULTI_MEAS} measured steps after {MULTI_WARM}, "
+              f"host clock, backend {backend}, {smi}); hit ratio "
+              f"{st['hit_ratio']:.4f} ({st['hits']} hits / {st['misses']} "
+              f"misses, both ranks); overflow slots {over}; all-to-all "
+              f"bytes leaving each rank per step {ex:.0f} (= "
+              f"comm_model.step_traffic); losses rank 0 "
+              f"{np.array2string(rec['losses'][::2], precision=4)}; "
+              f"dropout-0 steps vs the CPU run: max diff {diff:.3g}")
+    return total
+
+
+def cache_state(run) -> dict:
+    s, n = run.cache.state, run.cache.cfg.num_sets
+    return {"tags": s.base.tags[:n], "data": s.base.data[:n],
+            "rr": s.base.rr, "line_colors": s.line_colors[:n],
+            "color_counts": s.base.color_counts}
+
+
+def phase_multi(torch, ds, smi) -> dict:
+    """Phase 21: data-parallel training on the host pipeline (module
+    docstring). Returns the launches by kernel."""
+    from coala_gnn_tpu_torch import train as cli
+    from coala_gnn_tpu_torch.parallel import multihost
+    from coala_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    total, runs = {}, {}
+    args = cli.parse_args(cli_args("sage", cache_size=MULTI_MB))
+    for name in ("one card", "nccl world 1"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+        try:
+            if name == "nccl world 1":
+                multihost.initialize_distributed(
+                    "nccl", f"file://{tmp}/store", 1, 0)
+            mesh = make_mesh("cuda:0")
+            run = cli.build(args, ds=ds, mesh=mesh)
+            torch.cuda.synchronize()
+            reset_launches()
+            out = cli.train(run, epochs=1, max_steps=MULTI_WARM + MULTI_MEAS)
+            torch.cuda.synchronize()
+            runs[name] = (out, {k: v.cpu() for k, v in
+                                cache_state(run).items()},
+                          {k: v for k, v in launches().items() if v},
+                          mesh.ledger.snapshot())
+            add_counts(total, runs[name][2])
+            del run
+        finally:
+            if name == "nccl world 1":
+                torch.distributed.destroy_process_group()
+            shutil.rmtree(tmp)
+    (a, sa, la, _), (b, sb, lb, ledger) = runs["one card"], \
+        runs["nccl world 1"]
+    require(a["losses"].tobytes() == b["losses"].tobytes(),
+            f"phase 21: nccl world 1 losses {b['losses']} differ from the "
+            f"one-card path's {a['losses']}")
+    require(all(torch.equal(sa[k], sb[k]) for k in sa) and
+            a["stats"] == b["stats"] and la == lb,
+            "phase 21: nccl world 1 cache state, hit counts or launches "
+            "differ from the one-card path's")
+    steps = MULTI_WARM + MULTI_MEAS
+    require(ledger["calls"].get("grad") == steps and
+            ledger["calls"].get("control", 0) >= steps,
+            f"phase 21: nccl world 1 ran no collectives: {ledger}")
+    print(f"phase 21: NCCL at world 1 (process group, the data-parallel "
+          f"step's all-reduce and the miss decision's) bitwise the one-card "
+          f"path over {steps} steps: losses, cache state, hit counts "
+          f"{b['stats']}, launches {lb}; collectives {ledger['calls']}")
+
+    # the CPU ranks run beside the card's (their own process group)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        on_cpu = pool.submit(multihost.launch, multi_rank, 2, ["cpu", "cpu"],
+                             "gloo", args=(ds, False))
+        card = multihost.launch(multi_rank, 2, ["cuda:0", "cuda:0"], "gloo",
+                                args=(ds, True))
+        t1 = time.perf_counter()
+        cpu = on_cpu.result()
+    print(f"phase 21: 2 ranks on cuda:0 over gloo in {t1 - t0:.1f} s, the "
+          f"CPU comparison (2 ranks, gloo, at the same time) in "
+          f"{time.perf_counter() - t0:.1f} s (process start and set-up "
+          "included)")
+    add_counts(total, check_multi(card, cpu, "gloo 2 ranks on 1 card", smi,
+                                  "gloo"))
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        nccl = multihost.launch(multi_rank, 2, ["cuda:0", "cuda:1"], "nccl",
+                                args=(ds, True))
+        add_counts(total, check_multi(nccl, cpu, "nccl 2 cards", smi,
+                                      "nccl"))
+    else:
+        print(f"phase 21: multi-rank NCCL not run: this machine has "
+              f"{n_cards} card, and NCCL takes one rank per card")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3144,10 +3406,13 @@ def main() -> int:
     t0 = time.perf_counter()
     entry_launches = phase_entry(torch, smi)
     print(f"phase 20: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multi_launches = phase_multi(torch, ds, smi)
+    print(f"phase 21: done in {time.perf_counter() - t0:.1f} s")
     for counts in (gat_launches, int8_launches, host_launches,
                    bf16_launches, hetero_launches, resident_launches,
                    port_launches, data_launches, ref_launches,
-                   entry_launches):
+                   entry_launches, multi_launches):
         for name, n in counts.items():
             main_launches[name] = main_launches.get(name, 0) + n
 

@@ -36,7 +36,10 @@ graph     CSC graph (with edge types) and the synthetic dataset
 native    ctypes bindings of the native host functions (sampler, greedy,
           row gather and encode)
 parallel  ResidentTrainer (the resident training step); the host
-          pipeline's one-device cache front, train steps and run_host
+          pipeline's cache front spread over the ranks (the two-phase
+          all-to-all exchange), its data-parallel steps and run_host; the
+          ranks (mesh, multihost: one process per card) and the
+          exchange's byte model
 utils     flax->torch parameter and optax Adam state conversion,
           checkpoints, per-window generators, phase timers, the nvcc / g++
           build

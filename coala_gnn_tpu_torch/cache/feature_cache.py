@@ -65,6 +65,7 @@ class CacheConfig:
     num_colors: int     # 0 disables color tracking
     dtype: torch.dtype = torch.float32
     quantize: bool = False  # int8 lines + a per-line f32 absmax scale
+    num_shards: int = 1     # ranks the distributed cache spans (1 = private)
 
     @property
     def capacity(self) -> int:
@@ -88,13 +89,15 @@ class CacheConfig:
 
 def make_config(cache_mb: int, dim: int, num_colors: int = 0,
                 dtype: torch.dtype = torch.float32,
-                quantize: bool = False) -> CacheConfig:
+                quantize: bool = False, num_shards: int = 1) -> CacheConfig:
+    """``cache_mb`` MB of lines per rank; ``num_shards`` ranks share the
+    id space (the distributed set index)."""
     cache_dim = round_cache_dim(dim)
     page = cache_dim + 4 if quantize else cache_dim * dtype.itemsize
     num_pages = max(int(cache_mb) * 2**20 // page, WAYS)
     return CacheConfig(num_sets=num_pages // WAYS, ways=WAYS, dim=dim,
                        cache_dim=cache_dim, num_colors=num_colors,
-                       dtype=dtype, quantize=quantize)
+                       dtype=dtype, quantize=quantize, num_shards=num_shards)
 
 
 @dataclasses.dataclass
@@ -249,8 +252,13 @@ def init_colored_state(cfg: CacheConfig, device,
 
 
 def _set_index(cfg: CacheConfig, ids: torch.Tensor) -> torch.Tensor:
-    """Private cache: id % num_sets (int64, for indexing)."""
-    return ids.to(torch.int64) % cfg.num_sets
+    """int64 set of each id (for indexing): private, id % num_sets;
+    distributed over ``num_shards`` owners (owner = id % num_shards),
+    (id // num_shards) % num_sets."""
+    ids = ids.to(torch.int64)
+    if cfg.num_shards > 1:
+        return (ids // cfg.num_shards) % cfg.num_sets
+    return ids % cfg.num_sets
 
 
 def quantize_rows(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -318,6 +326,29 @@ def lookup(cfg: CacheConfig, state: CacheState, ids: torch.Tensor,
         state.hits += n_hit
         state.misses += valid.sum(dtype=torch.int32) - n_hit
     return state, feats, hit
+
+
+def lookup_quantized(cfg: CacheConfig, state: CacheState, ids: torch.Tensor,
+                     valid: torch.Tensor, count_stats: bool = True
+                     ) -> Tuple[CacheState, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """``lookup`` of an int8 cache without the dequantisation: (state, q
+    int8 [n, dim], scales f32 [n], hit bool [n]), missed rows zero with
+    scale 1, so the exchange can send the lines as they are stored
+    (dim + 4 bytes a row) and the requester dequantises."""
+    sets = _set_index(cfg, ids)
+    match = state.tags[sets] == ids[:, None]
+    hit = match.any(dim=1) & valid
+    way = _first_match(match)
+    q = torch.where(hit[:, None], state.data[sets, way, :cfg.dim],
+                    torch.zeros((), dtype=torch.int8, device=ids.device))
+    sc = torch.where(hit, state.scales[sets, way],
+                     torch.ones((), dtype=torch.float32, device=ids.device))
+    if count_stats:
+        n_hit = hit.sum(dtype=torch.int32)
+        state.hits += n_hit
+        state.misses += valid.sum(dtype=torch.int32) - n_hit
+    return state, q, sc, hit
 
 
 def probe(cfg: CacheConfig, state: CacheState, ids: torch.Tensor,

@@ -3,7 +3,13 @@ iteration (port of ``coala_gnn_tpu/data/loader.py``, the same numpy
 arrays for the same seeds).
 
 A background worker prepares iteration i + 1's host work (distribution,
-sampling, stacking) while the device trains iteration i. The worker is
+sampling, stacking) while the device trains iteration i. The loader
+samples ``local_size`` device rows of its part's domain slice, from the
+scheduler's ``local_rank`` on: with one process per card, one row, the
+rank's own (``local_size`` 1), from the rank's own sampler. (The JAX
+loader samples all of a host's devices from one sampler stream, in device
+order, so rank r does not draw JAX's device-r draws; the ranks' streams
+are ``utils/rng.rank_seed``'s, rank 0's the JAX loader's.) The worker is
 host-only: it makes no CUDA call, so the device is driven by the caller's
 thread alone. An epoch drops the tail batch unless the distributor keeps
 it (``drop_tail=False``).
@@ -45,7 +51,8 @@ class HostBatch(NamedTuple):
 
 @dataclasses.dataclass
 class CoalaDataLoader:
-    """Iterates HostBatches for one host's local devices."""
+    """Iterates HostBatches for ``local_size`` devices of one part, from
+    the scheduler's ``local_rank`` on."""
 
     scheduler: DistributionScheduler
     sampler: NeighborSampler
@@ -64,12 +71,12 @@ class CoalaDataLoader:
     def _make_batch(self) -> HostBatch:
         domain = self.scheduler.run_domain()
         dv = self.scheduler.domain_valid
-        valid = (dv.reshape(self.local_size, self.batch_size).copy()
+        B, first = self.batch_size, self.scheduler.local_rank
+        rows = range(first, first + self.local_size)
+        valid = (dv.reshape(-1, B)[first:first + self.local_size].copy()
                  if dv is not None else None)
         per_dev: List[SampledBatch] = [
-            self.sampler.sample(domain[d * self.batch_size:
-                                       (d + 1) * self.batch_size])
-            for d in range(self.local_size)]
+            self.sampler.sample(domain[d * B:(d + 1) * B]) for d in rows]
         n_layers = len(per_dev[0].blocks)
         contig = per_dev[0].blocks[0].adj is None
         adjs = None if contig else [

@@ -115,6 +115,47 @@ def synthetic_graph(num_nodes: int = 10_000,
     )
 
 
+def clustered_graph(num_nodes: int = 30_000,
+                    num_communities: int = 64,
+                    avg_degree: int = 10,
+                    p_intra: float = 0.95,
+                    feature_dim: int = 64,
+                    num_classes: int = 16,
+                    seed: int = 0) -> Dataset:
+    """Strongly community-structured graph (stochastic block model
+    flavour), the locality that node_color distribution exploits: an edge
+    stays inside its source's community with probability ``p_intra``, so
+    BFS colors track communities and each part's cache can specialise.
+    Labels are ``community % num_classes``; splits 60/20/20."""
+    rng = np.random.default_rng(seed)
+    community = rng.integers(0, num_communities,
+                             size=num_nodes).astype(np.int32)
+    members = [np.flatnonzero(community == c) for c in range(num_communities)]
+    num_edges = num_nodes * avg_degree
+    src = rng.integers(0, num_nodes, size=num_edges).astype(np.int64)
+    dst = np.empty(num_edges, dtype=np.int64)
+    intra = rng.random(num_edges) < p_intra
+    dst[~intra] = rng.integers(0, num_nodes, size=int((~intra).sum()))
+    for c in range(num_communities):
+        m = intra & (community[src] == c)
+        pool = members[c]
+        if pool.size and m.any():
+            dst[m] = rng.choice(pool, size=int(m.sum()))
+    graph = coo_to_csc(src, dst, num_nodes)
+
+    labels = (community % num_classes).astype(np.int32)
+    class_emb = rng.normal(0, 1, size=(num_classes, feature_dim)).astype(
+        np.float32)
+    features = class_emb[labels] + rng.normal(
+        0, 1.0, size=(num_nodes, feature_dim)).astype(np.float32)
+    perm = rng.permutation(num_nodes).astype(np.int64)
+    n_tr, n_va = int(0.6 * num_nodes), int(0.2 * num_nodes)
+    return Dataset(graph=graph, features=features, labels=labels,
+                   train_idx=perm[:n_tr], val_idx=perm[n_tr:n_tr + n_va],
+                   test_idx=perm[n_tr + n_va:], num_classes=num_classes,
+                   name=f"clustered-{num_nodes}x{num_communities}")
+
+
 def _label_file(num_classes: int) -> str:
     return "node_label_19.npy" if num_classes == 19 else "node_label_2K.npy"
 

@@ -119,6 +119,10 @@ class ShardedResidentTrainer(ResidentBase):
             raise ValueError("nbr_cap (padded neighbor table) does not "
                              "combine with shard_topology — the table "
                              "layout is single-replica")
+        if self.cache.mesh.world > 1:
+            raise NotImplementedError(
+                f"the resident pipeline over {self.cache.mesh.world} ranks "
+                "is not ported yet: ROADMAP.md queue A, \"multi-GPU\"")
         if self.shard_topology:
             raise NotImplementedError(
                 "shard_topology is not ported yet: ROADMAP.md queue A, "

@@ -1,5 +1,5 @@
 """Train and eval steps of the host pipeline (port of
-``coala_gnn_tpu/parallel/train.py``, one device).
+``coala_gnn_tpu/parallel/train.py``).
 
 Each ``make_*`` returns a plain function over the ``model`` and
 ``optimizer`` it was made with: a train step runs the forward, the mean
@@ -12,9 +12,20 @@ per step (``utils/rng.py``); ``None`` is fine without dropout. Labels may
 be int32, as the packed buffers carry them.
 
 The request forms read blocks and labels out of the step's one request
-buffer (``data/packing.py``). The ``sharded`` forms take inputs with the
-JAX steps' leading device axis; more than one device raises (ROADMAP.md
-queue A, "multi-GPU").
+buffer (``data/packing.py``). The ``sharded`` forms are the data-parallel
+steps: they take a ``Mesh`` (``parallel/mesh.py``; a list of one device is
+a card on its own) and inputs with the JAX steps' leading device axis, [1,
+...], this rank's slice. Each rank runs its own forward and backward, then
+one ``all_reduce`` (SUM) of a flat f32 buffer of every gradient with the
+loss and the accuracy appended, over all ranks; the unmasked step divides
+it by the world size (JAX's ``pmean``). The masked step optimises the
+global masked mean, ``sum(ce * w) / n_glob`` with ``n_glob`` from a first
+``all_reduce`` of ``w.sum()``, and sums the gradients (JAX's ``psum``).
+Every rank then applies the same update to its copy of the parameters.
+The collectives are explicit (not ``DistributedDataParallel``): the masked
+step needs the psum, and the steps update in place. A mesh with no process
+group (a card on its own) runs no collective; a process group of one rank
+runs them, which leaves every value as it is.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from coala_gnn_tpu_torch.data.packing import (Layout, unpack_batch,
                                               unpack_request_batch,
                                               unpack_request_contig)
 from coala_gnn_tpu_torch.models.layers import DeviceBlock
+from coala_gnn_tpu_torch.parallel.mesh import Mesh, as_mesh
 
 
 def _learn(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -109,13 +121,6 @@ def make_contig_train_step(model: nn.Module,
     return step
 
 
-def _one_device(devices: Sequence) -> None:
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"a data-parallel step over {len(devices)} devices is not "
-            "ported yet: ROADMAP.md queue A, \"multi-GPU\"")
-
-
 def _squeeze(blocks: Sequence[DeviceBlock]) -> List[DeviceBlock]:
     """Blocks with the leading device axis -> this device's blocks, of the
     same type (a ``DeviceHeteroBlock`` keeps its ``rel``)."""
@@ -124,17 +129,59 @@ def _squeeze(blocks: Sequence[DeviceBlock]) -> List[DeviceBlock]:
             for b in blocks]
 
 
+def _learn_sharded(mesh: Mesh, model: nn.Module,
+                   optimizer: torch.optim.Optimizer,
+                   blocks: List[DeviceBlock], x, labels: torch.Tensor,
+                   batch_size: int, generator: Optional[torch.Generator],
+                   weights: Optional[torch.Tensor] = None):
+    """``_learn`` over the mesh's ranks (module docstring) -> (loss,
+    accuracy), both the global values."""
+    if weights is not None:
+        n_glob = mesh.all_reduce(weights.sum().reshape(1)).clamp_min(1.0)[0]
+    logits = model(blocks, x, train=True, generator=generator)[:batch_size]
+    y = labels.long()
+    if weights is None:
+        loss = F.cross_entropy(logits, y)
+    else:
+        loss = (F.cross_entropy(logits, y, reduction="none") * weights
+                ).sum() / n_glob
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    ok = (logits.detach().argmax(-1) == y).float()
+    acc = ok.mean() if weights is None else (ok * weights).sum()
+    params = [p for p in model.parameters() if p.requires_grad]
+    flat = torch.cat([p.grad.reshape(-1).float() if p.grad is not None
+                      else torch.zeros(p.numel(), device=acc.device)
+                      for p in params]
+                     + [loss.detach().reshape(1).float(), acc.reshape(1)])
+    mesh.all_reduce(flat, phase="grad")
+    if weights is None:
+        flat /= mesh.world
+    at = 0
+    for p in params:
+        g = flat[at:at + p.numel()].view_as(p).to(p.dtype)
+        p.grad = g
+        at += p.numel()
+    optimizer.step()
+    loss, acc = flat[-2], flat[-1]
+    return loss, acc if weights is None else acc / n_glob
+
+
 def make_sharded_train_step(model: nn.Module,
                             optimizer: torch.optim.Optimizer,
-                            devices: Sequence, batch_size: int,
+                            devices, batch_size: int,
                             masked: bool = False) -> Callable:
     """step(blocks, x, labels, valid=None, generator=None) -> (loss, acc)
-    on inputs with a leading device axis: blocks' leaves [1, ...], x [1,
-    cap_src, dim], labels [1, B]. ``masked=True``: ``valid`` bool [1, B]
-    (``SeedDistributor.distribute(return_valid=True)``) weights the loss,
-    so wrapped tail duplicates give no gradient; an all-true mask gives
-    the unmasked mean."""
-    _one_device(devices)
+    on this rank's inputs with the leading device axis: blocks' leaves [1,
+    ...], x [1, cap_src, dim], labels [1, B]; the data-parallel step over
+    ``devices`` (a ``Mesh``, or a list of one device). ``masked=True``:
+    ``valid`` bool [1, B] (``SeedDistributor.distribute(return_valid=
+    True)``) weights the loss, so wrapped tail duplicates give no
+    gradient; an all-true mask gives the unmasked mean. ``generator``:
+    this rank's dropout stream."""
+    mesh = as_mesh(devices)
+    learn = _learn if not mesh.distributed else \
+        (lambda *a: _learn_sharded(mesh, *a))
 
     def step(blocks, x, labels, valid=None, generator=None):
         weights = None
@@ -142,24 +189,30 @@ def make_sharded_train_step(model: nn.Module,
             if valid is None:
                 raise ValueError("the masked step needs valid")
             weights = valid[0].to(torch.float32)
-        return _learn(model, optimizer, _squeeze(blocks), x[0], labels[0],
-                      batch_size, generator, weights)
+        return learn(model, optimizer, _squeeze(blocks), x[0], labels[0],
+                     batch_size, generator, weights)
     return step
 
 
-def make_sharded_eval_step(model: nn.Module, devices: Sequence,
+def make_sharded_eval_step(model: nn.Module, devices,
                            batch_size: int,
                            per_slot: bool = False) -> Callable:
-    """step(blocks, x, labels) on inputs with the leading device axis ->
-    the correct count (int64 []), or with ``per_slot`` the correctness
-    grid bool [1, B], so the caller can leave out wrapped seeds."""
-    _one_device(devices)
+    """step(blocks, x, labels) on this rank's inputs with the leading
+    device axis -> the correct count over every rank (int64 [], one
+    ``all_reduce``), or with ``per_slot`` this rank's correctness grid
+    bool [1, B], so the caller can leave out wrapped seeds."""
+    mesh = as_mesh(devices)
 
     @torch.no_grad()
     def step(blocks, x, labels):
         logits = model(_squeeze(blocks), x[0], train=False)[:batch_size]
         ok = logits.argmax(-1) == labels[0].long()
-        return ok[None] if per_slot else ok.sum()
+        if per_slot:
+            return ok[None]
+        n = ok.sum()
+        if mesh.distributed:
+            n = mesh.all_reduce(n.reshape(1))[0]
+        return n
     return step
 
 

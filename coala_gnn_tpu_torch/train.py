@@ -1,19 +1,37 @@
-"""Mini-batch GNN training on one device: the port's counterpart of
-``examples/train.py``, its host pipeline (the default) and its
-``--pipeline resident``.
+"""Mini-batch GNN training: the port's counterpart of ``examples/train.py``,
+its host pipeline (the default) on one card or data-parallel over several,
+and its ``--pipeline resident`` on one card.
 
     python -m coala_gnn_tpu_torch.train --fan_out 10,5 --batch_size 1024 \\
         --hidden_channels 256 --feature_dim 256 --num_nodes 200000 \\
         --cache_size 1024 --epochs 1 --max_steps 50 --eval \\
-        [--pipeline resident --window 8]
+        [--pipeline resident --window 8 | --devices 4 --cache_backend sharded]
+    torchrun --nproc_per_node 4 -m coala_gnn_tpu_torch.train ...
+
+Data parallel (``--devices N``, or one process per card under torchrun):
+one rank per card, each on ``cuda:<local rank>`` (``--device cpu``: N CPU
+ranks over gloo). ``--devices N`` spawns the N ranks on this machine
+(``parallel/multihost.launch``; a ``ValueError`` if it has fewer cards);
+under torchrun (or the JAX package's ``COALA_COORDINATOR`` environment)
+the process group comes from the environment. Every rank runs
+``train_rank``: ``build`` on its ``Mesh`` (``parallel/mesh.py``), where a
+host (a distributor part) is a block of ranks and each rank samples its
+own slice of its host's part from its own sampler stream
+(``utils/rng.rank_seed``), fetches through the cache spread over the
+ranks (``--cache_backend sharded | node_local | isolated``, JAX's modes;
+``nccl`` / ``nvshmem`` are the reference's names for sharded) and trains
+the data-parallel step (``parallel/train.py``), its dropout from its own
+streams. Rank 0 prints the JAX CLI's lines (the hit ratio, the sampled
+nodes and the test accuracy summed over the ranks) and writes the
+checkpoints. The process group's backend is NCCL on cards and gloo on
+the CPU (``multihost.backend_for``).
 
 Host pipeline, per step: seed distribution (``distribution/``), host
 sampling (``sampling/neighbor.py``), the blocks and labels uploaded, the
 features through the cache front (``parallel/sharded_cache.py``, a
 synchronous ``fetch``) or, with ``--cache_size 0``, gathered on the host
-and uploaded, then the data-parallel step on one device
-(``parallel/train.py``). ``--profile_dir`` traces its epoch 0 with
-``torch.profiler``.
+and uploaded, then the data-parallel step (``parallel/train.py``).
+``--profile_dir`` traces its epoch 0 with ``torch.profiler``.
 
 Resident pipeline (``--pipeline resident``, which needs a cache): the host
 picks each step's seed grid and the rest runs on the device, through
@@ -54,13 +72,16 @@ unless ``--device cpu`` is asked for.
 ``main`` is ``build`` (the dataset, sampler, loader, cache front, model
 and optimizer, and the resident trainer), ``resume`` (with ``--resume``),
 ``train`` (the epoch loop, which returns the step losses and the epochs'
-times) and ``evaluate``; a caller may drive them itself.
+times) and ``evaluate``; a caller may drive them itself, or drive ranks
+through ``train_rank``.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import os
 import time
 from typing import Any, Optional
 
@@ -80,7 +101,7 @@ _ROADMAP = {
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="COALA-GNN trainer, PyTorch port (one device)")
+        description="COALA-GNN trainer, PyTorch port")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     p.add_argument("--path", type=str, default="")
@@ -105,11 +126,14 @@ def parse_args(argv=None):
     p.add_argument("--cache_backend", type=str, default="sharded",
                    choices=["sharded", "isolated", "node_local", "nvshmem",
                             "nccl"],
-                   help="on one device every backend is the device's own "
-                        "cache")
+                   help="sharded: ids hashed over every rank; node_local: "
+                        "over each host's ranks; isolated: each rank's own "
+                        "(nvshmem, nccl: sharded); on one card every "
+                        "backend is the card's own cache")
     p.add_argument("--devices", type=int, default=0,
-                   help="local devices; 0 or 1 = one device (more are not "
-                        "ported)")
+                   help="ranks to start on this machine, one per card "
+                        "(0 or 1 = one card; under torchrun, 0 or the "
+                        "ranks per host)")
     p.add_argument("--feat_cpu", action="store_true",
                    help="accepted for reference-CLI parity: the host-RAM "
                         "feature tier is always the backing store")
@@ -160,7 +184,8 @@ def refuse_unported(args) -> None:
     ``--distribution node_color``; and for ``node_color`` without
     ``--color_dir``, which it needs."""
     checks = [
-        (args.devices > 1, f"--devices {args.devices}", "multi"),
+        (args.devices > 1 and args.pipeline == "resident",
+         f"--devices {args.devices} with --pipeline resident", "multi"),
         (args.shard_topology, "--shard_topology", "multi"),
         (bool(args.rng_impl), "--rng_impl (a JAX PRNG family)", "jax_only"),
     ]
@@ -204,7 +229,9 @@ class Run:
     pipeline), ``window`` its clamped ``--window``, ``meta`` the
     ``--color_dir`` metadata (None without ``node_color``). ``fresh``:
     the resident loop's first step is a single step (where JAX
-    initialises its params), until a ``resume`` probe has run."""
+    initialises its params), until a ``resume`` probe has run. ``mesh``:
+    this rank's place among the data-parallel ranks (a card on its own by
+    default)."""
 
     args: argparse.Namespace
     device: torch.device
@@ -222,6 +249,7 @@ class Run:
     window: int = 1
     meta: Optional[Any] = None   # coloring.ColorMetadata
     fresh: bool = True
+    mesh: Optional[Any] = None   # parallel.mesh.Mesh
 
     @property
     def scheduler(self):
@@ -292,13 +320,15 @@ def load(args):
                         num_classes=args.num_classes)
 
 
-def build(args, ds=None) -> Run:
+def build(args, ds=None, mesh=None) -> Run:
     """Everything the CLI trains with, printing what ``examples/train.py``
     prints: the model with the JAX CLI's dropout 0.5, Adam (AdamW with
-    ``--decay``). ``ds``: the dataset to train on (default: ``load``'s)."""
+    ``--decay``). ``ds``: the dataset to train on (default: ``load``'s).
+    ``mesh``: this rank's ``Mesh`` (default: ``--device`` on its own);
+    collective over its ranks."""
     if args.pipeline == "resident" and args.cache_size <= 0:
         raise SystemExit("--pipeline resident requires --cache_size > 0")
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA card here; pass "
                            "--device cpu to train on the CPU")
@@ -311,9 +341,14 @@ def build(args, ds=None) -> Run:
                                                   SeedDistributor)
     from coala_gnn_tpu_torch.models.gnn import make_model
     from coala_gnn_tpu_torch.models.hetero import make_hetero_model
+    from coala_gnn_tpu_torch.parallel.mesh import make_mesh
+    from coala_gnn_tpu_torch.parallel.multihost import make_meta_exchange_fn
     from coala_gnn_tpu_torch.parallel.sharded_cache import \
         ShardedFeatureCache
     from coala_gnn_tpu_torch.sampling.neighbor import NeighborSampler
+    from coala_gnn_tpu_torch.utils.rng import rank_seed
+
+    mesh = make_mesh(device) if mesh is None else mesh
 
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -333,24 +368,33 @@ def build(args, ds=None) -> Run:
           f"{ds.num_classes} classes, {len(ds.train_idx)} train"
           + (f", {ds.graph.num_edge_types} edge types" if hetero else ""))
     B = args.batch_size
-    sampler = NeighborSampler(ds.graph, fanouts, B, seed=args.seed)
+    sampler = NeighborSampler(ds.graph, fanouts, B,
+                              seed=rank_seed(args.seed, mesh.rank))
     print(f"sampler native: {sampler._native is not None}")
-    print("hosts: 1 (this=0), local devices: 1")
-    devices = [device]
+    print(f"hosts: {mesh.num_hosts} (this={mesh.host_id}), local devices: "
+          f"{mesh.local_size}")
+    if mesh.distributed:
+        print(f"ranks: {mesh.world}, one per card, backend "
+              f"{torch.distributed.get_backend()}")
 
     meta = None
     if args.distribution == "node_color":
         meta = load_color_metadata(args.color_dir)
     distributor = SeedDistributor(
-        ds.train_idx, batch_size=B, local_size=1, num_parts=1,
+        ds.train_idx, batch_size=B, local_size=mesh.local_size,
+        num_parts=mesh.num_hosts,
         mode=args.distribution,
         color=None if meta is None else meta.color,
         topk_colors=None if meta is None else meta.topk,
         affinity=None if meta is None else meta.score,
         shuffle_seed=args.seed,
         drop_tail=not (args.keep_tail or args.mask_tail))
-    scheduler = DistributionScheduler(distributor, part_id=0, local_rank=0,
-                                      refresh_counter=args.refresh_counter)
+    scheduler = DistributionScheduler(
+        distributor, part_id=mesh.host_id, local_rank=mesh.local_rank,
+        meta_exchange_fn=(make_meta_exchange_fn(mesh, meta.num_colors)
+                          if meta is not None and mesh.distributed
+                          else None),
+        refresh_counter=args.refresh_counter)
     # --dtype: the cache lines' dtype and the model's compute dtype
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     kw = dict(num_heads=args.num_heads, seed=args.seed, dtype=dtype)
@@ -372,11 +416,14 @@ def build(args, ds=None) -> Run:
     if args.cache_size > 0:
         mode = {"nvshmem": "sharded", "nccl": "sharded"}.get(
             args.cache_backend, args.cache_backend)
+        shards = {"sharded": mesh.world, "isolated": 1,
+                  "node_local": mesh.local_size}[mode]
         cfg = fc.make_config(cache_mb=args.cache_size, dim=ds.feature_dim,
                              num_colors=0 if meta is None
                              else meta.num_colors,
-                             dtype=dtype, quantize=args.quantize)
-        cache = ShardedFeatureCache(cfg, devices, mode=mode)
+                             dtype=dtype, quantize=args.quantize,
+                             num_shards=shards)
+        cache = ShardedFeatureCache(cfg, mesh, mode=mode)
         scheduler.meta_fn = cache.local_color_meta
         print(f"cache[{mode}]: {cfg.num_sets} sets x {cfg.ways} ways "
               f"({cfg.size_mb:.0f} MB per device"
@@ -386,7 +433,7 @@ def build(args, ds=None) -> Run:
                              labels=ds.labels, local_size=1, prefetch=2)
     run = Run(args=args, device=device, ds=ds, model=model, optimizer=opt,
               sampler=sampler, loader=loader, store=store, cache=cache,
-              meta=meta)
+              meta=meta, mesh=mesh)
     if args.pipeline == "resident":
         from coala_gnn_tpu_torch.parallel.sharded_resident import \
             ShardedResidentTrainer
@@ -455,8 +502,12 @@ def resume(run: Run) -> int:
 
 def _save(run: Run, spe: int) -> None:
     """``--save_dir``: the checkpoint of the epoch just trained
-    (``run.epoch``), at step ``(epoch + 1) * spe``."""
+    (``run.epoch``), at step ``(epoch + 1) * spe``; rank 0 writes it (every
+    rank holds the same parameters)."""
     from coala_gnn_tpu_torch.utils import checkpoint as ckpt
+
+    if run.mesh.rank != 0:
+        return
 
     ckpt.save(run.args.save_dir, run.model, run.optimizer,
               step=(run.epoch + 1) * spe)
@@ -472,19 +523,20 @@ def train(run: Run, epochs: Optional[int] = None,
     saving its checkpoint. Returns the step losses (numpy f32), the
     epochs' wall seconds (each ending in a device sync), their
     feature-fetch seconds, the sampled edges (the sum of the block masks)
-    and nodes. The resident pipeline runs ``train_resident``."""
+    and nodes of this rank, and each epoch's cache ``stats`` (summed over
+    the ranks; none without a cache). The resident pipeline runs
+    ``train_resident``."""
     if run.trainer is not None:
         return train_resident(run, epochs, max_steps)
     from coala_gnn_tpu_torch.parallel.train import make_sharded_train_step
     from coala_gnn_tpu_torch.utils.rng import DROPOUT, step_generators
 
-    args, B = run.args, run.args.batch_size
-    train_step = make_sharded_train_step(run.model, run.optimizer,
-                                         [run.device], B,
+    args, B, mesh = run.args, run.args.batch_size, run.mesh
+    train_step = make_sharded_train_step(run.model, run.optimizer, mesh, B,
                                          masked=args.mask_tail)
     epochs = args.epochs - run.epoch if epochs is None else epochs
     spe = steps_per_epoch(run, max_steps)
-    losses, epoch_s, agg_s = [], [], []
+    losses, epoch_s, agg_s, stats = [], [], [], []
     edges = sampled = 0
     for _ in range(epochs):
         prof = _start_profile(args.profile_dir, run)
@@ -505,7 +557,7 @@ def train(run: Run, epochs: Optional[int] = None,
                 loss, acc = train_step(
                     dblocks, x, run.put(hb.labels), valid,
                     step_generators(args.seed, run.step, 1, DROPOUT,
-                                    run.device)[0])
+                                    run.device, mesh.rank)[0])
                 losses.append(loss)
                 run.step += 1
                 run.sampled += hb.sampled_nodes
@@ -523,9 +575,11 @@ def train(run: Run, epochs: Optional[int] = None,
         agg_s.append(agg_time)
         print(f"Epoch {run.epoch} | loss {float(loss):.4f} | batch acc "
               f"{float(acc):.4f} | Epoch Time: {dt:.3f}s | feature agg time "
-              f"{agg_time:.3f}s | sampled nodes {run.sampled}")
+              f"{agg_time:.3f}s | sampled nodes "
+              f"{_host_sum(run, run.sampled)}")
         if run.cache is not None:
-            s = run.cache.stats()
+            stats.append(run.cache.stats())
+            s = stats[-1]
             print(f"Cache hit ratio: {s['hit_ratio']:.3f} "
                   f"({s['hits']} hits / {s['misses']} misses)")
         run.loader.reset(args.seed + run.epoch + 1)
@@ -535,14 +589,24 @@ def train(run: Run, epochs: Optional[int] = None,
     return {"losses": (torch.stack(losses).float().cpu().numpy() if losses
                        else np.zeros(0, np.float32)),
             "epoch_s": epoch_s, "agg_s": agg_s, "edges": edges,
-            "sampled": sampled}
+            "sampled": sampled, "stats": stats}
+
+
+def _host_sum(run: Run, n: int) -> int:
+    """``n`` summed over this rank's host (what the JAX CLI's one process
+    per host counts); collective over the host's ranks."""
+    if not run.mesh.distributed:
+        return n
+    t = torch.tensor([n], dtype=torch.int64, device=run.device)
+    return int(run.mesh.all_reduce(t, group=run.mesh.host_group)[0])
 
 
 def _start_profile(profile_dir: str, run: Run):
     """A started ``torch.profiler`` session for epoch 0 of the host
     pipeline, writing its trace into ``profile_dir`` when it stops
-    (``examples/train.py``'s ``jax.profiler`` trace); None otherwise."""
-    if not profile_dir or run.epoch != 0:
+    (``examples/train.py``'s ``jax.profiler`` trace), on rank 0; None
+    otherwise."""
+    if not profile_dir or run.epoch != 0 or run.mesh.rank != 0:
         return None
     acts = [torch.profiler.ProfilerActivity.CPU]
     if run.device.type == "cuda":
@@ -678,16 +742,19 @@ def evaluate(run: Run) -> tuple:
     (static shapes) and its wrapped slots are left out. Prints the JAX
     CLI's line; returns (correct, total). On the resident pipeline each
     batch goes through the trainer's ``begin`` / ``resolve`` /
-    ``eval_step``, its sampling stream ``(seed, batch, 0, EVAL)``."""
+    ``eval_step``, its sampling stream ``(seed, batch, 0, EVAL)``. Over
+    several ranks each rank evaluates its slice of each batch and the
+    correct counts are summed (one ``all_reduce`` at the end)."""
     from coala_gnn_tpu_torch.data.loader import CoalaDataLoader
     from coala_gnn_tpu_torch.distribution import (DistributionScheduler,
                                                   SeedDistributor)
     from coala_gnn_tpu_torch.parallel.train import make_sharded_eval_step
 
-    ds, B = run.ds, run.args.batch_size
+    ds, B, mesh = run.ds, run.args.batch_size, run.mesh
     eval_distributor = SeedDistributor(
-        ds.test_idx, batch_size=B, local_size=1, num_parts=1,
-        mode="baseline", shuffle_seed=run.args.seed, drop_tail=False)
+        ds.test_idx, batch_size=B, local_size=mesh.local_size,
+        num_parts=mesh.num_hosts, mode="baseline",
+        shuffle_seed=run.args.seed, drop_tail=False)
     n_test, gb = len(ds.test_idx), eval_distributor.global_batch
     if run.trainer is not None:
         from coala_gnn_tpu_torch.utils.rng import EVAL, step_generators
@@ -705,23 +772,87 @@ def evaluate(run: Run) -> tuple:
               "nodes)")
         return correct, total
     eval_loader = CoalaDataLoader(
-        scheduler=DistributionScheduler(eval_distributor, part_id=0,
-                                        local_rank=0),
+        scheduler=DistributionScheduler(eval_distributor,
+                                        part_id=mesh.host_id,
+                                        local_rank=mesh.local_rank),
         sampler=run.sampler, labels=ds.labels, local_size=1, prefetch=2)
-    eval_slot = make_sharded_eval_step(run.model, [run.device], B,
-                                       per_slot=True)
+    eval_slot = make_sharded_eval_step(run.model, mesh, B, per_slot=True)
     correct = total = 0
     for it, hb in enumerate(eval_loader):
         ok = eval_slot(run.blocks(hb), run.features(hb), run.put(hb.labels))
         correct += int((ok.cpu().numpy() & hb.valid).sum())
         total += min(gb, n_test - it * gb)
+    if mesh.distributed:
+        correct = int(mesh.all_reduce(torch.tensor(
+            [correct], dtype=torch.int64, device=run.device))[0])
     print(f"Test accuracy: {correct / max(total, 1):.4f} ({total} nodes)")
     return correct, total
 
 
-def main(argv=None) -> None:
+def train_rank(mesh, args) -> dict:
+    """One rank's whole run on its ``mesh`` (``build`` on the mesh's
+    device, ``resume`` with ``--resume``, ``train``, ``evaluate`` with
+    ``--eval``), as ``multihost.launch`` or torchrun starts it; every rank
+    of the mesh runs it. Returns ``train``'s dict with ``eval``
+    ((correct, total), or None without ``--eval``), the rank, its
+    ``CommLedger`` snapshot and its kernel launch counts."""
+    from coala_gnn_tpu_torch.ops.gather_spmm import LAUNCHES
+
+    args = copy.copy(args)
+    args.device = str(mesh.device)
+    run = build(args, mesh=mesh)
+    if args.resume:
+        resume(run)
+    out = train(run)
+    out["eval"] = evaluate(run) if args.eval else None
+    out.update(rank=mesh.rank, ledger=mesh.ledger.snapshot(),
+               launches=dict(LAUNCHES))
+    return out
+
+
+def rank_devices(args) -> list:
+    """One device per rank of ``--devices N``: ``cuda:0`` .. ``cuda:N-1``
+    (a ``ValueError`` if the machine has fewer cards), or N times the CPU
+    with ``--device cpu``."""
+    n = args.devices
+    if torch.device(args.device).type != "cuda":
+        return ["cpu"] * n
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        raise ValueError(f"--devices {n} runs one rank per card, and this "
+                         f"machine has {have} CUDA card(s); pass --device "
+                         "cpu for CPU ranks")
+    return [f"cuda:{r}" for r in range(n)]
+
+
+def main(argv=None):
+    """The CLI: one card, ``--devices N`` ranks spawned here, or this
+    process as one rank of a torchrun (or ``COALA_COORDINATOR``) job.
+    Returns the ranks' ``train_rank`` results on a data-parallel run."""
+    from coala_gnn_tpu_torch.parallel import multihost
+    from coala_gnn_tpu_torch.parallel.mesh import make_mesh
+
     args = parse_args(argv)
     refuse_unported(args)
+    backend = multihost.backend_for(args.device)
+    if "WORLD_SIZE" in os.environ or os.environ.get("COALA_COORDINATOR"):
+        device = torch.device(args.device)
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+            torch.cuda.set_device(device)
+        multihost.initialize_distributed(backend)
+        try:
+            mesh = make_mesh(device)
+            if args.devices > 1 and args.devices != mesh.local_size:
+                raise ValueError(f"--devices {args.devices}: this job has "
+                                 f"{mesh.local_size} ranks per host")
+            return [train_rank(mesh, args)]
+        finally:
+            torch.distributed.destroy_process_group()
+    if args.devices > 1:
+        return multihost.launch(train_rank, args.devices, rank_devices(args),
+                                backend, args=(args,))
     run = build(args)
     if args.resume:
         resume(run)

@@ -18,7 +18,9 @@ two steps of a run share a stream; its eval batches sample from ``(batch,
 0, EVAL)``, and the probe step of ``--resume`` from ``(0, 0, RESUME)``.
 On CUDA the generator is Philox; its draws differ from JAX's threefry,
 which is why the tests feed both samplers the same uniforms or use
-fanout >= max in-degree (ROADMAP.md section C).
+fanout >= max in-degree (ROADMAP.md section C). In a data-parallel run
+every rank past 0 draws its sampling and dropout from streams of its own
+(``rank``), where JAX folds the device index into the dropout key.
 """
 
 from __future__ import annotations
@@ -31,20 +33,31 @@ import torch
 SAMPLE, DROPOUT, EVAL, RESUME = 0, 1, 2, 3
 
 
-def stream_seed(seed: int, window: int, step: int, stream: int) -> int:
-    """63-bit seed of one (window, step, stream) of root ``seed``."""
-    ss = np.random.SeedSequence(seed, spawn_key=(window, step, stream))
+def stream_seed(seed: int, window: int, step: int, stream: int,
+                rank: int = 0) -> int:
+    """63-bit seed of one (window, step, stream) of root ``seed``; a rank
+    past 0 of a data-parallel run gets streams of its own (spawn key
+    (window, step, stream, rank)), rank 0 the one-card streams."""
+    key = (window, step, stream) + ((rank,) if rank else ())
+    ss = np.random.SeedSequence(seed, spawn_key=key)
     return int(ss.generate_state(1, np.uint64)[0] >> 1)
 
 
 def step_generators(seed: int, window: int, num_steps: int, stream: int,
-                    device) -> List[torch.Generator]:
+                    device, rank: int = 0) -> List[torch.Generator]:
     """One generator per step of ``window`` for ``stream`` (SAMPLE,
-    DROPOUT, EVAL or RESUME), on ``device``. Calling it twice gives two
-    independent copies of the same streams."""
+    DROPOUT, EVAL or RESUME), on ``device``, for ``rank``. Calling it
+    twice gives two independent copies of the same streams."""
     gens = []
     for step in range(num_steps):
         gen = torch.Generator(device=device)
-        gen.manual_seed(stream_seed(seed, window, step, stream))
+        gen.manual_seed(stream_seed(seed, window, step, stream, rank))
         gens.append(gen)
     return gens
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The host sampler's seed of ``rank``: ``seed`` itself on rank 0 (a
+    one-card run is unchanged), a stream of its own on every other rank
+    (JAX's one host process samples every device from one stream)."""
+    return seed if rank == 0 else stream_seed(seed, 0, 0, SAMPLE, rank)

@@ -464,3 +464,72 @@ def test_padded_mean_with_adj_launches_the_kernel(cuda):
     count = mask.sum(dim=1).clamp_min(1.0)
     bound = grad_x_error_bound(adj, mask / count[:, None], g, S)
     assert ((x.grad.cpu() - x_cpu.grad).abs() <= bound.cpu() + 1e-6).all()
+
+
+def _cli_args(*extra):
+    from coala_gnn_tpu_torch import train as cli
+
+    return cli.parse_args(["--num_nodes", "3000", "--feature_dim", "32",
+                           "--hidden_channels", "32", "--batch_size", "64",
+                           "--fan_out", "5,5", "--cache_size", "1",
+                           "--max_steps", "6", "--epochs", "2"] + list(extra))
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_is_the_one_card_path(cuda, tmp_path):
+    """The trainer CLI's host loop in an NCCL process group of one rank
+    (the data-parallel step's all-reduce, the miss decision's, the summed
+    stats) gives the one-card path's losses, hit counts and cache state,
+    bitwise. Whole epochs (7 steps of 256 seeds each): an epoch cut short
+    by ``--max_steps`` leaves the sampler's stream wherever the loader's
+    worker stopped, which depends on timing (ROADMAP.md section C)."""
+    import torch.distributed as dist
+
+    from coala_gnn_tpu_torch import train as cli
+    from coala_gnn_tpu_torch.parallel import multihost
+    from coala_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    args = _cli_args("--max_steps", "0", "--batch_size", "256")
+    runs = []
+    for grouped in (False, True):
+        if grouped:
+            multihost.initialize_distributed(
+                "nccl", f"file://{tmp_path / 'store'}", 1, 0)
+        try:
+            mesh = make_mesh("cuda:0")
+            run = cli.build(args, mesh=mesh)
+            out = cli.train(run)
+            state = run.cache.state.base
+            runs.append((out["losses"], out["stats"], state.tags.cpu(),
+                         state.data.cpu(), mesh.ledger.snapshot()))
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+    (la, sa, ta, da, _), (lb, sb, tb, db, ledger) = runs
+    assert la.tobytes() == lb.tobytes() and sa == sb
+    assert torch.equal(ta, tb) and torch.equal(da, db)
+    assert ledger["calls"]["grad"] == len(lb) == 14
+
+
+@pytest.mark.cuda
+def test_gloo_two_ranks_on_one_card_match_the_cpu(cuda):
+    """Two ranks on the one card over gloo (its CUDA collectives stage
+    through the host) train, in each cache mode, the losses of the same
+    two ranks on the CPU (2e-3 / 2e-4), dropout 0; whole epochs, as in
+    ``test_nccl_world_one_is_the_one_card_path``."""
+    import torch_multigpu_ranks as ranks
+    from coala_gnn_tpu_torch.parallel.multihost import launch
+
+    for mode in ("sharded", "node_local", "isolated"):
+        runs = [dict(args=_cli_args("--cache_backend", mode, "--devices",
+                                    "2", "--max_steps", "0",
+                                    "--batch_size", "256"))]
+        got = [[r[0] for r in launch(ranks.cli_runs, 2, devices, "gloo",
+                                     args=(runs,))]
+               for devices in (["cuda:0", "cuda:0"], ["cpu", "cpu"])]
+        for card, cpu in zip(*got):
+            torch.testing.assert_close(torch.from_numpy(card["losses"]),
+                                       torch.from_numpy(cpu["losses"]),
+                                       rtol=2e-3, atol=2e-4)
+            assert card["stats"] == cpu["stats"]
+            assert card["launches"]["gather_spmm[float32]"] > 0

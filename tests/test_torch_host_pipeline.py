@@ -251,7 +251,7 @@ def test_sharded_steps_match_jax(dss, kind, masked, rows):
     assert int(train.make_sharded_eval_step(model, ["cpu"], B)(
         blocks, tx_rows[None],
         torch.from_numpy(labels[None]))) == int(correct)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="one process per card"):
         train.make_sharded_train_step(model, opt, ["cpu", "cpu"], B)
 
 
@@ -482,11 +482,16 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu():
 @pytest.mark.parametrize("flags,item", [
     (["--model_type", "rgcn", "--pipeline", "resident", "--cache_size", "1",
       "--devices", "2"], "multi-GPU"),
-    (["--model_type", "rsage", "--devices", "2"], "multi-GPU"),
+    # --devices N trains the host pipeline data-parallel
+    # (tests/test_torch_multigpu_cli.py); the resident pipeline and the
+    # sharded topology across ranks are still to come
+    (["--model_type", "rsage", "--devices", "2", "--shard_topology"],
+     "multi-GPU"),
     (["--model_type", "rgat", "--shard_topology"], "multi-GPU"),
     (["--data", "ogbn-products"], "Not ported"),
-    (["--devices", "2"], "multi-GPU"),
-    (["--distribution", "node_color", "--devices", "2"], "multi-GPU"),
+    (["--devices", "2", "--shard_topology"], "multi-GPU"),
+    (["--distribution", "node_color", "--devices", "2", "--pipeline",
+      "resident", "--cache_size", "1"], "multi-GPU"),
     (["--data", "ogbn-papers100M", "--path", "data"], "Not ported"),
     (["--shard_topology"], "multi-GPU"),
     (["--data", "ogbn-mag", "--dataset_size", "full"], "Not ported"),

@@ -14,7 +14,10 @@ checkpoint (``utils/checkpoint.py``) and resumes from it; the real-dataset
 layouts (IGB, its preprocessed form through ``create_csc_graph``,
 IGB-hetero) train through the CLI, the reference-scale leg
 (``reference_scale``) generates and runs, and ``entry`` runs its forward
-and ``dryrun_multichip(1)``."""
+and ``dryrun_multichip(1)``; the CLI trains data-parallel on two spawned
+CPU ranks (``--devices 2``, node_color), whose processes start with the
+same modules blocked (a ``sitecustomize`` on their ``PYTHONPATH``), so a
+rank that reached for JAX would fail the run."""
 
 import os
 import subprocess
@@ -124,6 +127,22 @@ finally:
 fn, fargs = entry.entry("cpu")
 assert fn(*fargs).shape == (32, 8)
 entry.dryrun_multichip(1, "cpu")
+tmp = tempfile.mkdtemp()
+try:
+    colors = os.path.join(tmp, "colors")
+    generate_colors.main(["--num_nodes", "300", "--feature_dim", "8",
+                          "--out", colors])
+    ranks = cli.main(["--device", "cpu", "--devices", "2", "--num_nodes",
+                      "300", "--feature_dim", "8", "--batch_size", "8",
+                      "--fan_out", "3,2", "--hidden_channels", "8",
+                      "--max_steps", "3", "--cache_size", "1", "--eval",
+                      "--distribution", "node_color", "--color_dir",
+                      colors, "--refresh_counter", "1"])
+finally:
+    shutil.rmtree(tmp)
+assert [r["rank"] for r in ranks] == [0, 1]
+assert all(np.isfinite(r["losses"]).all() and len(r["losses"]) == 3
+           and r["ledger"]["calls"]["grad"] == 3 for r in ranks)
 jaxish = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("coala_gnn_tpu", "jax", "jaxlib",
                                        "flax", "optax", "ml_dtypes")
@@ -133,8 +152,16 @@ print("modules", len(mods))
 """
 
 
-def test_port_imports_and_trains_without_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+BLOCKER = """import sys
+for name in ("coala_gnn_tpu", "jax", "flax", "optax", "ml_dtypes"):
+    sys.modules[name] = None
+"""
+
+
+def test_port_imports_and_trains_without_jax(tmp_path):
+    (tmp_path / "sitecustomize.py").write_text(BLOCKER)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path),
+                                                       ROOT]))
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]

@@ -214,7 +214,9 @@ def test_prewarms_and_row_inserts_are_bitwise_jax(feats):
 def test_refuses_what_is_not_ported():
     cfg = fc.CacheConfig(num_sets=8, ways=fc.WAYS, dim=DIM,
                          cache_dim=fc.round_cache_dim(DIM), num_colors=0)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # more than one card is more than one rank, each with its own Mesh
+    # (tests/test_torch_multigpu_cache.py)
+    with pytest.raises(ValueError, match="one process per card"):
         ShardedFeatureCache(cfg, ["cpu", "cpu"])
     with pytest.raises(ValueError):
         ShardedFeatureCache(cfg, ["cpu"], mode="nvshmem")
