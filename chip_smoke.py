@@ -12,8 +12,8 @@ windows of K = 32 through the native host tier); then GAT and GCN at the
 same config, the int8 cache lines on both tiers, and the bf16 model dtype
 (resident-bf16, a bf16 GAT and GCN, int8 lines on a bf16 table), the
 trainer CLI's hetero models, the CLI's ``--pipeline resident``
-(``ShardedResidentTrainer``), and the CLI's host pipeline data-parallel
-over two ranks. Phases:
+(``ShardedResidentTrainer``), and the CLI's host and resident pipelines
+data-parallel over two ranks. Phases:
 
   1. device: a CUDA card must be present; prints its name and power limit;
   2. kernels vs plain: builds the gather-SpMM kernels from the checkout and
@@ -212,7 +212,32 @@ over two ranks. Phases:
      ms/step, edges/s per card, hit ratio, overflow slots and exchange
      bytes per step beside the backend and the card; gloo on one card
      checks correctness, it is no NCCL speed; (3) two ranks over NCCL on
-     two cards where the machine has them, else a line saying why not.
+     two cards where the machine has them, else a line saying why not;
+ 22. the resident pipeline over ranks (``train.train_rank`` with
+     ``--pipeline resident``, ``ShardedResidentTrainer`` on a ``Mesh``) at
+     the flagship widths with phase 6's 97 MB cache per rank (staged
+     windows), ``--window 8``: (a) the CLI's resident SAGE in an NCCL
+     process group of one rank with ``--shard_topology`` (a no-op there)
+     bitwise the one-card run (losses, cache state, hit counts,
+     launches) over the run's first step and 3 windows; (b) two ranks on
+     the one card over gloo, sharded, node_local (hosts of one rank) and
+     isolated, each with and without ``--shard_topology``, and sharded
+     with the sharded topology and int8 lines: the run's first step and
+     1 warm-up + 2 measured windows; per rank finite, falling losses, one
+     f32 forward per measured step, no replay, staged windows with hits
+     and misses, state on the card, the topology's collectives and a
+     shard below the graph's edges exactly where the topology is sharded;
+     each row's small run (600 nodes, fanout = max in-degree, dropout 0)
+     against the same two ranks on the CPU, run beside them: losses
+     within 2e-3 / 2e-4, hit counts, ledger bytes and eval equal; rank
+     0's kernel on one real step's layer-0 input against its plain
+     version, timed; prints ms/step, edges/s per card, hit ratio, stage
+     rows and host-gather ms per window and rank, and the bytes leaving a
+     rank per step by phase; (c) ``dryrun_multichip(2)`` on two gloo ranks
+     on the card (its four legs and their checks); (d) ``reference_scale
+     --mesh`` at two ranks, cut in scale (200k of its 10M nodes, 20 MB a
+     rank; dim 1024 and the JAX leg's batch and windows kept): every edge
+     on one rank, finite losses, hits and misses.
 
 Every failure ends the script with a non-zero code. The line before the
 last two is a JSON object with the kernels' launches, errors, times,
@@ -222,7 +247,7 @@ kernel, model and layer); the last line is ``{"ok": true, "device":
 {...}}``. Writes coala_gnn_tpu_torch/_build/ (the kernels and the native
 host library, built there at first use) and, in phases 17-19, a color
 directory, checkpoints and the datasets (~6 GB) under ``tempfile``
-directories that it removes.
+directories that it removes (phase 22 a 0.8 GB graph).
 Imports nothing of JAX or of coala_gnn_tpu.
 """
 
@@ -2080,15 +2105,19 @@ ADJ_SAGE_PER_STEP = {"gather_spmm[float32]": 2, "adj_transpose": 1,
 
 
 def resident_step_calls(torch, run) -> list:
-    """One real step of the resident CLI (the scheduler's next seed grid
-    through the trainer's ``begin`` / ``resolve``, the model's forward on
-    the frontier as the trainer hands it over and the loss's backward, no
+    """One real step of the resident CLI (this rank's slice of the
+    scheduler's next seed grid through the trainer's ``begin`` /
+    ``resolve``, collective over the ranks, the model's forward on the
+    frontier as the trainer hands it over and the loss's backward, no
     update): ``record_calls``."""
     from coala_gnn_tpu_torch.utils.rng import SAMPLE, step_generators
 
+    from coala_gnn_tpu_torch import train as cli
+
     rt = run.trainer
-    grid = run.scheduler.run_domain().reshape(1, BATCH).astype(np.int32)
-    gen = step_generators(run.args.seed, run.step, 1, SAMPLE, run.device)[0]
+    grid = cli.rank_grid(run.scheduler, BATCH)[0]
+    gen = step_generators(run.args.seed, run.step, 1, SAMPLE, run.device,
+                          run.mesh.rank)[0]
     blocks, feats, y = rt.resolve(rt.begin(grid, gen))
 
     def step():
@@ -3303,6 +3332,282 @@ def phase_multi(torch, ds, smi) -> dict:
     return total
 
 
+MRES_MB = 97            # cache MB per rank: phase 6's pressure cache
+MRES_WARM, MRES_MEAS = 1 + K, 2 * K   # the run's first step + 1 window; 2
+MRES_ROWS = (  # cache mode, --shard_topology, --quantize
+    ("sharded", False, False), ("sharded", True, False),
+    ("node_local", False, False), ("node_local", True, False),
+    ("isolated", False, False), ("isolated", True, False),
+    ("sharded", True, True))
+MRES_SMALL_STEPS = 9    # the small card-vs-CPU runs: first step + 2 x 4
+MESH_NODES, MESH_MB = 200_000, 20   # phase 22(d): the mesh leg cut in scale
+
+
+def mres_name(row) -> str:
+    mode, topo, quant = row
+    return mode + (" --shard_topology" if topo else "") + (
+        " --quantize" if quant else "")
+
+
+def mres_small_args(row, device: str) -> list:
+    """The small card-vs-CPU run of a phase 22 row: 600 nodes of 512-wide
+    rows (a 1 MB cache per rank evicts), fanout = the graph's max
+    in-degree (every in-edge taken, whatever the generators draw), batch
+    16, windows of 4, Adam 1e-2; the row's mode and flags."""
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
+
+    mode, topo, quant = row
+    fanout = int(synthetic_graph(num_nodes=600, avg_degree=4, feature_dim=8,
+                                 num_classes=4, seed=0
+                                 ).graph.in_degrees().max())
+    return cli_args("sage", device, num_nodes=600, feature_dim=512,
+                    hidden_channels=8, num_classes=4, avg_degree=4,
+                    fan_out=f"{fanout},{fanout}", batch_size=16,
+                    cache_size=1, learning_rate=0.01, pipeline="resident",
+                    window=4, cache_backend=mode, shard_topology=topo,
+                    quantize=quant)
+
+
+def mres_rank(mesh, ds, measure: bool) -> list:
+    """Phase 22(b)'s rank body (``multihost.launch``): per row of
+    ``MRES_ROWS``, with ``measure``, the resident CLI's SAGE at the
+    flagship widths on this rank's mesh (``multi_mesh``), a ``MRES_MB``
+    cache per rank, ``--window 8``: ``MRES_WARM`` warm-up + ``MRES_MEAS``
+    measured steps at dropout 0.5, recording the measured steps' launches,
+    ledger, stats, time, edges, stage rows, host-gather seconds and replay;
+    on the first row every rank runs one real step's begin / resolve
+    (collective) and rank 0 holds its kernel calls against their plain
+    versions. Then the row's small run at dropout 0 (``mres_small_args``):
+    its losses, stats, ledger and eval."""
+    import torch
+
+    from coala_gnn_tpu_torch import train as cli
+
+    dev = str(mesh.device)
+    out = []
+    for i, row in enumerate(MRES_ROWS):
+        mode, topo, quant = row
+        rec = {"row": row}
+        m = multi_mesh(mesh, mode)
+        if measure:
+            args = cli.parse_args(cli_args(
+                "sage", device=dev, pipeline="resident", cache_size=MRES_MB,
+                window=K, cache_backend=mode, shard_topology=topo,
+                quantize=quant))
+            run = cli.build(args, ds=ds, mesh=m)
+            rt = run.trainer
+            warm = cli.train(run, epochs=1, max_steps=MRES_WARM)
+            sync(torch, mesh.device)
+            reset_launches()
+            m.ledger.reset()
+            rt.timers.reset()
+            rt.timers.tallies.clear()
+            meas = cli.train(run, epochs=1, max_steps=MRES_MEAS)
+            sync(torch, mesh.device)
+            rec.update(
+                losses=np.concatenate([warm["losses"], meas["losses"]]),
+                launches={k: v for k, v in launches().items() if v},
+                ledger=m.ledger.snapshot(), stats=meas["stats"][0],
+                dt=meas["epoch_s"][0], edges=meas["edges"],
+                stage_rows=rt.timers.tallies.get("stage_rows", 0.0),
+                host_gather=rt.timers.totals.get("host_gather", 0.0),
+                replay="replay" in rt.timers.totals,
+                on_card=on_card_cli(torch, run) and rt.g.indices.is_cuda,
+                shard_edges=int(rt.g.indices.shape[0]),
+                route=run.cache.n_route)
+            if i == 0:
+                calls = resident_step_calls(torch, run)
+                if mesh.rank == 0:
+                    rec["kernels"] = step_kernels(
+                        torch, f"phase 22 rank 0 {mres_name(row)}", calls)
+            del run, rt
+            torch.cuda.empty_cache()
+        run = cli.build(cli.parse_args(mres_small_args(row, dev)), mesh=m)
+        run.model.dropout = 0.0
+        m.ledger.reset()
+        small = cli.train(run, epochs=1, max_steps=MRES_SMALL_STEPS)
+        rec.update(small=small["losses"], small_stats=small["stats"][0],
+                   small_ledger=m.ledger.snapshot(),
+                   small_eval=cli.evaluate(run),
+                   small_replay="replay" in run.trainer.timers.totals)
+        del run
+        out.append(rec)
+    return out
+
+
+def check_mres(card: list, cpu: list, smi: str) -> tuple:
+    """Phase 22(b)'s checks and prints over the card ranks' records and
+    the CPU ranks'; returns (launches summed over ranks and rows, the
+    kernel entries of rank 0's real step)."""
+    total = {}
+    want = {k: v * MRES_MEAS for k, v in RESIDENT_PER_STEP["sage"].items()}
+    for i, row in enumerate(MRES_ROWS):
+        name = mres_name(row)
+        for r, rank in enumerate(card):
+            rec, host = rank[i], cpu[r][i]
+            what = f"phase 22 {name} rank {r}"
+            losses = rec["losses"]
+            q = losses.size // 4
+            require(np.isfinite(losses).all() and
+                    losses[-q:].mean() < losses[:q].mean(),
+                    f"{what}: losses not finite and falling {losses}")
+            require(not rec["replay"] and not rec["small_replay"] and
+                    not host["small_replay"], f"{what}: a window replayed")
+            require(rec["launches"] == want, f"{what}: launches "
+                    f"{rec['launches']}, expected {want}")
+            require(rec["on_card"], f"{what}: state off the card")
+            require(0 < rec["stats"]["hit_ratio"] < 1 and
+                    rec["stage_rows"] > 0, f"{what}: not staged under "
+                    f"pressure: {rec['stats']}, {rec['stage_rows']} rows")
+            require(("topology" in rec["ledger"]["handed"]) == row[1] and
+                    (rec["shard_edges"] < N_NODES * 15) == row[1],
+                    f"{what}: topology {rec['ledger']['handed']}, "
+                    f"{rec['shard_edges']} edges on the card")
+            np.testing.assert_allclose(rec["small"], host["small"],
+                                       rtol=SMALL_RTOL, atol=SMALL_ATOL,
+                                       err_msg=what + " vs the CPU ranks")
+            require(rec["small_stats"] == host["small_stats"] and
+                    rec["small_ledger"] == host["small_ledger"] and
+                    rec["small_eval"] == host["small_eval"],
+                    f"{what}: hit counts, ledger or eval differ from the "
+                    f"CPU ranks': {rec['small_stats']} vs "
+                    f"{host['small_stats']}")
+            add_counts(total, rec["launches"])
+        rec = card[0][i]
+        st, led = rec["stats"], rec["ledger"]
+        per = {p: (led["handed"].get(p, 0) - led["kept"].get(p, 0))
+               / MRES_MEAS for p in ("request", "response", "hitbits",
+                                     "fill", "topology", "probe", "grad")}
+        diff = max(np.abs(rank[i]["small"] - c[i]["small"]).max()
+                   for rank, c in zip(card, cpu))
+        print(f"phase 22: gloo 2 ranks on 1 card, resident {name} (CLI "
+              f"--devices 2 --pipeline resident --cache_size {MRES_MB} "
+              f"--window {K}, route {rec['route']}): "
+              f"{1000 * rec['dt'] / MRES_MEAS:.3f} ms/step, "
+              f"train_edges_per_s_per_card "
+              f"{rec['edges'] / 2 / rec['dt']:.1f} (rank 0; "
+              f"{MRES_MEAS} measured steps after {MRES_WARM}, host clock, "
+              f"backend gloo, {smi}); hit ratio {st['hit_ratio']:.4f} "
+              f"({st['hits']} hits / {st['misses']} misses, both ranks); "
+              f"stage rows per window {rec['stage_rows'] / 2:.0f}, host "
+              f"gather {1000 * rec['host_gather'] / 2:.1f} ms per window "
+              f"per rank; edges on rank 0's card {rec['shard_edges']}; "
+              f"bytes leaving rank 0 per step by phase "
+              f"{ {k: round(v) for k, v in per.items() if v} }; losses "
+              f"rank 0 {np.array2string(rec['losses'][::3], precision=4)}; "
+              f"small runs vs the CPU ranks: max diff {diff:.3g}, hit "
+              f"counts, ledger and eval equal")
+    return total, card[0][0]["kernels"]
+
+
+def phase_multi_resident(torch, ds, smi) -> tuple:
+    """Phase 22: the resident pipeline over ranks (module docstring).
+    Returns (launches by kernel, the worst error of the f32 forward)."""
+    import os
+
+    from coala_gnn_tpu_torch import entry
+    from coala_gnn_tpu_torch import reference_scale as rs
+    from coala_gnn_tpu_torch import train as cli
+    from coala_gnn_tpu_torch.parallel import multihost
+    from coala_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    # (a) an NCCL group of one rank with --shard_topology (a no-op there)
+    # against the one card on its own
+    total, runs = {}, {}
+    steps = 1 + 3 * K
+    for name in ("one card", "nccl world 1"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+        try:
+            flags = dict(pipeline="resident", cache_size=MRES_MB, window=K)
+            if name == "nccl world 1":
+                multihost.initialize_distributed(
+                    "nccl", f"file://{tmp}/store", 1, 0)
+                flags["shard_topology"] = True
+            mesh = make_mesh("cuda:0")
+            run = cli.build(cli.parse_args(cli_args("sage", **flags)), ds=ds,
+                            mesh=mesh)
+            torch.cuda.synchronize()
+            reset_launches()
+            out = cli.train(run, epochs=1, max_steps=steps)
+            torch.cuda.synchronize()
+            runs[name] = (out, {k: v.cpu() for k, v in
+                                cache_state(run).items()},
+                          {k: v for k, v in launches().items() if v},
+                          mesh.ledger.snapshot())
+            add_counts(total, runs[name][2])
+            del run
+        finally:
+            if name == "nccl world 1":
+                torch.distributed.destroy_process_group()
+            shutil.rmtree(tmp)
+    (a, sa, la, _), (b, sb, lb, ledger) = runs["one card"], \
+        runs["nccl world 1"]
+    require(a["losses"].tobytes() == b["losses"].tobytes(),
+            f"phase 22: nccl world 1 losses {b['losses']} differ from the "
+            f"one-card run's {a['losses']}")
+    require(all(torch.equal(sa[k], sb[k]) for k in sa) and
+            a["stats"] == b["stats"] and la == lb,
+            "phase 22: nccl world 1 cache state, hit counts or launches "
+            "differ from the one-card run's")
+    require(ledger["calls"].get("grad", 0) == steps and
+            "topology" not in ledger["calls"],
+            f"phase 22: nccl world 1 collectives {ledger['calls']}")
+    print(f"phase 22: resident CLI in an NCCL group of one rank with "
+          f"--shard_topology (a no-op there) bitwise the one-card run over "
+          f"{steps} steps ({MRES_MB} MB, --window {K}): losses, cache "
+          f"state, hit counts {b['stats']}, launches {lb}; collectives "
+          f"{ledger['calls']}")
+
+    # (b) two ranks on the card over gloo, two CPU ranks beside them
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        on_cpu = pool.submit(multihost.launch, mres_rank, 2, ["cpu", "cpu"],
+                             "gloo", args=(None, False), timeout=600)
+        card = multihost.launch(mres_rank, 2, ["cuda:0", "cuda:0"], "gloo",
+                                args=(ds, True), timeout=600)
+        t1 = time.perf_counter()
+        cpu = on_cpu.result()
+    print(f"phase 22: 2 ranks on cuda:0 over gloo in {t1 - t0:.1f} s, the "
+          f"CPU ranks (2, gloo, at the same time) in "
+          f"{time.perf_counter() - t0:.1f} s (start and set-up included)")
+    counts, kernels = check_mres(card, cpu, smi)
+    add_counts(total, counts)
+    err = kernels[("gather_spmm[float32]", 0)]["max_abs_err"]
+
+    # (c) dryrun_multichip(2) on gloo ranks on the card
+    t0 = time.perf_counter()
+    got = entry.dryrun_multichip(2, "cuda", devices=["cuda:0", "cuda:0"],
+                                 backend="gloo", timeout=600)
+    print(f"phase 22: dryrun_multichip(2) on 2 gloo ranks on the card in "
+          f"{time.perf_counter() - t0:.1f} s: host hit ratio "
+          f"{got['host']['hit_ratio']:.4f}, window {got['window']}, "
+          f"sharded topology {got['edges_per_rank']} of the graph's edges "
+          f"on rank 0, node_local {got['node_local']}")
+
+    # (d) reference_scale.py --mesh at 2 ranks, cut in scale
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        path = os.path.join(tmp, "refscale")
+        t0 = time.perf_counter()
+        meta = rs.generate(path, MESH_NODES, 15, 1024, 19, 2048, 0.9, 0)
+        rec = rs.run_mesh(path, 2, BATCH // 4, "10,5", HIDDEN, MESH_MB,
+                          window=4, windows=2, devices=["cuda:0", "cuda:0"],
+                          backend="gloo", timeout=600)
+        require(rec["shard_topology"] and
+                sum(rec["edges_per_rank"]) == meta["num_edges"] and
+                np.isfinite(rec["loss_first_last"]).all() and
+                0 < rec["hit_stats"]["hit_ratio"] < 1,
+                f"phase 22 reference_scale --mesh: {rec}")
+        print(f"phase 22: reference_scale --mesh --ranks 2 (cut: "
+              f"{MESH_NODES} of 10M nodes, {MESH_MB} MB a rank; dim 1024, "
+              f"fanout 10,5, batch {BATCH // 4}, windows of 4 as the JAX "
+              f"leg; gloo on one card) in {time.perf_counter() - t0:.1f} s "
+              f"with generate; record " + json.dumps(rec))
+    finally:
+        shutil.rmtree(tmp)
+    return total, err
+
+
 def main() -> int:
     import torch
 
@@ -3409,10 +3714,14 @@ def main() -> int:
     t0 = time.perf_counter()
     multi_launches = phase_multi(torch, ds, smi)
     print(f"phase 21: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mres_launches, err22 = phase_multi_resident(torch, ds, smi)
+    worst("gather_spmm[float32]", err22)
+    print(f"phase 22: done in {time.perf_counter() - t0:.1f} s")
     for counts in (gat_launches, int8_launches, host_launches,
                    bf16_launches, hetero_launches, resident_launches,
                    port_launches, data_launches, ref_launches,
-                   entry_launches, multi_launches):
+                   entry_launches, multi_launches, mres_launches):
         for name, n in counts.items():
             main_launches[name] = main_launches.get(name, 0) + n
 

@@ -22,9 +22,10 @@ ops       gather-SpMM (hand-written CUDA kernels: f32 / bf16 / int8 forward,
 models    SAGE, GCN and GAT over sampled blocks; the hetero RSAGE, RGCN
           and RGAT (relations stacked in one gather-SpMM call per layer)
 sampling  on-device fanout neighbour sampling (CSR or the padded
-          neighbour table, slot-major or deduplicated blocks); the host
-          sampler (dedup and slot-major layouts); both typed on a hetero
-          graph; block capacities
+          neighbour table, slot-major or deduplicated blocks), and over
+          a topology sharded across the ranks; the host sampler (dedup and
+          slot-major layouts); all typed on a hetero graph; block
+          capacities
 coloring  offline BFS graph coloring and color-affinity metadata (host,
           native), read by the node_color distribution
 distribution  seed distributor (baseline, node_color greedy) and its
@@ -35,11 +36,11 @@ cache     flat and set-associative device feature caches (f32, bf16 or
 graph     CSC graph (with edge types) and the synthetic dataset
 native    ctypes bindings of the native host functions (sampler, greedy,
           row gather and encode)
-parallel  ResidentTrainer (the resident training step); the host
-          pipeline's cache front spread over the ranks (the two-phase
-          all-to-all exchange), its data-parallel steps and run_host; the
-          ranks (mesh, multihost: one process per card) and the
-          exchange's byte model
+parallel  ResidentTrainer and ShardedResidentTrainer (the resident
+          pipeline, on one card or over the ranks); the cache front spread
+          over the ranks (the two-phase all-to-all exchange), the
+          data-parallel steps and run_host; the ranks (mesh, multihost:
+          one process per card) and the exchange's byte model
 utils     flax->torch parameter and optax Adam state conversion,
           checkpoints, per-window generators, phase timers, the nvcc / g++
           build

@@ -130,6 +130,27 @@ class Mesh:
         self.ledger.add(phase, t.nbytes)
         return t
 
+    def all_gather(self, t: torch.Tensor, phase: str) -> torch.Tensor:
+        """Every rank's ``t`` [n, ...] stacked in rank order into one tensor
+        [world * n, ...]. The rank hands its ``t`` to each rank (itself
+        included), as the meta exchange counts it."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t, group=self.group)
+        self.ledger.add(phase, t.nbytes * self.world, t.nbytes)
+        return torch.cat(parts)
+
+    def reduce_scatter(self, t: torch.Tensor, phase: str) -> torch.Tensor:
+        """The sum over the ranks of ``t`` [world * n, ...], block r of it to
+        rank r: [n, ...]. One ``all_to_all_single`` and a sum over the
+        source axis (gloo has no reduce-scatter of CUDA tensors); exact
+        where at most one rank's contribution to an entry is not zero, as
+        in the sharded sampler's integer grids."""
+        w = self.world
+        got = self.all_to_all(t.reshape((w, -1) + tuple(t.shape[1:])),
+                              self.group, w, phase)
+        return got.sum(0, dtype=t.dtype)
+
 
 def make_mesh(device, local_size: int = 0) -> Mesh:
     """This process's ``Mesh`` on ``device``. Without an initialised

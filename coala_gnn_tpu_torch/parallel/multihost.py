@@ -29,6 +29,7 @@ default of a device): nothing switches to another backend when one fails.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import os
 import shutil
@@ -53,12 +54,15 @@ def backend_for(device) -> str:
 
 def initialize_distributed(backend: str, init_method: Optional[str] = None,
                            world_size: Optional[int] = None,
-                           rank: Optional[int] = None) -> bool:
+                           rank: Optional[int] = None,
+                           timeout: Optional[float] = None) -> bool:
     """Join the process group over ``backend``. Without ``world_size`` the
     environment says: torchrun's ``WORLD_SIZE`` / ``RANK`` (rendezvous
     ``env://``), else ``COALA_NUM_PROCS`` / ``COALA_PROC_ID`` with
     ``tcp://$COALA_COORDINATOR``; with neither, nothing happens (one card
-    on its own). Returns whether a group is up."""
+    on its own). ``timeout``: seconds a collective may wait for the other
+    ranks before it fails (default: torch's). Returns whether a group is
+    up."""
     env = os.environ
     if world_size is None:
         if "WORLD_SIZE" in env:
@@ -73,8 +77,10 @@ def initialize_distributed(backend: str, init_method: Optional[str] = None,
     if rank is None or init_method is None:
         raise ValueError("initialize_distributed needs rank and init_method "
                          "with an explicit world_size")
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(backend, init_method=init_method,
-                            world_size=world_size, rank=rank)
+                            world_size=world_size, rank=rank, **kw)
     return True
 
 
@@ -116,7 +122,8 @@ def make_meta_exchange_fn(mesh: Mesh, num_colors: int
 
 def launch(fn: Callable, world: int, devices: Sequence, backend: str,
            local_size: int = 0, args: tuple = (),
-           kwargs: Optional[dict] = None, threads: int = 0) -> list:
+           kwargs: Optional[dict] = None, threads: int = 0,
+           timeout: Optional[float] = None) -> list:
     """Run ``fn(mesh, *args, **kwargs)`` on ``world`` spawned ranks, rank
     r on ``devices[r]`` over ``backend``, hosts of ``local_size`` ranks
     (default: all on one host), and return each rank's result (its
@@ -124,8 +131,9 @@ def launch(fn: Callable, world: int, devices: Sequence, backend: str,
     ``fn`` must be importable by name from a module that the ranks can
     import. Ranks other than 0 print nothing. A CPU rank takes
     ``threads`` intra-op threads (default: this machine's cores over
-    ``world``). If a rank raises, the others are stopped and the error is
-    raised here."""
+    ``world``). ``timeout``: the process group's, in seconds (a rank that
+    waits longer on a collective fails, so a hang ends). If a rank raises,
+    the others are stopped and the error is raised here."""
     import torch.multiprocessing as mp
 
     if len(devices) != world:
@@ -138,7 +146,7 @@ def launch(fn: Callable, world: int, devices: Sequence, backend: str,
         torch.save((fn, args, kwargs or {}), os.path.join(tmp, "call.pt"))
         mp.start_processes(
             _rank_main, args=(world, [str(d) for d in devices], backend,
-                              local_size, threads, tmp),
+                              local_size, threads, tmp, timeout),
             nprocs=world, start_method="spawn", join=True)
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=False) for r in range(world)]
@@ -147,7 +155,8 @@ def launch(fn: Callable, world: int, devices: Sequence, backend: str,
 
 
 def _rank_main(rank: int, world: int, devices: list, backend: str,
-               local_size: int, threads: int, tmp: str) -> None:
+               local_size: int, threads: int, tmp: str,
+               timeout: Optional[float]) -> None:
     fn, args, kwargs = torch.load(os.path.join(tmp, "call.pt"),
                                   weights_only=False)
     device = torch.device(devices[rank])
@@ -157,7 +166,7 @@ def _rank_main(rank: int, world: int, devices: list, backend: str,
         torch.set_num_threads(threads or max(1, (os.cpu_count() or 1)
                                              // world))
     initialize_distributed(backend, f"file://{os.path.join(tmp, 'store')}",
-                           world, rank)
+                           world, rank, timeout)
     try:
         mesh = make_mesh(device, local_size)
         quiet = (contextlib.redirect_stdout(io.StringIO()) if rank

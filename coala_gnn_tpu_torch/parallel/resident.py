@@ -87,6 +87,8 @@ from coala_gnn_tpu_torch.native import lib as native_lib
 from coala_gnn_tpu_torch.sampling.device_sampler import (
     sample_blocks_device, to_device_graph)
 from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
+from coala_gnn_tpu_torch.sampling.sharded_topology import (
+    ShardedTopology, sample_blocks_sharded)
 from coala_gnn_tpu_torch.utils.rng import DROPOUT, SAMPLE, step_generators
 from coala_gnn_tpu_torch.utils.timers import PhaseTimers
 
@@ -221,11 +223,43 @@ class ResidentBase:
     its ``__post_init__``, and provides ``_eng_lookup``, ``_eng_probe``,
     ``_offer_stage``, and the per-step ``begin`` / ``resolve`` /
     ``train_step`` that the replay net runs (the flat tier also
-    ``_repair_from_probe``)."""
+    ``_repair_from_probe``).
+
+    The rank hooks (``parallel/sharded_resident.py`` over a ``Mesh`` of
+    more than one rank; none of them runs on a card on its own): the
+    topology is the replicated ``DeviceGraph`` or this rank's
+    ``ShardedTopology`` (``_place_graph``), and ``_sample`` draws from the
+    one it holds; every step draws from this rank's streams
+    (``utils/rng.py``); the window probe takes the node-bitmap form and
+    the ranks' bitmaps are combined by a MAX ``all_reduce``, so every rank
+    stages the same sorted union; the windows' hit, miss, unresolved and
+    edge counts are summed over the ranks in one ``all_reduce``, so the
+    replay decision reads the global unresolved count and every rank takes
+    it alike; ``_learn`` is the subclass's (the data-parallel step)."""
 
     #: ``_stage_from_mids`` keeps the f32 rows it gathered, on the host
     #: (``stage[6]``), for an offer that inserts them from there
     _offer_host_rows = False
+    #: the ranks the trainer spans (``parallel/mesh.Mesh``); None: one card
+    mesh = None
+
+    @property
+    def _rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    @property
+    def _multi(self) -> bool:
+        """More than one rank: the collective hooks run."""
+        return self.mesh is not None and self.mesh.world > 1
+
+    def _place_graph(self):
+        """The topology on the device: the replicated ``DeviceGraph``."""
+        return to_device_graph(self.graph, self.device, nbr_cap=self.nbr_cap)
+
+    def _offered(self, gid: np.ndarray) -> np.ndarray:
+        """The stage ids (int64, -1 pads) whose f32 rows the offer inserts
+        here, the others -1 (gathered as zero rows): all of them."""
+        return gid
 
     def _setup(self) -> None:
         """The state the shared methods read, from the subclass's
@@ -243,8 +277,7 @@ class ResidentBase:
                 f"nbr_cap={self.nbr_cap} < max fanout {max(self.fanouts)}: "
                 "the padded row could not honor the take-all-in-order "
                 "slot semantics for deg <= fanout")
-        self.g = to_device_graph(self.graph, self.device,
-                                 nbr_cap=self.nbr_cap)
+        self.g = self._place_graph()
         self.labels_dev = torch.as_tensor(
             np.asarray(self.labels, np.int64)).to(self.device)
         self._cap0 = block_capacities(self.batch_size,
@@ -274,10 +307,16 @@ class ResidentBase:
     def _sample(self, seeds: torch.Tensor, generator: torch.Generator,
                 dedup: bool = False):
         """(blocks, ids, valid, safe): ``safe`` is ``ids`` with the invalid
-        entries at 0. A deduplicated frontier is valid below its count."""
-        blocks, ids, num = sample_blocks_device(
-            self.g, seeds, self.fanouts, self.batch_size, generator,
-            dedup=dedup)
+        entries at 0. A deduplicated frontier is valid below its count.
+        Collective over the ranks on a sharded topology."""
+        if isinstance(self.g, ShardedTopology):
+            blocks, ids, num = sample_blocks_sharded(
+                self.g, self.mesh, seeds, self.fanouts, self.batch_size,
+                generator)
+        else:
+            blocks, ids, num = sample_blocks_device(
+                self.g, seeds, self.fanouts, self.batch_size, generator,
+                dedup=dedup)
         if dedup:
             valid = torch.arange(ids.shape[0], device=ids.device) < num
         else:
@@ -315,7 +354,8 @@ class ResidentBase:
         """The window's sampling streams replayed: per step, (ids, miss
         bool) of its frontier."""
         for seeds, gen in zip(seeds_grid, step_generators(
-                seed, window, seeds_grid.shape[0], SAMPLE, self.device)):
+                seed, window, seeds_grid.shape[0], SAMPLE, self.device,
+                self._rank)):
             _, ids, valid, safe = self._sample(seeds, gen)
             yield ids, valid & ~self._eng_probe(safe, valid)
 
@@ -340,12 +380,16 @@ class ResidentBase:
                       window: int) -> Probe:
         """Dispatch the presample probe and start its readback (no host
         wait). The node bitmap when it is smaller than the flat
-        [K * cap0] int32 array."""
+        [K * cap0] int32 array, and always over more than one rank, whose
+        bitmaps a MAX ``all_reduce`` unites."""
         K = seeds_grid.shape[0]
         with self.timers.time("probe_dispatch"):
-            if self.graph.num_nodes + 1 <= 4 * K * self._cap0:
+            if self._multi or self.graph.num_nodes + 1 <= 4 * K * self._cap0:
                 fmt, out = "bitmap", self.presample_bitmap(seeds_grid, seed,
                                                            window)
+                if self._multi:
+                    self.mesh.all_reduce(out, torch.distributed.ReduceOp.MAX,
+                                         phase="probe")
             else:
                 fmt, out = "flat", self.presample(seeds_grid, seed, window)
             return (fmt, *self._readback(out, "probe"))
@@ -415,7 +459,8 @@ class ResidentBase:
                     if tr != "float32":
                         rows32 = self._scratch.get("rows", (u_cap, dim),
                                                    torch.float32)
-                        self._store.fetch(gid, out=rows32.numpy())
+                        self._store.fetch(self._offered(gid),
+                                          out=rows32.numpy())
                     gathered = rows32.numpy()[:n]
             offer = np.ones(n, bool)
         else:
@@ -524,8 +569,10 @@ class ResidentBase:
         cols = [[] for _ in range(5)]
         for seeds, g_sample, g_drop in zip(
                 seeds_grid,
-                step_generators(seed, window, K, SAMPLE, self.device),
-                step_generators(seed, window, K, DROPOUT, self.device)):
+                step_generators(seed, window, K, SAMPLE, self.device,
+                                self._rank),
+                step_generators(seed, window, K, DROPOUT, self.device,
+                                self._rank)):
             blocks, _, valid, safe = self._sample(seeds, g_sample)
             n_valid = valid.sum(dtype=torch.int32)
             if self.direct:
@@ -554,8 +601,10 @@ class ResidentBase:
         K = seeds_grid.shape[0]
         for seeds, g_sample, g_drop in zip(
                 seeds_grid,
-                step_generators(seed, window, K, SAMPLE, self.device),
-                step_generators(seed, window, K, DROPOUT, self.device)):
+                step_generators(seed, window, K, SAMPLE, self.device,
+                                self._rank),
+                step_generators(seed, window, K, DROPOUT, self.device,
+                                self._rank)):
             resolved = self.resolve(self.begin(seeds, g_sample))
             loss, _ = self.train_step(resolved, g_drop)
             losses.append(loss)
@@ -639,7 +688,16 @@ class ResidentBase:
             losses, miss, hits, unres, edges = out
             losses_out[w], edges_out[w] = losses, edges
             counters[w] = torch.stack([miss.sum(), hits.sum(), unres.sum()])
-        folded = torch.stack(counters).cpu().numpy()    # ONE d2h transfer
+        counts = torch.stack(counters)
+        if self._multi:
+            # the ranks' counts and edges summed in one all_reduce: every
+            # rank reads the same unresolved count and replays alike
+            both = self.mesh.all_reduce(torch.cat([
+                counts.reshape(-1).long(),
+                torch.stack(edges_out).reshape(-1).long()]), phase="control")
+            counts = both[:3 * M].view(M, 3)
+            edges_out = list(both[3 * M:].view(M, -1).float())
+        folded = counts.cpu().numpy()                   # ONE d2h transfer
         self.misses += int(folded[:, 0].sum())
         self.hits += int(folded[:, 1].sum())
         bad = np.flatnonzero(folded[:, 2])
@@ -657,6 +715,9 @@ class ResidentBase:
                 for w in range(w0, M):
                     losses_out[w], edges_out[w] = self._replay_window(
                         seeds_grids[w], seed, first_window + w)
+                if self._multi:
+                    edges_out[w0:] = list(self.mesh.all_reduce(torch.stack(
+                        edges_out[w0:]), phase="control"))
         return torch.cat(losses_out), torch.cat(edges_out)
 
 

@@ -44,7 +44,8 @@ count streams back without a sync: a pinned host scalar filled by a
 ``non_blocking`` copy and fenced by a CUDA event (JAX's
 ``copy_to_host_async``); only the all-hit check reads it. The state is
 updated in place. ``parallel/sharded_resident.py`` calls the module
-functions at one device.
+functions over the cache's ``route`` and offers its stages through
+``insert_rows``.
 """
 
 from __future__ import annotations
@@ -440,18 +441,28 @@ class ShardedFeatureCache:
         return self.fetch_complete(self.fetch_begin(ids, num_valid),
                                    host_fetch, colors=colors, fill=fill)
 
-    def _owned(self, ids: np.ndarray, chunk: int):
-        """(positions in ``ids`` that this rank inserts, chunks every rank
-        runs): an id goes to its owner (id % n_route == this rank's place
-        in its group) over more than one rank, else to this rank; the
-        chunk count is the largest owner's, the same on every rank."""
+    def owned(self, ids: np.ndarray) -> np.ndarray:
+        """bool, per entry of ``ids`` (negative entries never): the ids this
+        rank inserts, its own (id % n_route == its place in its group) over
+        more than one rank, else all of them. The resident trainer offers
+        its union stage through ``insert_rows``, which inserts these."""
+        ids = np.asarray(ids)
         if self.n_route > 1:
             mod = self.n_route
-            mine = np.flatnonzero(ids % mod == self.mesh.rank % mod)
+            return (ids >= 0) & (ids % mod == self.mesh.rank % mod)
+        return ids >= 0
+
+    def _owned(self, ids: np.ndarray, chunk: int):
+        """(positions in ``ids`` that this rank inserts, chunks every rank
+        runs): ``owned``; the chunk count is the largest owner's, the same
+        on every rank."""
+        mine = np.flatnonzero(self.owned(ids))
+        if self.n_route > 1:
+            mod = self.n_route
             counts = (np.bincount(ids % mod, minlength=mod) if ids.size
                       else np.zeros(mod, np.int64))
             return mine, max(1, int(-(-counts.max() // chunk)))
-        return np.arange(ids.size), max(1, -(-ids.size // chunk))
+        return mine, max(1, -(-ids.size // chunk))
 
     def _insert_chunk(self, ids: np.ndarray, rows: Optional[np.ndarray],
                       colors: Optional[np.ndarray], chunk: int) -> None:
@@ -491,10 +502,11 @@ class ShardedFeatureCache:
                     colors: Optional[np.ndarray] = None,
                     chunk: int = 16384) -> None:
         """``prewarm`` with the rows in hand: ``rows`` [n, dim] and
-        ``colors`` int32 [n] aligned with ``ids`` (not per node id). (The
-        JAX method's ``return_evicted`` serves the resident pipeline's
-        overlapped staged schedule across devices: ROADMAP.md queue A,
-        "multi-GPU".)"""
+        ``colors`` int32 [n] aligned with ``ids`` (not per node id); each
+        row is inserted at its owner (``owned``), so only the owner's rows
+        are read. (The JAX method's ``return_evicted`` serves only the
+        overlapped staged schedule, ``stage_overlap``: ROADMAP.md queue A,
+        "the staged miss path: fused lookup / overlay, and what stays".)"""
         ids = np.asarray(ids, dtype=np.int32).reshape(-1)
         rows = np.asarray(rows)
         mine, n_chunks = self._owned(ids, chunk)

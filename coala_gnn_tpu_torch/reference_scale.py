@@ -1,5 +1,6 @@
 """Reference-scale run: a 10M-node, dim-1024 graph trained off disk on one
-card (the port's counterpart of ``examples/reference_scale.py``).
+card, or over ranks with the sharded topology (the port's counterpart of
+``examples/reference_scale.py``).
 
   --generate  write the graph in ``load_preprocessed``'s layout (csc_*.npy,
               features.npy as a memory map written in 1M-row chunks,
@@ -20,11 +21,21 @@ card (the port's counterpart of ``examples/reference_scale.py``).
               dropout 0.5; ``--warm_windows`` windows, then ``--windows``
               measured ones. Prints and writes (``--out``) the JAX
               script's keys plus ``EXTRA_KEYS``.
-  --mesh      the JAX script's 8-device leg: not ported (multi-GPU).
+  --mesh      the JAX script's mesh leg over ``--ranks`` ranks, one
+              process per card (``parallel/multihost.launch``; ``--device
+              cpu``: CPU ranks over gloo): ``ShardedResidentTrainer``
+              with the sharded topology (each rank holds its own nodes'
+              in-edges, ~E/ranks) and the cache sharded over the ranks,
+              at the JAX leg's cuts (batch / 4 and ``--cache_mb`` / 4 a
+              rank, windows of 4, 2 of them); each rank its slice of the
+              seed grid. Writes the JAX record's keys plus
+              ``MESH_EXTRA_KEYS`` under ``mesh_<ranks>ranks``.
 
     python -m coala_gnn_tpu_torch.reference_scale --generate
     python -m coala_gnn_tpu_torch.reference_scale --run --out REFSCALE_h100.json
     python -m coala_gnn_tpu_torch.reference_scale --run --quantize \\
+        --out REFSCALE_h100.json
+    python -m coala_gnn_tpu_torch.reference_scale --mesh --ranks 4 \\
         --out REFSCALE_h100.json
 
 The default ``--path`` is ``_data/refscale10m`` in the checkout (listed in
@@ -53,6 +64,11 @@ DEFAULT_DIR = os.path.join(
 #: and power limit, the staged rows per measured window, and the first
 #: and last loss of the warm-up windows
 EXTRA_KEYS = ("card", "stage_rows_per_window", "warm_loss_first_last")
+#: keys of ``run_mesh``'s record beyond the JAX script's: the card, the
+#: backend, every rank's owned edges (its shard's real length), the time
+#: per step and the edges per second summed over the ranks
+MESH_EXTRA_KEYS = ("card", "backend", "edges_per_rank", "ms_per_step",
+                   "edges_per_s")
 
 
 def generate(path: str, num_nodes: int, avg_degree: int, dim: int,
@@ -274,6 +290,88 @@ def run_single(path: str, cache_mb: int, batch: int, fanout: str,
     return out
 
 
+def _mesh_rank(mesh, path: str, batch: int, fanout: str, hidden: int,
+               cache_mb: int, window: int, windows: int) -> dict:
+    """``run_mesh``'s rank body: the record, from this rank's view."""
+    from coala_gnn_tpu_torch.cache import feature_cache as fc
+    from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+    from coala_gnn_tpu_torch.graph.datasets import load_preprocessed
+    from coala_gnn_tpu_torch.models.gnn import make_model
+    from coala_gnn_tpu_torch.parallel.sharded_cache import \
+        ShardedFeatureCache
+    from coala_gnn_tpu_torch.parallel.sharded_resident import \
+        ShardedResidentTrainer
+
+    device, n = mesh.device, mesh.world
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    ds = load_preprocessed(path, num_classes=meta["num_classes"])
+    fanouts = [int(f) for f in fanout.split(",")]
+    cfg = fc.make_config(cache_mb=cache_mb, dim=meta["dim"], num_colors=0,
+                         num_shards=n)
+    cache = ShardedFeatureCache(cfg, mesh, mode="sharded")
+    store = HostFeatureStore(ds.features)
+    model = make_model("sage", meta["dim"], hidden, ds.num_classes,
+                       len(fanouts), seed=1).to(device)
+    rt = ShardedResidentTrainer(
+        graph=ds.graph, host_fetch=store.fetch, labels=ds.labels,
+        cache=cache, model=model,
+        optimizer=torch.optim.Adam(model.parameters(), lr=1e-3),
+        fanouts=fanouts, batch_size=batch, shard_topology=True)
+    rng = np.random.default_rng(0)
+    seeds = rng.choice(ds.train_idx,
+                       (windows, n, window, batch)).astype(np.int32)
+    t0 = time.perf_counter()
+    losses, edges = rt.train_windows(seeds[:, mesh.rank:mesh.rank + 1], 2)
+    losses = losses.cpu().numpy()
+    dt = time.perf_counter() - t0
+    steps = windows * window
+    return {
+        "devices": n, "platform": "gpu" if device.type == "cuda" else "cpu",
+        "shard_topology": True,
+        "edges_per_device": int(meta["num_edges"] / n),
+        "steps": steps,
+        "wall_s_incl_compile": round(dt, 1),
+        "loss_first_last": [round(float(losses[0]), 3),
+                            round(float(losses[-1]), 3)],
+        "hit_stats": {k: round(v, 4) if isinstance(v, float) else v
+                      for k, v in rt.stats().items()},
+        "peak_rss_gb": round(_rss_gb(), 2),
+        "card": card_string(device),
+        "backend": torch.distributed.get_backend(),
+        "edges_per_rank": int(rt.g.indptr[-1]),
+        "ms_per_step": round(1000 * dt / steps, 1),
+        "edges_per_s": round(float(edges.sum()) / dt, 1),
+    }
+
+
+def run_mesh(path: str, ranks: int, batch: int, fanout: str, hidden: int,
+             cache_mb: int, window: int, windows: int, device="cuda",
+             devices=None, backend=None, timeout=None) -> dict:
+    """The mesh leg (module docstring) over ``ranks`` ranks on ``devices``
+    (default: ``cuda:0`` .. ``cuda:ranks-1``, or the CPU) over
+    ``backend`` (default: nccl on cards, gloo on the CPU): rank 0's record
+    with every rank's ``edges_per_rank``."""
+    from coala_gnn_tpu_torch.parallel import multihost
+
+    device = torch.device(device)
+    if devices is None:
+        if device.type == "cuda" and torch.cuda.device_count() < ranks:
+            raise ValueError(f"--mesh --ranks {ranks} runs one rank per "
+                             f"card and this machine has "
+                             f"{torch.cuda.device_count()}; pass --device "
+                             "cpu for CPU ranks")
+        devices = ([f"cuda:{r}" for r in range(ranks)]
+                   if device.type == "cuda" else ["cpu"] * ranks)
+    backend = backend or multihost.backend_for(torch.device(devices[0]))
+    recs = multihost.launch(
+        _mesh_rank, ranks, list(devices), backend, timeout=timeout,
+        args=(path, batch, fanout, hidden, cache_mb, window, windows))
+    out = dict(recs[0], edges_per_rank=[r["edges_per_rank"] for r in recs])
+    print(json.dumps(out, indent=1), file=sys.stderr, flush=True)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="reference-scale leg of the "
                                 "port (module docstring)")
@@ -300,12 +398,10 @@ def main(argv=None):
                    help="int8 cache lines + a per-line scale: ~4x the lines "
                         "per MB at dim 1024")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--ranks", type=int, default=2,
+                   help="--mesh: ranks, one per card")
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (the sharded-topology leg over several devices) is not "
-            "ported yet: ROADMAP.md queue A, \"multi-GPU\"")
 
     art = {}
     if args.out and os.path.exists(args.out):
@@ -323,6 +419,10 @@ def main(argv=None):
             args.window, args.windows, args.warm_windows,
             args.stage_transport, quantize=args.quantize,
             device=args.device)
+    if args.mesh:
+        art[f"mesh_{args.ranks}ranks"] = run_mesh(
+            args.path, args.ranks, args.batch // 4, args.fanout, args.hidden,
+            args.cache_mb // 4, window=4, windows=2, device=args.device)
     if args.out:
         with open(args.out, "w") as f:
             f.write(json.dumps(art, indent=1))

@@ -1,11 +1,12 @@
 """Mini-batch GNN training: the port's counterpart of ``examples/train.py``,
-its host pipeline (the default) on one card or data-parallel over several,
-and its ``--pipeline resident`` on one card.
+its host pipeline (the default) and its ``--pipeline resident``, each on
+one card or data-parallel over several.
 
     python -m coala_gnn_tpu_torch.train --fan_out 10,5 --batch_size 1024 \\
         --hidden_channels 256 --feature_dim 256 --num_nodes 200000 \\
         --cache_size 1024 --epochs 1 --max_steps 50 --eval \\
-        [--pipeline resident --window 8 | --devices 4 --cache_backend sharded]
+        [--pipeline resident --window 8 [--shard_topology]] \\
+        [--devices 4 --cache_backend sharded]
     torchrun --nproc_per_node 4 -m coala_gnn_tpu_torch.train ...
 
 Data parallel (``--devices N``, or one process per card under torchrun):
@@ -43,7 +44,18 @@ per step (JAX initialises its params there), then fused windows of
 ``--mask_tail`` the epoch's wrapped tail step takes the masked step, and
 windows stop before it. Every step draws from its own streams
 (``utils/rng.py``): a window from ``(seed, its first run step, k)``, a
-single step from ``(seed, its run step, 0)``.
+single step from ``(seed, its run step, 0)``, a rank past 0 from streams
+of its own. Over several ranks each rank trains its slice of its host's
+seed grid through the cache spread over the ranks, and the windows'
+counters, the eval counts and the printed sampled edges are summed over
+the ranks. ``--shard_topology`` keeps only each rank's shard of the
+topology on its card (``sampling/sharded_topology.py``; a no-op on one
+card, as in JAX); over several ranks it is switched on by itself where
+the graph does not fit the replicated device layout
+(``device_sampler.fits_device_graph``), as ``examples/train.py`` does. On
+one card the port does not fall back to the host pipeline there, as JAX
+does: its int64 offsets hold any graph whose ids fit int32, and
+``to_device_graph`` raises for one whose ids do not.
 
 ``--data synthetic`` (the default) builds the synthetic graph of
 ``--num_nodes`` / ``--avg_degree`` / ``--feature_dim``; any other name goes
@@ -64,7 +76,7 @@ lines carry their node's color. ``--save_dir`` writes a checkpoint
 steps_per_epoch``; ``--resume`` restores the latest one (``resume``) and
 starts at the epoch after it, the resident loop's streams continuing
 from its step.
-The flags are ``examples/train.py``'s; each one not ported yet raises
+The flags are ``examples/train.py``'s; each one not ported raises
 ``NotImplementedError`` naming its ROADMAP.md item, and none is ignored.
 Runs on the card (``--device cuda``, the default, raises without one)
 unless ``--device cpu`` is asked for.
@@ -91,9 +103,8 @@ import torch
 #: the hetero model types
 HETERO = ("rsage", "rgcn", "rgat")
 
-#: the ROADMAP.md items that the flags not ported yet name
+#: the ROADMAP.md item that the flags not ported name
 _ROADMAP = {
-    "multi": "ROADMAP.md queue A, \"multi-GPU\"",
     "jax_only": "ROADMAP.md queue A, \"Not ported: code the system does not "
                 "need on a GPU\"",
 }
@@ -149,7 +160,10 @@ def parse_args(argv=None):
     p.add_argument("--mask_tail", action="store_true",
                    help="implies --keep_tail; the wrapped duplicates get no "
                         "loss or gradient (global masked mean)")
-    p.add_argument("--shard_topology", action="store_true")
+    p.add_argument("--shard_topology", action="store_true",
+                   help="resident pipeline: each rank keeps only its shard "
+                        "of the topology (E/ranks edges a card); a no-op "
+                        "on one card")
     p.add_argument("--nbr_cap", type=int, default=0)
     p.add_argument("--rng_impl", type=str, default="",
                    choices=["", "threefry2x32", "rbg"])
@@ -178,21 +192,14 @@ def refuse_unported(args) -> None:
     """NotImplementedError, naming its ROADMAP.md item, for the first flag
     whose value is not ported; ValueError for a flag that the JAX CLI
     ignores where it is given (ROADMAP.md section C): ``--num_edge_types >
-    1`` with a homogeneous model, ``--window > 1`` or ``--nbr_cap`` on the
-    host pipeline, ``--profile_dir`` with ``--pipeline resident``,
-    ``--resume`` without ``--save_dir``, ``--color_dir`` without
-    ``--distribution node_color``; and for ``node_color`` without
-    ``--color_dir``, which it needs."""
-    checks = [
-        (args.devices > 1 and args.pipeline == "resident",
-         f"--devices {args.devices} with --pipeline resident", "multi"),
-        (args.shard_topology, "--shard_topology", "multi"),
-        (bool(args.rng_impl), "--rng_impl (a JAX PRNG family)", "jax_only"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet: "
-                                      f"{_ROADMAP[item]}")
+    1`` with a homogeneous model, ``--window > 1``, ``--nbr_cap`` or
+    ``--shard_topology`` on the host pipeline, ``--profile_dir`` with
+    ``--pipeline resident``, ``--resume`` without ``--save_dir``,
+    ``--color_dir`` without ``--distribution node_color``; and for
+    ``node_color`` without ``--color_dir``, which it needs."""
+    if args.rng_impl:
+        raise NotImplementedError("--rng_impl (a JAX PRNG family) is not "
+                                  f"ported: {_ROADMAP['jax_only']}")
     if args.num_edge_types > 1 and args.model_type not in HETERO:
         raise ValueError(f"--num_edge_types {args.num_edge_types} needs a "
                          f"hetero model ({', '.join(HETERO)}); "
@@ -208,6 +215,10 @@ def refuse_unported(args) -> None:
         raise ValueError(f"--nbr_cap {args.nbr_cap} lays out the topology "
                          "of --pipeline resident; the host pipeline samples "
                          "on the host")
+    if args.shard_topology and args.pipeline != "resident":
+        raise ValueError("--shard_topology shards the device topology of "
+                         "--pipeline resident; the host pipeline samples on "
+                         "the host")
     if args.resume and not args.save_dir:
         raise ValueError("--resume restores from --save_dir; give "
                          "--save_dir")
@@ -437,14 +448,24 @@ def build(args, ds=None, mesh=None) -> Run:
     if args.pipeline == "resident":
         from coala_gnn_tpu_torch.parallel.sharded_resident import \
             ShardedResidentTrainer
+        from coala_gnn_tpu_torch.sampling.device_sampler import \
+            fits_device_graph
 
+        shard = args.shard_topology
+        if not shard and mesh.world > 1 and not fits_device_graph(
+                ds.graph.num_nodes, ds.graph.num_edges):
+            print(f"graph ({ds.graph.num_nodes} nodes, "
+                  f"{ds.graph.num_edges} edges) exceeds the replicated "
+                  "device-topology limits; auto-enabling --shard_topology")
+            shard = True
         run.trainer = ShardedResidentTrainer(
             graph=ds.graph, host_fetch=store.fetch, labels=ds.labels,
             cache=cache, model=model, optimizer=opt, fanouts=fanouts,
-            batch_size=B, colors=run.colors,
+            batch_size=B, colors=run.colors, shard_topology=shard,
             nbr_cap=args.nbr_cap or None)
         print("pipeline: device-resident (seeds-only upload"
-              + (f", padded table P={args.nbr_cap})" if args.nbr_cap
+              + (", sharded topology)" if shard else
+                 f", padded table P={args.nbr_cap})" if args.nbr_cap
                  else ")"))
         run.window = max(args.window, 1)
         if run.window > 1 and args.refresh_counter < run.window:
@@ -484,9 +505,10 @@ def resume(run: Run) -> int:
             batches.close()
     else:
         rt = run.trainer
-        grid = run.scheduler.run_domain().reshape(1, args.batch_size)
-        gen = step_generators(args.seed, 0, 1, RESUME, run.device)[0]
-        rt.resolve(rt.begin(grid.astype(np.int32), gen))
+        gen = step_generators(args.seed, 0, 1, RESUME, run.device,
+                              run.mesh.rank)[0]
+        rt.resolve(rt.begin(rank_grid(run.scheduler, args.batch_size)[0],
+                            gen))
         run.fresh = False
     step0 = ckpt.restore(args.save_dir, run.model, run.optimizer)
     start = 0
@@ -592,13 +614,26 @@ def train(run: Run, epochs: Optional[int] = None,
             "sampled": sampled, "stats": stats}
 
 
-def _host_sum(run: Run, n: int) -> int:
+def _host_sum(run: Run, n: int, group="host") -> int:
     """``n`` summed over this rank's host (what the JAX CLI's one process
-    per host counts); collective over the host's ranks."""
+    per host counts), or over every rank (``group=None``); collective over
+    those ranks."""
     if not run.mesh.distributed:
         return n
     t = torch.tensor([n], dtype=torch.int64, device=run.device)
-    return int(run.mesh.all_reduce(t, group=run.mesh.host_group)[0])
+    return int(run.mesh.all_reduce(
+        t, group=run.mesh.host_group if group == "host" else None)[0])
+
+
+def rank_grid(sched, batch_size: int) -> tuple:
+    """This rank's slice of ``sched``'s next domain: (seeds int32 [1, B],
+    valid bool [1, B]), the rank being the scheduler's ``local_rank``
+    within its host's part (the whole domain on one card)."""
+    domain = sched.run_domain()
+    sl = slice(sched.local_rank * batch_size,
+               (sched.local_rank + 1) * batch_size)
+    return (domain[sl].reshape(1, batch_size).astype(np.int32),
+            sched.domain_valid[sl].reshape(1, batch_size))
 
 
 def _start_profile(profile_dir: str, run: Run):
@@ -630,10 +665,11 @@ def train_resident(run: Run, epochs: Optional[int] = None,
     ``_run_resident`` epoch loop over ``run.trainer`` (module docstring),
     printing its epoch line, whose "feature agg time" is the epoch's sum
     of the ``AGG_PHASES`` timers and whose "sampled nodes" is the epoch's
-    sampled edges as JAX counts them (the run's first step left out), and
-    the trainer's hit ratio. Returns what ``train`` returns (``edges`` and
-    ``sampled``: the edges of every step trained) and ``stats``, each
-    epoch's hits, misses and hit ratio."""
+    sampled edges as JAX counts them (the run's first step left out,
+    summed over the ranks), and the trainer's hit ratio. Returns what
+    ``train`` returns (``edges`` and ``sampled``: the edges of every step
+    trained, summed over the ranks) and ``stats``, each epoch's hits,
+    misses and hit ratio (over the ranks)."""
     from coala_gnn_tpu_torch.utils.rng import DROPOUT, SAMPLE, \
         step_generators
 
@@ -650,41 +686,47 @@ def train_resident(run: Run, epochs: Optional[int] = None,
         tail_it = sched.d.num_iters - 1
 
     def gens(step: int) -> list:
-        """A single step's (sampling, dropout) generators."""
-        return [step_generators(args.seed, step, 1, stream, run.device)[0]
+        """A single step's (sampling, dropout) generators, this rank's."""
+        return [step_generators(args.seed, step, 1, stream, run.device,
+                                run.mesh.rank)[0]
                 for stream in (SAMPLE, DROPOUT)]
 
     def grid() -> np.ndarray:
-        return sched.run_domain().reshape(1, B).astype(np.int32)
+        return rank_grid(sched, B)[0]
 
     def edges_of(blocks) -> torch.Tensor:
         return sum(b.mask.sum() for b in blocks)
 
+    def total(counts: list) -> int:
+        return int(torch.stack(counts).sum()) if counts else 0
+
     def agg_total() -> float:
         return sum(rt.timers.totals.get(p, 0.0) for p in AGG_PHASES)
 
-    losses, epoch_s, agg_s, all_edges, stats = [], [], [], [], []
+    losses, epoch_s, agg_s, stats = [], [], [], []
+    # edges of the windows (summed over the ranks by the trainer) and of
+    # single steps (this rank's; summed once an epoch)
+    run_edges = [[], []]
     for _ in range(epochs):
         t0 = time.perf_counter()
         agg0 = agg_total()
         loss = acc = pending = None
-        edge_counts = []
+        edge_counts = [[], []]
         it = 0
         while it < spe:
             first = run.fresh and run.step == 0
             if first or it == tail_it:
                 # the run's first step (where JAX initialises its params)
                 # and the masked tail step: one step, no begin ahead
-                g = grid()
-                v = sched.domain_valid.reshape(1, B) if it == tail_it \
-                    else None
+                g, v = rank_grid(sched, B)
                 g_sample, g_drop = gens(run.step)
                 h = rt.begin(g, g_sample)
-                loss, acc = rt.train_step(rt.resolve(h), g_drop, valid=v)
+                loss, acc = rt.train_step(rt.resolve(h), g_drop,
+                                          valid=v if it == tail_it else None)
                 losses.append(loss.reshape(1))
-                all_edges.append(edges_of(h.blocks))
+                run_edges[1].append(edges_of(h.blocks))
                 if not first:
-                    edge_counts.append(all_edges[-1])
+                    edge_counts[1].append(run_edges[1][-1])
                 run.step += 1
                 it += 1
             elif K > 1:
@@ -695,8 +737,8 @@ def train_resident(run: Run, epochs: Optional[int] = None,
                 wl, we = rt.train_window(g, args.seed, window=run.step)
                 loss = wl[-1]
                 losses.append(wl)
-                edge_counts.append(we.sum())
-                all_edges.append(edge_counts[-1])
+                edge_counts[0].append(we.sum())
+                run_edges[0].append(edge_counts[0][-1])
                 run.step += k_here
                 it += k_here
             else:
@@ -708,8 +750,8 @@ def train_resident(run: Run, epochs: Optional[int] = None,
                 loss, acc = rt.train_step(rt.resolve(nxt),
                                           gens(run.step)[1])
                 losses.append(loss.reshape(1))
-                edge_counts.append(edges_of(nxt.blocks))
-                all_edges.append(edge_counts[-1])
+                edge_counts[1].append(edges_of(nxt.blocks))
+                run_edges[1].append(edge_counts[1][-1])
                 run.step += 1
                 it += 1
         if run.device.type == "cuda":
@@ -717,7 +759,8 @@ def train_resident(run: Run, epochs: Optional[int] = None,
         dt = time.perf_counter() - t0
         epoch_s.append(dt)
         agg_s.append(agg_total() - agg0)
-        sampled = int(torch.stack(edge_counts).sum()) if edge_counts else 0
+        sampled = total(edge_counts[0]) + _host_sum(
+            run, total(edge_counts[1]), group=None)
         acc_s = f"{float(acc):.4f}" if acc is not None else "n/a"
         print(f"Epoch {run.epoch} | loss {float(loss):.4f} | batch acc "
               f"{acc_s} | Epoch Time: {dt:.3f}s | feature agg time "
@@ -730,7 +773,8 @@ def train_resident(run: Run, epochs: Optional[int] = None,
         if args.save_dir:
             _save(run, spe)
         run.epoch += 1
-    edges = int(torch.stack(all_edges).sum()) if all_edges else 0
+    edges = total(run_edges[0]) + _host_sum(run, total(run_edges[1]),
+                                            group=None)
     return {"losses": (torch.cat(losses).float().cpu().numpy() if losses
                        else np.zeros(0, np.float32)),
             "epoch_s": epoch_s, "agg_s": agg_s, "edges": edges,
@@ -742,9 +786,10 @@ def evaluate(run: Run) -> tuple:
     (static shapes) and its wrapped slots are left out. Prints the JAX
     CLI's line; returns (correct, total). On the resident pipeline each
     batch goes through the trainer's ``begin`` / ``resolve`` /
-    ``eval_step``, its sampling stream ``(seed, batch, 0, EVAL)``. Over
-    several ranks each rank evaluates its slice of each batch and the
-    correct counts are summed (one ``all_reduce`` at the end)."""
+    ``eval_step``, its sampling stream ``(seed, batch, 0, EVAL)`` (this
+    rank's), its count summed over the ranks. Over several ranks each rank
+    evaluates its slice of each batch and the correct counts are summed
+    (on the host pipeline one ``all_reduce`` at the end)."""
     from coala_gnn_tpu_torch.data.loader import CoalaDataLoader
     from coala_gnn_tpu_torch.distribution import (DistributionScheduler,
                                                   SeedDistributor)
@@ -760,12 +805,13 @@ def evaluate(run: Run) -> tuple:
         from coala_gnn_tpu_torch.utils.rng import EVAL, step_generators
 
         rt, sched = run.trainer, DistributionScheduler(
-            eval_distributor, part_id=0, local_rank=0)
+            eval_distributor, part_id=mesh.host_id,
+            local_rank=mesh.local_rank)
         correct = total = 0
         for it in range(eval_distributor.num_iters):
-            grid = sched.run_domain().reshape(1, B).astype(np.int32)
-            valid = sched.domain_valid.reshape(1, B)
-            gen = step_generators(run.args.seed, it, 1, EVAL, run.device)[0]
+            grid, valid = rank_grid(sched, B)
+            gen = step_generators(run.args.seed, it, 1, EVAL, run.device,
+                                  mesh.rank)[0]
             correct += rt.eval_step(rt.resolve(rt.begin(grid, gen)), valid)
             total += min(gb, n_test - it * gb)
         print(f"Test accuracy: {correct / max(total, 1):.4f} ({total} "

@@ -13,8 +13,8 @@ Every step's loss agrees at 1e-5: SAGE with the CLI's Adam, GAT and
 RGAT with SGD (under Adam the last layer's ``attn_r`` gradient is rounding
 noise that Adam turns into lr-sized steps, tests/test_torch_resident.py);
 the printed hit-ratio, sampled-edge and test-accuracy lines, the eval counts
-and the cache state are JAX's exactly. The flags the slice does not port
-still raise, naming their ROADMAP.md item."""
+and the cache state are JAX's exactly. The flags not ported still raise,
+naming their ROADMAP.md item."""
 
 import importlib.util
 import os
@@ -249,9 +249,6 @@ def test_cli_resident_runs_every_model_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--model_type", "rgcn", "--devices", "2"], NotImplementedError,
-     "multi-GPU"),
-    (["--shard_topology"], NotImplementedError, "multi-GPU"),
     (["--distribution", "node_color"], ValueError, "--color_dir"),
     (["--nbr_cap", "2", "--fan_out", "4,3"], ValueError,
      "nbr_cap=2 < max fanout 4"),
@@ -264,6 +261,31 @@ def test_cli_resident_refuses_what_it_does_not_run(flags, error, match):
     with pytest.raises(error, match=match):
         cli.main(["--device", "cpu", "--pipeline", "resident",
                   "--cache_size", "1"] + flags)
+
+
+@pytest.mark.parametrize("flags", [["--model_type", "rgcn", "--devices",
+                                     "2"], ["--shard_topology"]])
+def test_cli_resident_runs_over_ranks_and_sharded_topology(flags):
+    """``--devices 2`` and ``--shard_topology`` train on the resident
+    pipeline (held to JAX by tests/test_torch_multigpu_cli_resident.py):
+    each rank's losses finite, and a one-card run with the flag equal to
+    the run without it."""
+    base = ["--device", "cpu", "--pipeline", "resident", "--cache_size",
+            "1", "--num_nodes", "600", "--feature_dim", "8", "--batch_size",
+            "16", "--fan_out", "3,2", "--hidden_channels", "8", "--window",
+            "2", "--max_steps", "3"]
+    if "--devices" in flags:
+        out = cli.main(base + flags)
+        assert len(out) == 2
+        np.testing.assert_array_equal(out[0]["losses"], out[1]["losses"])
+        assert np.isfinite(out[0]["losses"]).all()
+        return
+    runs = []
+    for extra in ([], flags):
+        run = cli.build(cli.parse_args(base + extra))
+        runs.append(cli.train(run)["losses"])
+        assert run.trainer.shard_topology == bool(extra)
+    assert runs[0].tobytes() == runs[1].tobytes()
 
 
 def test_cli_resident_needs_a_cache_and_window_needs_it():

@@ -5,7 +5,11 @@ logits JAX's at 1e-5 with JAX's params carried across by
 cache counters equal to the JAX dry run's at one device with the same
 cache and global batch (64 sets, 64 seeds a step: what JAX's 8-device run
 spreads over its devices), whose sharded-topology leg cannot run on one
-device; ``dryrun_multichip(2)`` raises naming "multi-GPU"."""
+device; ``dryrun_multichip(2)`` and ``(4)`` on spawned CPU ranks over gloo,
+each leg with JAX's checks (the sharded topology and node_local too), and
+JAX's dry run with the same shapes on a mesh of 2 virtual devices passing
+its own (rank r > 0 samples from a stream of its own, where JAX
+samples every device from one, so the counters are not compared)."""
 
 import os
 import re
@@ -60,7 +64,7 @@ def test_dryrun_one_device_matches_jax_host_path(capsys):
     got = entry.dryrun_multichip(1, device="cpu")
     out = capsys.readouterr().out
     assert "host path: ok" in out and "resident path: ok" in out
-    assert "multi-GPU" in out
+    assert "legs need more than one rank" in out
     assert got["host"]["hit_ratio"] > 0.5 and got["window"]["hit_ratio"] > 0.5
     assert np.isfinite(got["window_losses"]).all()
     assert 0 <= got["eval_correct"] <= entry.DRYRUN_BATCH
@@ -78,10 +82,43 @@ def test_dryrun_one_device_matches_jax_host_path(capsys):
     assert "resident path: ok" in jout
 
 
-def test_dryrun_refuses_more_than_one_device():
-    for n in (2, 8):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            entry.dryrun_multichip(n, device="cpu")
+def _jax_dryrun(n):
+    """``__graft_entry__.dryrun_multichip`` with the port's shapes at ``n``
+    ranks (its source with the two constants replaced)."""
+    per = max(1, 8 // n)
+    with open(os.path.join(ROOT, "__graft_entry__.py")) as f:
+        src = f.read()
+    src, k = re.subn(r"num_sets=8, ways",
+                     f"num_sets={entry.DRYRUN_SETS // 8 * per}, ways", src)
+    assert k == 1
+    src, k = re.subn(r"B, fanouts, dim = 8,",
+                     f"B, fanouts, dim = {entry.DRYRUN_BATCH // 8 * per},",
+                     src)
+    assert k == 1
+    ns = {"__name__": "jax_dryrun", "__file__": jentry.__file__}
+    exec(compile(src, jentry.__file__, "exec"), ns)
+    return ns["dryrun_multichip"]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_dryrun_over_ranks(n, capsys):
+    """All four legs on n CPU ranks (the node_local leg over two hosts of
+    n / 2), each with JAX's checks; at n = 2 JAX's dry run at the same
+    shapes on 2 virtual devices passes its four legs too."""
+    got = entry.dryrun_multichip(n, device="cpu", timeout=120)
+    assert got["host"]["hit_ratio"] > 0.5 and got["window"]["hit_ratio"] > 0.5
+    assert got["node_local"]["hit_ratio"] == 1.0
+    assert got["edges_per_rank"] < 12000
+    assert np.isfinite(got["topology_window_losses"]).all()
+    assert 0 <= got["eval_correct"] <= entry.DRYRUN_BATCH
+    if n != 2:
+        return
+    capsys.readouterr()
+    _jax_dryrun(n)(n)
+    jout = capsys.readouterr().out
+    for leg in ("host path", "resident path", "sharded-topology path",
+                "node_local path"):
+        assert f"dryrun_multichip({n}) {leg}: ok" in jout
 
 
 def test_entry_refuses_a_missing_card():

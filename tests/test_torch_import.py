@@ -14,10 +14,12 @@ checkpoint (``utils/checkpoint.py``) and resumes from it; the real-dataset
 layouts (IGB, its preprocessed form through ``create_csc_graph``,
 IGB-hetero) train through the CLI, the reference-scale leg
 (``reference_scale``) generates and runs, and ``entry`` runs its forward
-and ``dryrun_multichip(1)``; the CLI trains data-parallel on two spawned
-CPU ranks (``--devices 2``, node_color), whose processes start with the
-same modules blocked (a ``sitecustomize`` on their ``PYTHONPATH``), so a
-rank that reached for JAX would fail the run."""
+and ``dryrun_multichip(1)``; ``dryrun_multichip(2)`` (the resident
+pipeline over ranks, the sharded topology, node_local) and the CLI's
+data-parallel host loop (``--devices 2``, node_color) train on two
+spawned CPU ranks, whose processes start with the same modules blocked (a
+``sitecustomize`` on their ``PYTHONPATH``), so a rank that reached for JAX
+would fail the run."""
 
 import os
 import subprocess
@@ -127,6 +129,8 @@ finally:
 fn, fargs = entry.entry("cpu")
 assert fn(*fargs).shape == (32, 8)
 entry.dryrun_multichip(1, "cpu")
+got = entry.dryrun_multichip(2, "cpu", timeout=120)
+assert got["node_local"]["hit_ratio"] == 1.0
 tmp = tempfile.mkdtemp()
 try:
     colors = os.path.join(tmp, "colors")

@@ -11,7 +11,8 @@ a small size:
   before the windows) at dropout 0 and fanout = max in-degree, JAX's
   params converted, against JAX's ``ResidentTrainer`` built as the JAX
   script builds it on the same loaded graph: window losses at 1e-5;
-- ``--mesh`` raises naming the "multi-GPU" item;
+- ``--mesh`` over two CPU ranks records the JAX script's mesh keys plus
+  ``MESH_EXTRA_KEYS``;
 - the flat probe's host dedup (a node bitmap) gives ``np.unique``'s ids,
   and a stage buffer grows once, with headroom, not every window."""
 
@@ -160,9 +161,27 @@ def test_leg_trainer_matches_jax_resident_trainer(tmp_path):
     assert 0 < s["hit_ratio"] < 1
 
 
-def test_mesh_raises_naming_multi_gpu():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        rs.main(["--mesh"])
+def test_mesh_records_the_jax_keys(generated, tmp_path):
+    """``--mesh --ranks 2`` on CPU ranks (the sharded topology and cache
+    over the ranks, the JAX leg's cuts) writes the JAX script's ``--mesh``
+    record keys plus ``MESH_EXTRA_KEYS``; every edge sits on one rank."""
+    port, theirs = generated
+    out = str(tmp_path / "rs.json")
+    art = rs.main(["--path", port, "--mesh", "--ranks", "2", "--device",
+                   "cpu", "--cache_mb", "4", "--batch", "256", "--hidden",
+                   "16", "--fanout", "5,3", "--out", out])
+    ours = art["mesh_2ranks"]
+    with open(out) as f:
+        assert json.load(f) == art
+    ref = jrs.run_mesh(theirs, 64, "5,3", 16, 1, window=4, windows=2)
+    assert set(ours) == set(ref) | set(rs.MESH_EXTRA_KEYS)
+    assert ours["devices"] == 2 and ours["shard_topology"] is True
+    assert ours["steps"] == ref["steps"] == 8
+    assert ours["edges_per_device"] == GEN["num_nodes"] * 15 // 2
+    assert sum(ours["edges_per_rank"]) == GEN["num_nodes"] * 15
+    assert set(ours["hit_stats"]) == set(ref["hit_stats"])
+    assert np.isfinite(ours["loss_first_last"]).all()
+    assert ours["backend"] == "gloo" and ours["card"] == "cpu"
 
 
 def test_flat_probe_ids_equal_np_unique(tmp_path):

@@ -417,7 +417,6 @@ def test_exchange_is_the_local_lookup(data):
 
 
 @pytest.mark.parametrize("kw,error,item", [
-    ({"shard_topology": True}, NotImplementedError, "multi-GPU"),
     ({"shard_topology": True, "nbr_cap": 32}, ValueError, "shard_topology"),
     ({"stage_overlap": True}, NotImplementedError, "staged miss path"),
 ])
@@ -428,6 +427,25 @@ def test_unported_options_raise(data, kw, error, item):
     ds, _, fanouts = data
     with pytest.raises(error, match=item):
         _port(ds, fanouts, "sage", FULL, **kw)
+
+
+def test_shard_topology_is_a_no_op_on_one_rank(data):
+    """On one card ``shard_topology`` keeps the replicated topology, as
+    JAX's trainer does on a one-device mesh: the same graph on the device
+    and the same losses and counters, bitwise (the sharded topology over
+    more ranks: tests/test_torch_multigpu_resident.py)."""
+    ds, _, fanouts = data
+    out = []
+    for shard in (False, True):
+        tt = _port(ds, fanouts, "sage", EVICTS, shard_topology=shard)
+        assert tt.shard_topology == shard
+        assert tt.g.indices.shape[0] == ds.graph.num_edges + 1
+        losses, edges = tt.train_window(np.swapaxes(_grids(ds, 3, 9), 0, 1),
+                                        1)
+        out.append((losses.numpy(), edges.numpy(), tt.stats()))
+    assert out[0][0].tobytes() == out[1][0].tobytes()
+    assert out[0][1].tobytes() == out[1][1].tobytes()
+    assert out[0][2] == out[1][2]
 
 
 def test_resident_trainer_names_the_sharded_trainer(data):

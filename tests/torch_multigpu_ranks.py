@@ -220,3 +220,182 @@ def cli_runs(mesh, runs: list) -> list:
                    launches=dict(gather_spmm.LAUNCHES))
         out.append(rec)
     return out
+
+
+# ---- the resident pipeline over ranks (tests/test_torch_multigpu_resident.py,
+# ---- tests/test_torch_sharded_topology.py) ----------------------------------
+
+def resident_graph(typed: bool):
+    """The resident tests' dataset: 600 nodes, avg degree 4, dim 8, 4
+    classes, 3 random edge types when ``typed``."""
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
+
+    ds = synthetic_graph(num_nodes=600, avg_degree=4, feature_dim=8,
+                         num_classes=4, seed=5)
+    if typed:
+        ds.graph.edge_types = np.random.default_rng(5).integers(
+            0, 3, ds.graph.num_edges).astype(np.int32)
+        ds.graph.num_edge_types = 3
+    return ds
+
+
+def resident_colors() -> np.ndarray:
+    return np.random.default_rng(2).integers(0, 5, 600).astype(np.int32)
+
+
+def _resident_trainer(mesh, case: dict, ds):
+    from coala_gnn_tpu_torch.models.gnn import make_model
+    from coala_gnn_tpu_torch.models.hetero import make_hetero_model
+    from coala_gnn_tpu_torch.parallel.sharded_resident import \
+        ShardedResidentTrainer
+
+    kind = case["kind"]
+    if kind.startswith("r"):
+        model = make_hetero_model(kind, 8, 8, 4, 3, 2, num_heads=2,
+                                  dropout=0.0)
+    else:
+        model = make_model(kind, 8, 8, 4, 2, num_heads=2, dropout=0.0)
+    model.load_state_dict(case["state_dict"])
+    cache = ShardedFeatureCache(fc.CacheConfig(**case["cfg"]), mesh,
+                                mode=case["mode"],
+                                bucket_slack=case["slack"],
+                                group_size=case["group_size"])
+    return ShardedResidentTrainer(
+        graph=ds.graph, host_fetch=HostFeatureStore(ds.features).fetch,
+        labels=ds.labels, cache=cache, model=model,
+        optimizer=torch.optim.Adam(model.parameters(), lr=case["lr"]),
+        fanouts=case["fanouts"], batch_size=case["batch"],
+        colors=resident_colors() if case["colors"] else None,
+        shard_topology=case["shard_topology"], nbr_cap=case["nbr_cap"])
+
+
+def resident_cases(mesh, cases: list) -> list:
+    """Each case on this rank's slice of its seed grids: a per-step step,
+    per-step steps with one ``begin`` ahead, ``train_windows`` (staged
+    under pressure; with ``full``, after a prewarm of every node at full
+    coverage), the masked tail step and eval steps. Records the losses,
+    window edges, eval counts, cache state (before ``stats``), the summed
+    stats, replay, stage rows, the overflow of one probe and the bytes by
+    ledger phase."""
+    from coala_gnn_tpu_torch.utils.rng import DROPOUT, SAMPLE, \
+        step_generators
+
+    r = mesh.rank
+    out = []
+    for case in cases:
+        ds = resident_graph(case["kind"].startswith("r"))
+        tt = _resident_trainer(mesh, case, ds)
+        mesh.ledger.reset()
+
+        def gens(step):
+            return [step_generators(0, step, 1, s, "cpu", r)[0]
+                    for s in (SAMPLE, DROPOUT)]
+
+        def mine(grid):
+            return grid[r:r + 1]
+
+        steps = case["steps"]
+        losses = []
+        h = tt.begin(mine(steps[0]), gens(0)[0])
+        losses.append(float(tt.train_step(tt.resolve(h), gens(0)[1])[0]))
+        pend = None
+        for it in range(1, len(steps)):
+            nxt = pend or tt.begin(mine(steps[it]), gens(it)[0])
+            pend = (tt.begin(mine(steps[it + 1]), gens(it + 1)[0])
+                    if it + 1 < len(steps) else None)
+            losses.append(float(tt.train_step(tt.resolve(nxt),
+                                              gens(it)[1])[0]))
+        if case["full"]:
+            tt.cache.prewarm(np.arange(600, dtype=np.int32),
+                             HostFeatureStore(ds.features).fetch,
+                             colors=tt.colors)
+            tt.full_coverage = True
+        wl, we = tt.train_windows(case["windows"][:, r:r + 1], 0,
+                                  first_window=len(steps))
+        losses += wl.tolist()
+        h = tt.begin(mine(case["tail"]), gens(99)[0])
+        losses.append(float(tt.train_step(tt.resolve(h), gens(99)[1],
+                                          valid=mine(case["valid"]))[0]))
+        evals = [tt.eval_step(tt.resolve(tt.begin(mine(g), gens(0)[0])),
+                              valid=mine(case["valid"]))
+                 for g in case["evals"]]
+        _, ids, valid, safe = tt._sample(torch.from_numpy(
+            mine(case["tail"])[0]), gens(7)[0])
+        _, ovf = exchange_probe(tt.cache_cfg, tt.cache.state, safe, valid,
+                                tt.route)
+        state = state_of(tt.cache)
+        out.append({"losses": losses, "edges": we.numpy(), "evals": evals,
+                    "state": state, "stats": tt.stats(),
+                    "replay": "replay" in tt.timers.totals,
+                    "stage_rows": tt.timers.tallies.get("stage_rows", 0.0),
+                    "overflow": int(ovf.sum()),
+                    "shard_edges": int(tt.g.indices.shape[0]),
+                    "ledger": mesh.ledger.snapshot()})
+    return out
+
+
+def topology_cases(mesh, cases: list) -> list:
+    """The sharded sampler on this rank for each case (typed, fanouts,
+    batch, seeds [n, B], uniforms: per layer every rank's f32 [n * cap,
+    fanout] grid or None): ``sample_blocks_sharded`` (its blocks, ids and
+    count), and given uniforms also each layer through
+    ``_sample_layer_sharded`` beside the replicated ``_sample_layer`` on
+    the uniforms routed to each dst's owner, then the replicated
+    ``sample_blocks_device`` on them; the ledger of the sharded call."""
+    from coala_gnn_tpu_torch.sampling import device_sampler as dsm
+    from coala_gnn_tpu_torch.sampling import sharded_topology as st
+    from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
+    from coala_gnn_tpu_torch.utils.rng import SAMPLE, step_generators
+
+    r, n = mesh.rank, mesh.world
+    out = []
+    for case in cases:
+        ds = resident_graph(case["typed"])
+        topo = st.put_sharded_topology(ds.graph, mesh)
+        seeds = torch.from_numpy(case["seeds"][r])
+        fanouts, B, uni = case["fanouts"], case["batch"], case["uniforms"]
+        mine = None if uni is None else [torch.from_numpy(u[r]) for u in uni]
+        mesh.ledger.reset()
+        blocks, ids, num = st.sample_blocks_sharded(
+            topo, mesh, seeds, fanouts, B,
+            step_generators(0, 0, 1, SAMPLE, "cpu", r)[0], uniforms=mine)
+        rec = {"masks": [b.mask.numpy() for b in blocks],
+               "rels": [None if getattr(b, "rel", None) is None
+                        else b.rel.numpy() for b in blocks],
+               "ids": ids.numpy(), "num": int(num),
+               "ledger": mesh.ledger.snapshot(),
+               "indptr": topo.indptr.numpy(), "indices": topo.indices.numpy()}
+        if uni is not None:
+            g = dsm.to_device_graph(ds.graph, "cpu")
+            caps = block_capacities(B, fanouts)
+            dst = torch.cat([seeds.to(torch.int32), torch.full(
+                (caps[-1][0] - B,), 600, dtype=torch.int32)])
+            routed, layers = [None] * len(fanouts), []
+            for layer in range(len(fanouts) - 1, -1, -1):
+                cap = caps[layer][0]
+                if dst.shape[0] < cap:
+                    dst = torch.cat([dst, torch.full(
+                        (cap - dst.shape[0],), 600, dtype=torch.int32)])
+                owner = (dst.long() % n).numpy()
+                grids = uni[layer]              # [n, n * cap, fanout]
+                routed[layer] = torch.from_numpy(
+                    grids[owner, r * cap + np.arange(cap)])
+                got = st._sample_layer_sharded(topo, mesh, dst,
+                                               fanouts[layer],
+                                               uniforms=mine[layer])
+                want = dsm._sample_layer(g, dst, fanouts[layer],
+                                         uniforms=routed[layer])
+                layers.append((got, want))
+                dst = torch.cat([dst, got[0].T.reshape(-1)])
+            rep = dsm.sample_blocks_device(g, seeds, fanouts, B,
+                                           uniforms=routed)
+            rec["layers"] = [tuple(tuple(None if t is None else t.numpy()
+                                         for t in side) for side in pair)
+                             for pair in layers]
+            rec["replicated"] = {
+                "masks": [b.mask.numpy() for b in rep[0]],
+                "rels": [None if getattr(b, "rel", None) is None
+                         else b.rel.numpy() for b in rep[0]],
+                "ids": rep[1].numpy(), "num": int(rep[2])}
+        out.append(rec)
+    return out
