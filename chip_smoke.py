@@ -237,7 +237,30 @@ data-parallel over two ranks. Phases:
      on the card (its four legs and their checks); (d) ``reference_scale
      --mesh`` at two ranks, cut in scale (200k of its 10M nodes, 20 MB a
      rank; dim 1024 and the JAX leg's batch and windows kept): every edge
-     on one rank, finite losses, hits and misses.
+     on one rank, finite losses, hits and misses;
+ 23. the overlapped staged schedule (``ShardedResidentTrainer(
+     stage_overlap=True)``) at the flagship widths, 97 MB of lines
+     (99,328), degree prewarm, K = 8: (a) on the card against the serial
+     schedule, two trainers from one init, 1 warm-up window + 2 calls of
+     3 windows in turns, f32 transport over f32 lines and int8 transport
+     over int8 lines: losses bitwise equal, ``evict_patch`` timed in the
+     overlapped run only, no replay, hits and misses, one f32 forward
+     launch per step, state on the card, the kernel on a real staged
+     step's layer-0 input against its plain version; prints ms/step of
+     both schedules, their timers per window and stage rows; (b) two
+     gloo ranks on the card (sharded, 97 MB a rank, f32): overlapped
+     losses bitwise the serial on each rank, the evicted-id gathers the
+     same on both ranks, the bytes leaving a rank per step by phase
+     (``evicted`` among them); small runs of both schedules against the
+     same two ranks on the CPU (losses 2e-3 / 2e-4; stats, ledger,
+     evicted ids and cache state equal); the overlapped f32 run of (a) in
+     an NCCL group of one rank bitwise the one-card run (losses and cache
+     state); (c) ``bench_ops`` (``coala_gnn_tpu_torch/bench_ops.py``)
+     into a temporary file: every peak row, no reading past 1.05x the
+     H100's peak, the gather-SpMM rows equal to their plain versions;
+     then ``utils/roofline.report`` of phase 3's flagship ms/step and of
+     (a)'s pressure rows against those peaks: binding class and
+     ``roofline_pct``.
 
 Every failure ends the script with a non-zero code. The line before the
 last two is a JSON object with the kernels' launches, errors, times,
@@ -255,6 +278,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -975,8 +999,9 @@ def phase_slice(torch, ds, store, smi) -> dict:
           f"losses {np.array2string(l16, precision=4)}")
     require(np.isfinite(l16).all(), "non-finite loss (bf16 table)")
     require(launches16 == K, f"{launches16} launches for {K} bf16 steps")
-    return {"rt": rt, "launches": {"gather_spmm[float32]": launches,
-                                   "gather_spmm[bfloat16]": launches16}}
+    return {"rt": rt, "ms_step": 1000 * dt / n_meas,
+            "launches": {"gather_spmm[float32]": launches,
+                         "gather_spmm[bfloat16]": launches16}}
 
 
 def phase_step_inputs(torch, rt, gather_spmm, gather_spmm_reference,
@@ -3608,6 +3633,479 @@ def phase_multi_resident(torch, ds, smi) -> tuple:
     return total, err
 
 
+#: phase 23: the overlapped staged schedule on ShardedResidentTrainer
+OVL_MB = 97             # cache MB per rank: phase 6's pressure cache
+OVL_WINDOWS = 3         # windows of a measured train_windows call (the
+                        # overlapped order needs more than one)
+#: (stage transport, int8 lines): f32 transport over f32 lines and int8
+#: transport over int8 lines, where a stage row is the cache line it
+#: stands for, so the two schedules train bitwise alike; int8 transport
+#: over f32 lines (the pressure int8-transport row), where the schedules'
+#: caches part ways (patch rows are not offered again, JAX's rule) and
+#: one may read at f32 a row the other reads dequantised from its stage:
+#: bitwise alike up to the first step that does, within OVL_SPLIT_TOL
+#: from it. The int8 cache holds as many lines as the f32 one (24 MB).
+OVL_TRANSPORTS = (("float32", False), ("int8", False), ("int8", True))
+OVL_SPLIT_RTOL, OVL_SPLIT_ATOL = 5e-3, 1e-4
+
+
+def ovl_cache_mb(ds, quantize: bool) -> int:
+    """``OVL_MB`` of f32 lines, or as many int8 lines."""
+    from coala_gnn_tpu_torch.cache import feature_cache as fc
+
+    if not quantize:
+        return OVL_MB
+    lines = fc.make_config(cache_mb=OVL_MB, dim=ds.feature_dim).capacity
+    return lines * (fc.round_cache_dim(ds.feature_dim) + 4) >> 20
+
+
+def overlap_trainer(torch, ds, store, mesh, transport, overlap,
+                    quantize=False, cache_mb=OVL_MB, fanouts=FANOUTS,
+                    batch=BATCH, hidden=HIDDEN, dropout=0.5, cfg=None):
+    """A ``ShardedResidentTrainer`` of SAGE on ``mesh`` (a card on its own
+    or a rank's ``Mesh``) behind a sharded cache of ``cache_mb`` MB of f32
+    (``quantize``: int8) lines a rank (or ``cfg``) prewarmed by degree,
+    Adam 1e-3, staged windows with ``transport``, the overlapped schedule
+    if ``overlap``."""
+    from coala_gnn_tpu_torch.cache import feature_cache as fc
+    from coala_gnn_tpu_torch.models.gnn import make_model
+    from coala_gnn_tpu_torch.parallel.sharded_cache import \
+        ShardedFeatureCache
+    from coala_gnn_tpu_torch.parallel.sharded_resident import \
+        ShardedResidentTrainer
+
+    cfg = cfg or fc.make_config(cache_mb=cache_mb, dim=ds.feature_dim,
+                                quantize=quantize, num_shards=mesh.world)
+    cache = ShardedFeatureCache(cfg, mesh)
+    model = make_model("sage", ds.feature_dim, hidden, ds.num_classes,
+                       len(fanouts), dropout=dropout, seed=1).to(mesh.device)
+    rt = ShardedResidentTrainer(
+        graph=ds.graph, host_fetch=store.fetch, labels=ds.labels,
+        cache=cache, model=model,
+        optimizer=torch.optim.Adam(model.parameters(), lr=1e-3),
+        fanouts=fanouts, batch_size=batch, stage_transport=transport,
+        stage_overlap=overlap)
+    cache.prewarm_by_degree(ds.graph, store.fetch)
+    return rt
+
+
+def overlap_calls(ds, rank: int = 0) -> list:
+    """The seed grids of phase 23's ``train_windows`` calls, [M, 1, K, B]
+    each: one warm-up window, then two calls of ``OVL_WINDOWS``."""
+    g = make_grids(ds, 1 + 2 * OVL_WINDOWS, K, BATCH,
+                   np.random.default_rng(23 + rank))[:, None]
+    return [g[:1], g[1:1 + OVL_WINDOWS], g[1 + OVL_WINDOWS:]]
+
+
+def watch_cache_reads(rt) -> list:
+    """Per step from now on, which frontier slots the window read from the
+    cache (bool [cap0] on the device; it read the rest from its stage);
+    no host wait, so a timed run keeps its overlap."""
+    reads, lookup = [], rt._eng_lookup
+
+    def recording(ids, valid, count_stats=True):
+        feats, hit = lookup(ids, valid, count_stats)
+        reads.append(hit & valid)
+        return feats, hit
+
+    rt._eng_lookup = recording
+    return reads
+
+
+def precision_split(torch, reads: dict) -> int:
+    """The first step at which the serial and the overlapped run read a
+    frontier row from the cache in one and from the stage in the other
+    (``watch_cache_reads``' records), else the number of steps."""
+    a, b = torch.stack(reads[False]), torch.stack(reads[True])
+    require(a.shape == b.shape, f"cache reads {a.shape} vs {b.shape}")
+    diff = (a != b).any(dim=1).nonzero()
+    return int(diff[0]) if diff.numel() else int(a.shape[0])
+
+
+def window_ms(rt, n_windows: int) -> dict:
+    """The trainer's main timers in ms per window."""
+    return {k: round(1e3 * v / n_windows, 3)
+            for k, v in sorted(rt.timers.totals.items())
+            if k in ("window_dispatch", "insert_dispatch", "probe_dispatch",
+                     "probe_wait", "probe_ids", "host_gather", "evict_patch",
+                     "stage_encode", "stage_upload")}
+
+
+def phase_overlap(torch, ds, store, gather_spmm, gather_spmm_reference,
+                  smi) -> tuple:
+    """Phase 23(a): the overlapped schedule against the serial one on the
+    card, per transport two trainers from one init, their calls in turns
+    (serial, overlap, then overlap, serial). Returns (f32 forward
+    launches, the kernel's error on a real step, ms/step by (transport,
+    int8 lines, overlap), the f32 overlapped run's losses and final cache
+    state)."""
+    from coala_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh("cuda:0")
+    calls = overlap_calls(ds)
+    n_meas = 2 * OVL_WINDOWS
+    steps = 2 * n_meas * K
+    launched, ms_step, err, ref = 0, {}, None, None
+    for transport, quantize in OVL_TRANSPORTS:
+        mb = ovl_cache_mb(ds, quantize)
+        rts = {ov: overlap_trainer(torch, ds, store, mesh, transport, ov,
+                                   quantize, cache_mb=mb)
+               for ov in (False, True)}
+        reads = {ov: watch_cache_reads(rt) for ov, rt in rts.items()}
+        lines = "int8" if quantize else "f32"
+        cfg = f"{transport} transport over {lines} lines"
+        losses = {ov: [rt.train_windows(calls[0], seed=0)[0]]
+                  for ov, rt in rts.items()}
+        torch.cuda.synchronize()
+        for rt in rts.values():
+            rt.stats()
+            rt.timers.reset()
+            rt.timers.tallies.clear()
+        secs = {False: 0.0, True: 0.0}
+        reset_launches()
+        for i, order in enumerate(((False, True), (True, False))):
+            for ov in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, _ = rts[ov].train_windows(calls[1 + i], seed=1 + i)
+                torch.cuda.synchronize()
+                secs[ov] += time.perf_counter() - t0
+                losses[ov].append(got)
+        n = only_launches("gather_spmm[float32]")
+        require(n == steps, f"phase 23 {cfg}: {n} f32 forward "
+                f"launches for {steps} measured steps")
+        launched += n
+        out = {ov: torch.cat(v).cpu().numpy() for ov, v in losses.items()}
+        split = out[True].size
+        if transport == "int8" and not quantize:
+            split = precision_split(torch, reads)
+        require(all(len(reads[ov]) == out[ov].size for ov in out),
+                f"phase 23 {cfg}: {len(reads[True])} cache lookups for "
+                f"{out[True].size} steps")
+        require(np.isfinite(out[True]).all() and
+                out[True][:split].tobytes() == out[False][:split].tobytes(),
+                f"phase 23 {cfg}: overlapped losses {out[True]} differ "
+                f"from the serial {out[False]} before step {split}")
+        tail = np.abs(out[True][split:] - out[False][split:])
+        require(np.all(tail <= OVL_SPLIT_ATOL + OVL_SPLIT_RTOL *
+                       np.abs(out[False][split:])),
+                f"phase 23 {cfg}: overlapped losses {out[True][split:]} "
+                f"past {OVL_SPLIT_RTOL} / {OVL_SPLIT_ATOL} of the serial "
+                f"{out[False][split:]} from step {split}")
+        del reads
+        for ov, rt in rts.items():
+            del rt._eng_lookup
+            st = rt.stats()
+            what = f"phase 23 {cfg} overlap={ov}"
+            require(st["misses"] > 0 and st["hits"] > 0, f"{what}: {st}")
+            require("replay" not in rt.timers.totals,
+                    f"{what}: the replay net fired")
+            require(("evict_patch" in rt.timers.totals) == ov,
+                    f"{what}: timers {sorted(rt.timers.totals)}")
+            require(on_card_cli(torch, rt), f"{what}: state off the card")
+            key = (transport, quantize, ov)
+            ms_step[key] = 1e3 * secs[ov] / (n_meas * K)
+            print(f"phase 23: {transport} transport, {mb} MB of "
+                  f"{lines} lines = {rt.cache_cfg.capacity} lines, "
+                  f"{'overlap' if ov else 'serial '}: "
+                  f"{ms_step[key]:.3f} ms/step ({n_meas * K} "
+                  f"measured steps in turns, host clock, {smi}), hit "
+                  f"ratio {st['hit_ratio']:.4f}, stage rows per window "
+                  f"{rt.timers.tallies['stage_rows'] / n_meas:.0f}; ms per "
+                  f"window {window_ms(rt, n_meas)}")
+        held = f"over all {split} steps"
+        if tail.size:
+            held = (f"over the first {split} of {out[True].size} steps; "
+                    f"step {split} is the first that reads a row at f32 in "
+                    f"one schedule and dequantised in the other, and from "
+                    f"it max abs diff {tail.max():.3g}, max rel diff "
+                    f"{(tail / np.abs(out[False][split:])).max():.3g}")
+        print(f"phase 23: {cfg}: the overlapped losses bitwise the serial "
+              f"{held} (first, last {out[True][0]:.4f}, "
+              f"{out[True][-1]:.4f}); overlap / serial ms/step "
+              f"{ms_step[(transport, quantize, True)] / ms_step[(transport, quantize, False)]:.3f}")
+        if transport == "float32":
+            ref = (out[True], {k: v.cpu() for k, v in
+                               cache_state(rts[True]).items()})
+            err = phase_staged_step(torch, rts[True], ds, gather_spmm,
+                                    gather_spmm_reference,
+                                    np.random.default_rng(24),
+                                    label="phase 23")
+        del rts
+        torch.cuda.empty_cache()
+    return launched, err, ms_step, ref
+
+
+OVL_SMALL_WINDOWS, OVL_SMALL_K = 3, 2
+
+
+def overlap_small(torch, mesh, overlap: bool) -> dict:
+    """A small overlapped or serial run on this rank (tests/
+    test_torch_sharded_overlap.py's: 600 nodes of dim 8, fanout = max
+    in-degree, batch 16, 4 sets of 32 ways a rank, dropout 0): losses,
+    stats, ledger, final cache state and the evicted-id gathers'
+    digests."""
+    from coala_gnn_tpu_torch.cache import feature_cache as fc
+    from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+    from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
+
+    ds = synthetic_graph(num_nodes=600, avg_degree=4, feature_dim=8,
+                         num_classes=4, seed=5)
+    f = int(ds.graph.in_degrees().max())
+    cfg = fc.CacheConfig(num_sets=4, ways=fc.WAYS, dim=8,
+                         cache_dim=fc.round_cache_dim(8), num_colors=0,
+                         num_shards=mesh.world)
+    store = HostFeatureStore(ds.features)
+    rt = overlap_trainer(torch, ds, store, mesh, "float32", overlap,
+                         fanouts=[f, f], batch=16, hidden=8, dropout=0.0,
+                         cfg=cfg)
+    seen = watch_evicted(rt.cache)
+    rng = np.random.default_rng(31)
+    grids = np.stack([np.stack([rng.choice(ds.train_idx, 16, replace=False)
+                                for _ in range(mesh.world)])
+                      for _ in range(OVL_SMALL_WINDOWS * OVL_SMALL_K)])
+    grids = grids.reshape(OVL_SMALL_WINDOWS, OVL_SMALL_K, mesh.world, 16)
+    mesh.ledger.reset()
+    losses, _ = rt.train_windows(
+        np.swapaxes(grids, 1, 2)[:, mesh.rank:mesh.rank + 1], seed=3)
+    return {"losses": losses.cpu().numpy(), "stats": rt.stats(),
+            "ledger": mesh.ledger.snapshot(), "digests": digests(seen),
+            "state": {k: v.cpu().numpy()
+                      for k, v in cache_state(rt).items()},
+            "replay": "replay" in rt.timers.totals,
+            "patched": "evict_patch" in rt.timers.totals}
+
+
+def watch_evicted(cache) -> list:
+    """A copy, on the device, of every evicted-id array ``insert_rows``
+    returns from now on (the gathered array, the same on every rank); no
+    host wait, so a timed run keeps its overlap."""
+    seen, insert = [], cache.insert_rows
+
+    def insert_rows(*args, **kwargs):
+        out = insert(*args, **kwargs)
+        if out is not None:
+            seen.append(out.clone())
+        return out
+
+    cache.insert_rows = insert_rows
+    return seen
+
+
+def digests(seen: list) -> list:
+    import hashlib
+
+    return [hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+            for t in seen]
+
+
+def ovl_rank(mesh, ds, measure: bool) -> dict:
+    """Phase 23(b)'s rank body: with ``measure``, per schedule the flagship
+    widths' trainer on this rank (sharded cache, ``OVL_MB`` a rank, f32
+    transport), a warm-up window then one measured call of ``OVL_WINDOWS``
+    windows: losses, seconds, launches, the bytes by ledger phase, stats,
+    timers and the evicted-id digests. Then the small runs of both
+    schedules."""
+    import torch
+
+    from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+
+    out = {}
+    if measure:
+        store = HostFeatureStore(ds.features)
+        calls = overlap_calls(ds, mesh.rank)
+        for ov in (False, True):
+            rt = overlap_trainer(torch, ds, store, mesh, "float32", ov)
+            seen = watch_evicted(rt.cache)
+            warm, _ = rt.train_windows(calls[0], seed=0)
+            seen.clear()
+            sync(torch, mesh.device)
+            rt.stats()
+            rt.timers.reset()
+            rt.timers.tallies.clear()
+            reset_launches()
+            mesh.ledger.reset()
+            t0 = time.perf_counter()
+            meas, _ = rt.train_windows(calls[1], seed=1)
+            sync(torch, mesh.device)
+            dt = time.perf_counter() - t0
+            out[ov] = {"losses": torch.cat([warm, meas]).cpu().numpy(),
+                       "dt": dt, "ledger": mesh.ledger.snapshot(),
+                       "launches": {k: v for k, v in launches().items()
+                                    if v},
+                       "stats": rt.stats(), "digests": digests(seen),
+                       "timers": window_ms(rt, OVL_WINDOWS),
+                       "stage_rows": rt.timers.tallies["stage_rows"]
+                       / OVL_WINDOWS,
+                       "replay": "replay" in rt.timers.totals,
+                       "patched": "evict_patch" in rt.timers.totals,
+                       "on_card": on_card_cli(torch, rt)}
+            del rt
+            torch.cuda.empty_cache()
+    out["small"] = {ov: overlap_small(torch, mesh, ov)
+                    for ov in (False, True)}
+    return out
+
+
+def phase_overlap_ranks(torch, ds, smi, ref) -> dict:
+    """Phase 23(b): the overlapped schedule over 2 gloo ranks on the card
+    (and the small runs against 2 CPU ranks beside them), then in an NCCL
+    group of one rank against (a)'s one-card f32 run. Returns launches."""
+    from coala_gnn_tpu_torch.cache.host_tier import HostFeatureStore
+    from coala_gnn_tpu_torch.parallel import multihost
+    from coala_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        on_cpu = pool.submit(multihost.launch, ovl_rank, 2, ["cpu", "cpu"],
+                             "gloo", args=(None, False), timeout=600)
+        card = multihost.launch(ovl_rank, 2, ["cuda:0", "cuda:0"], "gloo",
+                                args=(ds, True), timeout=600)
+        cpu = on_cpu.result()
+    print(f"phase 23: 2 gloo ranks on cuda:0 and 2 CPU ranks beside them "
+          f"in {time.perf_counter() - t0:.1f} s (start and set-up included)")
+    total = {}
+    steps = OVL_WINDOWS * K
+    for r, rec in enumerate(card):
+        ser, ovl, what = rec[False], rec[True], f"phase 23 gloo rank {r}"
+        require(np.isfinite(ovl["losses"]).all() and
+                ovl["losses"].tobytes() == ser["losses"].tobytes(),
+                f"{what}: overlapped losses differ from the serial")
+        require(ovl["patched"] and not ser["patched"] and
+                not ovl["replay"] and not ser["replay"] and
+                ovl["on_card"] and ser["on_card"],
+                f"{what}: evict_patch / replay / on card")
+        for ov in (False, True):
+            require(rec[ov]["launches"] == {"gather_spmm[float32]": steps},
+                    f"{what}: launches {rec[ov]['launches']}")
+            add_counts(total, rec[ov]["launches"])
+        require(len(ovl["digests"]) == OVL_WINDOWS - 1 and
+                ovl["digests"] == card[0][True]["digests"],
+                f"{what}: evicted-id gathers {ovl['digests']} differ from "
+                f"rank 0's {card[0][True]['digests']}")
+        require("evicted" in ovl["ledger"]["calls"] and
+                "evicted" not in ser["ledger"]["calls"],
+                f"{what}: ledger {ovl['ledger']['calls']}")
+        for ov in (False, True):
+            sm, host = rec["small"][ov], cpu[r]["small"][ov]
+            np.testing.assert_allclose(sm["losses"], host["losses"],
+                                       rtol=SMALL_RTOL, atol=SMALL_ATOL,
+                                       err_msg=f"{what} small vs CPU")
+            require(sm["stats"] == host["stats"] and
+                    sm["ledger"] == host["ledger"] and
+                    sm["digests"] == host["digests"] and
+                    all(sm["state"][k].tobytes() == host["state"][k]
+                        .tobytes() for k in sm["state"]) and
+                    not sm["replay"] and sm["patched"] == ov,
+                    f"{what} small overlap={ov}: stats, ledger, evicted "
+                    "ids or cache state differ from the CPU ranks'")
+        sm = rec["small"]
+        require(sm[True]["losses"].tobytes() == sm[False]["losses"]
+                .tobytes(), f"{what}: small overlapped losses differ "
+                "from the serial")
+    for ov in (False, True):
+        rec = card[0][ov]
+        led = rec["ledger"]
+        per = {p: round((led["handed"].get(p, 0) - led["kept"].get(p, 0))
+                        / steps) for p in sorted(led["handed"])}
+        print(f"phase 23: gloo 2 ranks on 1 card, sharded, {OVL_MB} MB a "
+              f"rank, f32 transport, {'overlap' if ov else 'serial '}: "
+              f"{1e3 * rec['dt'] / steps:.3f} ms/step (rank 0, {steps} "
+              f"measured steps, host clock, backend gloo, {smi}), hit ratio "
+              f"{rec['stats']['hit_ratio']:.4f}, stage rows per window "
+              f"{rec['stage_rows']:.0f}; ms per window {rec['timers']}; "
+              f"bytes leaving rank 0 per step by phase {per}")
+    print(f"phase 23: 2 gloo ranks: overlapped losses bitwise the serial on "
+          f"both ranks; the evicted-id gathers the same on both ranks "
+          f"({card[0][True]['digests']}); small runs (600 nodes) card = CPU "
+          f"ranks: losses max diff "
+          f"{max(np.abs(c['small'][True]['losses'] - h['small'][True]['losses']).max() for c, h in zip(card, cpu)):.3g}, "
+          f"stats, ledger, evicted ids and cache state equal")
+
+    # an NCCL group of one rank against (a)'s one-card f32 overlapped run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    try:
+        multihost.initialize_distributed("nccl", f"file://{tmp}/store", 1, 0)
+        mesh = make_mesh("cuda:0")
+        rt = overlap_trainer(torch, ds, HostFeatureStore(ds.features), mesh,
+                             "float32", True)
+        calls = overlap_calls(ds)
+        reset_launches()
+        mesh.ledger.reset()
+        losses = [rt.train_windows(c, seed=i)[0]
+                  for i, c in enumerate(calls)]
+        torch.cuda.synchronize()
+        add_counts(total, {k: v for k, v in launches().items() if v})
+        got = torch.cat(losses).cpu().numpy()
+        state = {k: v.cpu() for k, v in cache_state(rt).items()}
+        calls_n = mesh.ledger.snapshot()["calls"]
+        del rt
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(tmp)
+    require(got.tobytes() == ref[0].tobytes() and
+            all(torch.equal(state[k], ref[1][k]) for k in state),
+            "phase 23: NCCL world 1 overlapped run differs from the "
+            "one-card run (losses or cache state)")
+    require(calls_n.get("evicted", 0) == 2 * (OVL_WINDOWS - 1),
+            f"phase 23: NCCL world 1 collectives {calls_n}")
+    print(f"phase 23: overlapped run in an NCCL group of one rank bitwise "
+          f"the one-card run over {got.size} steps (losses, cache state); "
+          f"collectives {calls_n}")
+    return total
+
+
+def phase_roofline(torch, smi, ms_flagship: float, ms_step: dict) -> None:
+    """Phase 23(c): ``bench_ops`` on the card into a temporary file (every
+    peak row, no impossible reading, the kernel rows equal to plain), then
+    the roofline of the flagship row (phase 3) and of (a)'s pressure
+    rows."""
+    import os
+
+    from coala_gnn_tpu_torch import bench_ops
+    from coala_gnn_tpu_torch.utils import roofline
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ops_")
+    try:
+        path = os.path.join(tmp, "BENCH_OPS_h100.json")
+        t0 = time.perf_counter()
+        doc = bench_ops.main(["--json", path])
+        peaks = roofline.op_peaks(path)
+    finally:
+        shutil.rmtree(tmp)
+    rows = {r["name"]: r for r in doc["results"]}
+    require(bool(peaks) and set(roofline.PEAK_ROWS.values()) <= set(rows),
+            f"phase 23: bench_ops peak rows missing: {sorted(rows)}")
+    for kind in ("f32", "bf16", "int8"):
+        r = rows[f"gather_spmm {kind}"]
+        require(r["max_abs_err"] <= KERNEL_TOL,
+                f"phase 23: bench_ops gather_spmm {kind} vs plain")
+    print(f"phase 23: bench_ops on the card in {time.perf_counter() - t0:.1f}"
+          f" s ({smi}); peaks " + json.dumps(
+              {f"{c} {b}": v for (c, b), v in
+               ((k, peaks[k]) for k in roofline.PEAK_ROWS)}))
+    print("phase 23: gather_spmm rows (S, N, F, D = "
+          f"{doc['config']['n_src']}, {doc['config']['n_dst']}, "
+          f"{doc['config']['fanout']}, {doc['config']['dim']}): " + "; ".join(
+              f"{k} {rows[f'gather_spmm {k}']['ms']:.4f} ms (plain "
+              f"{rows[f'gather_spmm {k}']['plain_ms']:.4f}, "
+              f"{rows[f'gather_spmm {k}']['gb_per_s']:.1f} GB/s)"
+              for k in ("f32", "bf16", "int8")))
+    for label, line, ms in [("flagship (phase 3, f32 table)", 4,
+                             ms_flagship)] + [
+            (f"pressure {t} transport over {'int8' if q else 'f32'} lines "
+             f"{'overlap' if ov else 'serial'} (phase 23(a))", 1 if q else 4,
+             v) for (t, q, ov), v in sorted(ms_step.items())]:
+        rep = roofline.report(roofline.step_cost(
+            BATCH, FANOUTS, DIM, HIDDEN, CLASSES, line_bytes=line),
+            roofline.class_peaks(peaks, line, 4), ms)
+        print(f"phase 23: roofline {label}, {line}-byte lines: binding "
+              f"{rep['binding']}, "
+              f"roofline_pct {rep['roofline_pct']}, " + json.dumps(
+                  {k: rep[k] for k in ("components_ms", "t_bound_ms",
+                                       "ms_step_measured")}))
+
+
 def main() -> int:
     import torch
 
@@ -3627,11 +4125,17 @@ def main() -> int:
     from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
     from coala_gnn_tpu_torch.ops.gather_spmm import (gather_spmm,
                                                      gather_spmm_reference)
+    from coala_gnn_tpu_torch.utils.build import CSRC_DIR, build
 
     t0 = time.perf_counter()
+    sources = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build, sources))
+    print(f"phase 1: built {', '.join(sources)} (one nvcc each, together) "
+          f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     kern = phase_kernels(torch)
-    print(f"phase 2: done in {time.perf_counter() - t0:.1f} s (build "
-          "included)")
+    print(f"phase 2: done in {time.perf_counter() - t0:.1f} s")
 
     def worst(name, err):
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
@@ -3645,6 +4149,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     sl = phase_slice(torch, ds, store, smi)
     main_launches = dict(sl["launches"])
+    ms_flagship = sl["ms_step"]
     worst("gather_spmm[float32]", phase_step_inputs(
         torch, sl["rt"], gather_spmm, gather_spmm_reference, ds))
     del sl
@@ -3718,10 +4223,19 @@ def main() -> int:
     mres_launches, err22 = phase_multi_resident(torch, ds, smi)
     worst("gather_spmm[float32]", err22)
     print(f"phase 22: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ovl_launches, err23, ms_step, ref = phase_overlap(
+        torch, ds, native_store, gather_spmm, gather_spmm_reference, smi)
+    main_launches["gather_spmm[float32]"] += ovl_launches
+    worst("gather_spmm[float32]", err23)
+    ovl_rank_launches = phase_overlap_ranks(torch, ds, smi, ref)
+    phase_roofline(torch, smi, ms_flagship, ms_step)
+    print(f"phase 23: done in {time.perf_counter() - t0:.1f} s")
     for counts in (gat_launches, int8_launches, host_launches,
                    bf16_launches, hetero_launches, resident_launches,
                    port_launches, data_launches, ref_launches,
-                   entry_launches, multi_launches, mres_launches):
+                   entry_launches, multi_launches, mres_launches,
+                   ovl_rank_launches):
         for name, n in counts.items():
             main_launches[name] = main_launches.get(name, 0) + n
 

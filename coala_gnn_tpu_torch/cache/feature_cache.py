@@ -264,10 +264,14 @@ def _set_index(cfg: CacheConfig, ids: torch.Tensor) -> torch.Tensor:
 def quantize_rows(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """rows [..., dim] float -> (int8 rows, f32 per-row scales). Symmetric
     absmax: q = round(x / (absmax / 127)), ties to even; dequant = q *
-    scale."""
+    scale. The divisor 127 is a tensor made on the rows' device (no host
+    copy, no wait): PyTorch's CUDA division by a Python number multiplies
+    by its reciprocal, which is an ulp off the host quantizer's scale
+    (``csrc/host_native.cpp``) on some rows, so a stage row and the cache
+    line of the same node differed."""
     r = rows.float()
     absmax = r.abs().amax(dim=-1)
-    scale = torch.where(absmax > 0, absmax / 127.0,
+    scale = torch.where(absmax > 0, absmax / absmax.new_full((), 127.0),
                         torch.ones_like(absmax))
     q = torch.round(r / scale[..., None]).clamp_(-127, 127).to(torch.int8)
     return q, scale

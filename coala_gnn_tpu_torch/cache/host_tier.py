@@ -5,6 +5,7 @@ build or is not asked for."""
 
 from __future__ import annotations
 
+import concurrent.futures
 from typing import Optional
 
 import numpy as np
@@ -23,12 +24,21 @@ class HostFeatureStore:
         self.dim = int(features.shape[1])
         self._lib = None
         self._native_ok = False
+        self._pool = None
         if use_native and features.dtype == np.float32:
             try:
                 self._lib = native_lib.get()
             except (OSError, RuntimeError):
                 return
             self._native_ok = bool(features.flags["C_CONTIGUOUS"])
+
+    def fetch_async(self, ids: np.ndarray) -> concurrent.futures.Future:
+        """``fetch`` of a copy of ``ids`` on one of two worker threads
+        (started at the first call); the future's result is the rows."""
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="host-tier")
+        return self._pool.submit(self.fetch, np.array(ids, copy=True))
 
     def fetch(self, ids: np.ndarray, out: Optional[np.ndarray] = None
               ) -> np.ndarray:

@@ -36,6 +36,21 @@ def batch_layout(caps: Sequence[Tuple[int, int]],
     return tuple((cap_dst, f) for (cap_dst, _), f in zip(caps, fanouts))
 
 
+def packed_size(layout: Layout, batch_size: int) -> int:
+    """Entries of ``pack_batch``'s buffer."""
+    return sum(cd * f for cd, f in layout) + batch_size
+
+
+def request_size(n_req: int, layout: Layout, batch_size: int) -> int:
+    """Entries of ``pack_request``'s buffer."""
+    return 1 + n_req + packed_size(layout, batch_size)
+
+
+def request_size_contig(n_req: int, batch_size: int) -> int:
+    """Entries of ``pack_request_contig``'s buffer."""
+    return 1 + n_req + batch_size
+
+
 def pack_batch(adjs: Sequence[np.ndarray], masks: Sequence[np.ndarray],
                labels: np.ndarray) -> np.ndarray:
     """int32 [sum(cap_dst * fanout) + B]; adjs / masks per layer

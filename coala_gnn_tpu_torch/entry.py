@@ -56,15 +56,6 @@ def _device(device) -> torch.device:
     return device
 
 
-def _blocks(host_blocks, device) -> list:
-    from coala_gnn_tpu_torch.models.layers import DeviceBlock
-
-    return [DeviceBlock(adj=None if b.adj is None
-                        else torch.from_numpy(b.adj).to(device),
-                        mask=torch.from_numpy(b.mask).to(device))
-            for b in host_blocks]
-
-
 def _build_problem(device, num_nodes: int = 2000, dim: int = 128,
                   num_classes: int = 8, batch: int = 32,
                   fanouts=(5, 5), seed: int = 0) -> tuple:
@@ -73,6 +64,7 @@ def _build_problem(device, num_nodes: int = 2000, dim: int = 128,
     ``device``."""
     from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
     from coala_gnn_tpu_torch.models.gnn import make_model
+    from coala_gnn_tpu_torch.models.layers import blocks_to_device
     from coala_gnn_tpu_torch.sampling.neighbor import NeighborSampler
 
     ds = synthetic_graph(num_nodes=num_nodes, avg_degree=10,
@@ -82,7 +74,7 @@ def _build_problem(device, num_nodes: int = 2000, dim: int = 128,
     model = make_model("sage", dim, 128, num_classes, len(fanouts),
                        seed=seed).to(device)
     x = torch.from_numpy(ds.features[batch_s.input_ids]).to(device)
-    return ds, model, batch_s, _blocks(batch_s.blocks, device), x
+    return ds, model, batch_s, blocks_to_device(batch_s.blocks, device), x
 
 
 def entry(device="cuda"):
@@ -139,6 +131,7 @@ def _dryrun(mesh) -> dict:
     from coala_gnn_tpu_torch.distribution import SeedDistributor
     from coala_gnn_tpu_torch.graph.datasets import synthetic_graph
     from coala_gnn_tpu_torch.models.gnn import make_model
+    from coala_gnn_tpu_torch.models.layers import blocks_to_device
     from coala_gnn_tpu_torch.parallel.multihost import make_meta_exchange_fn
     from coala_gnn_tpu_torch.parallel.sharded_cache import \
         ShardedFeatureCache
@@ -185,7 +178,7 @@ def _dryrun(mesh) -> dict:
     for it in range(8):      # node_color: fresh cache meta every step
         b = sampler.sample(distributor.device_slice(domain_at(it, cache), r))
         blocks = [type(d)(adj=d.adj[None], mask=d.mask[None])
-                  for d in _blocks(b.blocks, device)]
+                  for d in blocks_to_device(b.blocks, device)]
         x = cache.fetch(b.input_ids[None], np.asarray([b.num_input]),
                         store.fetch, colors=meta.color)
         y = put(ds.labels[b.seeds].astype(np.int64)[None])

@@ -111,6 +111,15 @@ class TableInput(NamedTuple):
 LayerInput = Union[torch.Tensor, TableInput]
 
 
+def blocks_to_device(blocks, device) -> list:
+    """Host blocks (``sampling/neighbor.py``) -> ``DeviceBlock``s on
+    ``device``; ``adj=None`` (the contiguous layout) passes through."""
+    return [DeviceBlock(adj=None if b.adj is None
+                        else torch.as_tensor(b.adj).to(device),
+                        mask=torch.as_tensor(b.mask).to(device))
+            for b in blocks]
+
+
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator
                   ) -> torch.Tensor:
     """flax's default kernel init (variance_scaling(1, "fan_in",

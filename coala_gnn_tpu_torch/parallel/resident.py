@@ -221,7 +221,9 @@ class ResidentBase:
 
     A subclass sets the attributes that ``_setup`` lists and calls it from
     its ``__post_init__``, and provides ``_eng_lookup``, ``_eng_probe``,
-    ``_offer_stage``, and the per-step ``begin`` / ``resolve`` /
+    ``_offer_stage`` (asked, it returns the ids the offer evicted, on the
+    device, or None where it offered nothing), and the per-step ``begin`` /
+    ``resolve`` /
     ``train_step`` that the replay net runs (the flat tier also
     ``_repair_from_probe``).
 
@@ -666,11 +668,10 @@ class ResidentBase:
                 evicted = None
                 if self.stage_admit:
                     with self.timers.time("insert_dispatch"):
-                        if mids_next is not None:
-                            evicted = self._readback(
-                                self._offer_stage(stage, True), "evicted")
-                        else:
-                            self._offer_stage(stage)
+                        evicted = self._offer_stage(
+                            stage, return_evicted=mids_next is not None)
+                        if evicted is not None:
+                            evicted = self._readback(evicted, "evicted")
                 if w + 1 < M:
                     if mids_next is not None:
                         stage = self._stage_from_mids(mids_next, evicted)

@@ -465,9 +465,12 @@ class ShardedFeatureCache:
         return mine, max(1, -(-ids.size // chunk))
 
     def _insert_chunk(self, ids: np.ndarray, rows: Optional[np.ndarray],
-                      colors: Optional[np.ndarray], chunk: int) -> None:
+                      colors: Optional[np.ndarray], chunk: int,
+                      return_evicted: bool = False
+                      ) -> Optional[torch.Tensor]:
         """One insert of ``chunk`` rows, the tail padded invalid (id -1),
-        as the JAX insert kernel takes them."""
+        as the JAX insert kernel takes them. ``return_evicted``: the id
+        each slot evicted, int32 [chunk] on the device, -1 where none."""
         grid = np.full(chunk, -1, dtype=np.int32)
         rbuf = np.zeros((chunk, self.cfg.dim), dtype=np.float32)
         cbuf = np.zeros(chunk, dtype=np.int32)
@@ -478,10 +481,12 @@ class ShardedFeatureCache:
                 cbuf[:ids.size] = colors
         dgrid = torch.from_numpy(grid).to(self.device)
         ok = dgrid >= 0
-        fc.insert_with_colors(
+        out = fc.insert_with_colors(
             self.cfg, self.state, torch.where(ok, dgrid, torch.zeros_like(
                 dgrid)), torch.from_numpy(rbuf).to(self.device).to(
-                self.cfg.dtype), ok, torch.from_numpy(cbuf).to(self.device))
+                self.cfg.dtype), ok, torch.from_numpy(cbuf).to(self.device),
+            return_evicted=return_evicted)
+        return out[1] if return_evicted else None
 
     def prewarm(self, ids: np.ndarray, host_fetch,
                 colors: Optional[np.ndarray] = None,
@@ -500,21 +505,36 @@ class ShardedFeatureCache:
 
     def insert_rows(self, ids: np.ndarray, rows: np.ndarray,
                     colors: Optional[np.ndarray] = None,
-                    chunk: int = 16384) -> None:
+                    chunk: int = 16384, return_evicted: bool = False
+                    ) -> Optional[torch.Tensor]:
         """``prewarm`` with the rows in hand: ``rows`` [n, dim] and
         ``colors`` int32 [n] aligned with ``ids`` (not per node id); each
         row is inserted at its owner (``owned``), so only the owner's rows
-        are read. (The JAX method's ``return_evicted`` serves only the
-        overlapped staged schedule, ``stage_overlap``: ROADMAP.md queue A,
-        "the staged miss path: fused lookup / overlay, and what stays".)"""
+        are read.
+
+        ``return_evicted`` (the overlapped staged schedule): the ids the
+        inserts evicted, int32 on the device, -1 padded: each chunk's
+        [chunk] slots in order, over more than one rank one ``all_gather``
+        of every rank's chunks (rank-major, [world * n_chunks * chunk]),
+        so every rank holds the same array and patches the same stage (the
+        JAX kernel gathers per chunk, chunk-major: the same ids in another
+        order). Every rank runs as many chunks and the gather even when it
+        evicted nothing. No host sync here: the caller reads it back."""
         ids = np.asarray(ids, dtype=np.int32).reshape(-1)
         rows = np.asarray(rows)
         mine, n_chunks = self._owned(ids, chunk)
+        evicted = []
         for c in range(n_chunks):
             sel = mine[c * chunk:(c + 1) * chunk]
-            self._insert_chunk(ids[sel], rows[sel],
-                               None if colors is None else colors[sel],
-                               chunk)
+            evicted.append(self._insert_chunk(
+                ids[sel], rows[sel], None if colors is None else colors[sel],
+                chunk, return_evicted))
+        if not return_evicted:
+            return None
+        out = torch.cat(evicted)
+        if self.mesh.distributed:
+            out = self.mesh.all_gather(out, "evicted")
+        return out
 
     def prewarm_by_degree(self, graph, host_fetch,
                           colors: Optional[np.ndarray] = None,

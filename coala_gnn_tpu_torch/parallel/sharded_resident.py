@@ -15,9 +15,10 @@ lookup and no collective runs.
 
 It shares ``ResidentTrainer``'s machinery (``parallel/resident.py``,
 ``ResidentBase``: sampling, probe, stage, the fused window, the replay net
-and the serial staged schedule ``window(w) -> offer(stage w) ->
-probe(w+1)`` of ``train_windows``, with its rank hooks) and keeps the JAX
-trainer's differences from it:
+and both staged schedules of ``train_windows``, the serial ``window(w) ->
+offer(stage w) -> probe(w+1)`` and, with ``stage_overlap``, ``probe(w+1)
+-> window(w) -> offer(stage w), reporting what it evicted``, with its rank
+hooks) and keeps the JAX trainer's differences from it:
   - the cache is the caller's ``ShardedFeatureCache``, never a flat table;
     its state is updated in place;
   - ``full_coverage`` is False unless the caller sets it (after a prewarm
@@ -31,7 +32,9 @@ trainer's differences from it:
     ``cache.insert_rows``, which inserts each row at its owner, from the
     f32 rows the stage gathered on the host (under a bf16 or int8
     transport only the rows this rank owns are read a second time, at
-    f32);
+    f32); under ``stage_overlap`` the offer reports the ids it evicted,
+    gathered from every rank (one ``all_gather``), so every rank patches
+    the same rows into the next union stage;
   - the per-step ``resolve`` repairs misses through the cache front's own
     miss path (``sharded_cache.repair_misses``, the fill at the owners);
     whether any rank missed is one MAX ``all_reduce`` before the miss
@@ -57,8 +60,7 @@ one updates ``model``, ``optimizer`` and the cache in place and takes a
 no counterpart: ``train_windows`` reaches it only through
 ``_dispatch_window`` without full coverage, and it stages those windows
 instead. Every rank calls every method in the same order: they are
-collective. ``stage_overlap`` raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+collective.
 """
 
 from __future__ import annotations
@@ -133,7 +135,7 @@ class ShardedResidentTrainer(ResidentBase):
                                          # int8 for int8 lines, else float32
     stage_admit: bool = True             # offer staged rows to the cache
                                          # after each window
-    stage_overlap: bool = False
+    stage_overlap: bool = False          # overlapped staged schedule
 
     _offer_host_rows = True
 
@@ -142,11 +144,6 @@ class ShardedResidentTrainer(ResidentBase):
             raise ValueError("nbr_cap (padded neighbor table) does not "
                              "combine with shard_topology — the table "
                              "layout is single-replica")
-        if self.stage_overlap:
-            raise NotImplementedError(
-                "stage_overlap on ShardedResidentTrainer is not ported: "
-                "ROADMAP.md queue A, \"the staged miss path: fused lookup "
-                "/ overlay, and what stays\"")
         self.mesh = self.cache.mesh
         self.route = self.cache.route
         self.device = self.cache.device
@@ -191,17 +188,23 @@ class ShardedResidentTrainer(ResidentBase):
         return exchange_probe(self.cache_cfg, self.cache.state, ids,
                               valid, self.route)[0]
 
-    def _offer_stage(self, stage) -> None:
+    def _offer_stage(self, stage, return_evicted: bool = False
+                     ) -> Optional[torch.Tensor]:
         """Insert a window's staged rows into the cache
         (``cache.insert_rows``, the reference's miss insert; correctness
-        never depends on it), from the f32 rows the stage gathered."""
+        never depends on it), from the f32 rows the stage gathered. Patch
+        rows (``offer`` False) are not offered. ``return_evicted``: the
+        evicted ids, gathered from every rank; None when nothing is
+        offered (every rank alike: the stage is the union)."""
         mids, rows, offer = stage[6]
         mids = mids[offer]
-        if mids.size:
-            self.cache.insert_rows(
-                mids, rows[offer],
-                None if self.colors is None
-                else np.asarray(self.colors, np.int32)[mids])
+        if not mids.size:
+            return None
+        return self.cache.insert_rows(
+            mids, rows[offer],
+            None if self.colors is None
+            else np.asarray(self.colors, np.int32)[mids],
+            return_evicted=return_evicted)
 
     # ---- per-step path -----------------------------------------------------
     def begin(self, seed_grid, generator: torch.Generator) -> StepHandle:

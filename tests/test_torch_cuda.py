@@ -533,3 +533,64 @@ def test_gloo_two_ranks_on_one_card_match_the_cpu(cuda):
                                        rtol=2e-3, atol=2e-4)
             assert card["stats"] == cpu["stats"]
             assert card["launches"]["gather_spmm[float32]"] > 0
+
+
+@pytest.mark.cuda
+def test_bench_ops_kernel_rows_equal_plain(cuda):
+    """bench_ops' gather-SpMM rows (f32, bf16, int8) on the card: each
+    launches the kernel, equals its plain version at 1e-5, and every peak
+    row that ``roofline.op_peaks`` reads is written with no impossible
+    reading (a small shape: the schema and the kernels, not the peaks)."""
+    from coala_gnn_tpu_torch import bench_ops
+    from coala_gnn_tpu_torch.utils.roofline import PEAK_ROWS
+
+    before = dict(LAUNCHES)
+    doc = bench_ops.run("cuda", iters=2, warmup=1, n_src=4096, n_dst=2048,
+                        fanout=10, dim=256, mm=512)
+    rows = {r["name"]: r for r in doc["results"]}
+    assert set(PEAK_ROWS.values()) <= set(rows)
+    for kind, form in (("f32", "float32"), ("bf16", "bfloat16"),
+                       ("int8", "int8")):
+        row = rows[f"gather_spmm {kind}"]
+        assert row["max_abs_err"] <= bench_ops.KERNEL_TOL
+        assert row["plain_ms"] > 0 and row["ms"] > 0
+        assert LAUNCHES[f"gather_spmm[{form}]"] > before[
+            f"gather_spmm[{form}]"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_bytes", [16, 256, 512, 1024])
+def test_bench_ops_row_gather_equals_indexing(cuda, row_bytes):
+    """bench_ops' rand-peak row copy (``csrc/row_gather.cu``) on the card
+    gives the indexing's rows bitwise, for row widths from one 16-byte
+    word to a 1 KB f32 line, an id count that is no multiple of the
+    block."""
+    from coala_gnn_tpu_torch import bench_ops
+
+    words = torch.randint(-2**62, 2**62, (70001, row_bytes // 8),
+                          generator=cuda, device="cuda", dtype=torch.int64)
+    idx = torch.randint(0, 70001, (33333,), generator=cuda, device="cuda")
+    assert torch.equal(bench_ops.row_gather(words, idx), words[idx])
+    assert bench_ops.row_gather(words, idx[:0]).shape == (0, row_bytes // 8)
+    with pytest.raises(ValueError):
+        bench_ops.row_gather(words.view(torch.int32), idx)
+
+
+@pytest.mark.cuda
+def test_quantize_rows_on_the_card_equals_the_host(cuda):
+    """``quantize_rows`` on the card gives the host quantizer's bytes
+    (``native_lib.quantize_rows``, the stage transport's encode): a stage
+    row and the int8 cache line of the same node are the same row."""
+    import numpy as np
+
+    from coala_gnn_tpu_torch.cache.feature_cache import quantize_rows
+    from coala_gnn_tpu_torch.native import lib as native_lib
+
+    rows = torch.randn(65536, 256, generator=cuda, device="cuda") * \
+        torch.rand(65536, 1, generator=cuda, device="cuda") * 7
+    q, scale = quantize_rows(rows)
+    hq, hscale = native_lib.quantize_rows(native_lib.get(),
+                                          np.ascontiguousarray(
+                                              rows.cpu().numpy()))
+    assert scale.cpu().numpy().tobytes() == hscale.tobytes()
+    assert q.cpu().numpy().tobytes() == hq.tobytes()

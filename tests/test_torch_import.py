@@ -14,7 +14,9 @@ checkpoint (``utils/checkpoint.py``) and resumes from it; the real-dataset
 layouts (IGB, its preprocessed form through ``create_csc_graph``,
 IGB-hetero) train through the CLI, the reference-scale leg
 (``reference_scale``) generates and runs, and ``entry`` runs its forward
-and ``dryrun_multichip(1)``; ``dryrun_multichip(2)`` (the resident
+and ``dryrun_multichip(1)``; ``bench_ops`` writes its rows at a tiny
+CPU size and ``utils.roofline`` reads them into a report;
+``dryrun_multichip(2)`` (the resident
 pipeline over ranks, the sharded topology, node_local) and the CLI's
 data-parallel host loop (``--devices 2``, node_color) train on two
 spawned CPU ranks, whose processes start with the same modules blocked (a
@@ -147,6 +149,18 @@ finally:
 assert [r["rank"] for r in ranks] == [0, 1]
 assert all(np.isfinite(r["losses"]).all() and len(r["losses"]) == 3
            and r["ledger"]["calls"]["grad"] == 3 for r in ranks)
+from coala_gnn_tpu_torch import bench_ops
+from coala_gnn_tpu_torch.utils import roofline
+tmp = tempfile.mkdtemp()
+try:
+    ops = os.path.join(tmp, "ops.json")
+    bench_ops.main(["--device", "cpu", "--iters", "1", "--warmup", "0",
+                    "--json", ops])
+    peaks = roofline.class_peaks(roofline.op_peaks(ops), 4, 4)
+    rep = roofline.report(roofline.step_cost(8, [3, 2], 8, 8, 4), peaks, 1.0)
+    assert rep["roofline_pct"] > 0
+finally:
+    shutil.rmtree(tmp)
 jaxish = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("coala_gnn_tpu", "jax", "jaxlib",
                                        "flax", "optax", "ml_dtypes")

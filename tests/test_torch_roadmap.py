@@ -67,13 +67,13 @@ def test_the_scan_finds_the_citations():
                              "checkpoint and rng")
                    for _, title in cited)
     # the resident pipeline over ranks is ported: nothing quotes the
-    # multi-GPU item any more; only stage_overlap still raises
+    # multi-GPU item any more; nor, since stage_overlap and
+    # insert_rows(return_evicted) are ported, the staged miss path's
     assert not any(title == "multi-GPU" for _, title in cited)
     staged = "the staged miss path: fused lookup / overlay, and what stays"
-    assert (os.path.join("coala_gnn_tpu_torch", "parallel",
-                         "sharded_resident.py"), staged) in cited
-    assert (os.path.join("coala_gnn_tpu_torch", "parallel",
-                         "sharded_cache.py"), staged) in cited
+    for name in ("sharded_resident.py", "sharded_cache.py"):
+        assert (os.path.join("coala_gnn_tpu_torch", "parallel", name),
+                staged) not in cited
     # the real datasets are ported: only ogbn-* is refused, by the loader
     assert not any(title == "the real datasets" for _, title in cited)
     assert (os.path.join("coala_gnn_tpu_torch", "graph", "datasets.py"),

@@ -418,15 +418,30 @@ def test_exchange_is_the_local_lookup(data):
 
 @pytest.mark.parametrize("kw,error,item", [
     ({"shard_topology": True, "nbr_cap": 32}, ValueError, "shard_topology"),
-    ({"stage_overlap": True}, NotImplementedError, "staged miss path"),
+    # stage_overlap raised NotImplementedError until it was ported; the
+    # case keeps its id and now builds and trains staged windows
+    pytest.param({"stage_overlap": True}, None, "staged miss path",
+                 id="kw1-NotImplementedError-staged miss path"),
 ])
 def test_unported_options_raise(data, kw, error, item):
     """What is not ported raises naming its ROADMAP.md item; nbr_cap is
     ported (tests/test_torch_resident_nbr_dedup.py) and keeps JAX's
-    ValueError with shard_topology."""
+    ValueError with shard_topology. ``stage_overlap`` is ported: the
+    trainer builds and trains two staged windows under pressure in the
+    overlapped order (the second's stage patched after the first's
+    evict-reporting offer; JAX parity: tests/test_torch_sharded_overlap.py)."""
     ds, _, fanouts = data
-    with pytest.raises(error, match=item):
-        _port(ds, fanouts, "sage", FULL, **kw)
+    if error is not None:
+        with pytest.raises(error, match=item):
+            _port(ds, fanouts, "sage", FULL, **kw)
+        return
+    tt = _port(ds, fanouts, "sage", EVICTS, **kw)
+    grids = np.swapaxes(_grids(ds, 4, 9).reshape(2, 2, 1, B), 1, 2)
+    losses, _ = tt.train_windows(grids, 1)
+    assert tt.stage_overlap and torch.isfinite(losses).all()
+    assert losses.shape == (4,) and tt.stats()["misses"] > 0
+    assert "evict_patch" in tt.timers.totals
+    assert "replay" not in tt.timers.totals
 
 
 def test_shard_topology_is_a_no_op_on_one_rank(data):

@@ -266,7 +266,9 @@ def _resident_trainer(mesh, case: dict, ds):
         optimizer=torch.optim.Adam(model.parameters(), lr=case["lr"]),
         fanouts=case["fanouts"], batch_size=case["batch"],
         colors=resident_colors() if case["colors"] else None,
-        shard_topology=case["shard_topology"], nbr_cap=case["nbr_cap"])
+        shard_topology=case["shard_topology"], nbr_cap=case["nbr_cap"],
+        stage_transport=case.get("transport", "auto"),
+        stage_overlap=case.get("stage_overlap", False))
 
 
 def resident_cases(mesh, cases: list) -> list:
@@ -331,6 +333,83 @@ def resident_cases(mesh, cases: list) -> list:
                     "overflow": int(ovf.sum()),
                     "shard_edges": int(tt.g.indices.shape[0]),
                     "ledger": mesh.ledger.snapshot()})
+    return out
+
+
+def overlap_insert_ids():
+    """(prewarm ids: every node, row-insert ids with repeats) of the
+    resident graph, the same on every rank: the prewarm fills every
+    rank's cache, so the insert evicts."""
+    rng = np.random.default_rng(5)
+    return (rng.permutation(600).astype(np.int32),
+            rng.choice(600, 300).astype(np.int32))
+
+
+def overlap_cases(mesh, cases: list) -> list:
+    """Each case's windows (``train_windows`` on this rank's slice of its
+    seed grids, staged under pressure) with the serial schedule and with
+    ``stage_overlap``, each trainer from the case's weights and a cold
+    cache: per schedule the losses, window edges, cache state, stats,
+    replay, whether ``evict_patch`` was timed, the patch rows that
+    ``merge_evicted_patch`` added, the bytes by ledger phase and, per
+    step, which frontier slots the window read from the cache (the rest
+    it read from the stage: bool [steps, cap0]). Then the
+    evict-reporting ``insert_rows`` of ``overlap_insert_ids`` on a fresh
+    cache of the case after their prewarm (chunks of 64): its evicted ids
+    and the state."""
+    from coala_gnn_tpu_torch.parallel import resident
+
+    r = mesh.rank
+    merge = resident.merge_evicted_patch
+    out = []
+    for case in cases:
+        ds = resident_graph(False)
+        rec = {}
+        for overlap in (False, True):
+            tt = _resident_trainer(mesh, dict(case, stage_overlap=overlap),
+                                   ds)
+            patched, reads = [], []
+            lookup = tt._eng_lookup
+
+            def recording(ids, valid, count_stats=True):
+                feats, hit = lookup(ids, valid, count_stats)
+                reads.append((hit & valid).numpy().copy())
+                return feats, hit
+
+            tt._eng_lookup = recording
+
+            def counting(*a, **kw):
+                got = merge(*a, **kw)
+                patched.append(int((~got[2]).sum()))
+                return got
+
+            resident.merge_evicted_patch = counting
+            mesh.ledger.reset()
+            try:
+                wl, we = tt.train_windows(case["windows"][:, r:r + 1], 0)
+            finally:
+                resident.merge_evicted_patch = merge
+            rec[overlap] = {
+                "losses": wl.numpy(), "edges": we.numpy(),
+                "state": state_of(tt.cache), "stats": tt.stats(),
+                "replay": "replay" in tt.timers.totals,
+                "evict_patch": "evict_patch" in tt.timers.totals,
+                "patched": patched, "ledger": mesh.ledger.snapshot(),
+                "cache_reads": np.stack(reads)}
+        cache = ShardedFeatureCache(fc.CacheConfig(**case["cfg"]), mesh,
+                                    mode=case["mode"],
+                                    bucket_slack=case["slack"],
+                                    group_size=case["group_size"])
+        warm, ids = overlap_insert_ids()
+        store = HostFeatureStore(ds.features)
+        cols = resident_colors() if case["colors"] else None
+        cache.prewarm(warm, store.fetch, colors=cols)
+        ev = cache.insert_rows(ids, store.fetch(ids),
+                               None if cols is None else cols[ids],
+                               chunk=64, return_evicted=True)
+        rec["evicted"] = ev.numpy()
+        rec["evict_state"] = state_of(cache)
+        out.append(rec)
     return out
 
 
