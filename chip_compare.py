@@ -15,7 +15,12 @@ the same inputs:
     library has ``gather_spmm_adj_transpose`` runs its gather over the
     transpose (built once beforehand, as the GAT layer keeps it); an older
     one zeroes the table and adds into it (its wrapper's fill included);
-  - grad_w (f32 table) at GAT's two combine shapes;
+  - grad_w at GAT's two combine shapes (f32 table; layer 0 on a bf16 one
+    too), at RGAT's stacked layer 0 on the host CLI's layout (3 relations,
+    dead slots at their own dst row) and on the resident CLI's contiguous
+    layout, and at IGB-hetero's stacked layer 0 (8 relations, the host
+    layout), the stacked shapes on f32 and bf16 tables, each with its
+    bound (bytes over 3.35 TB/s, ``chip_smoke.grad_w_work``) and share;
   - adj's transpose at the host-packed step's layer-1 shape, at GAT's
     two combine shapes, at RGAT's stacked layers 0 and 1 (the host CLI's
     step) and at GAT layer 0 on the host sampler's layout with its padded
@@ -70,7 +75,7 @@ def load(path: str, proc) -> ctypes.CDLL:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     sizes = [i64, i32, i32, i32, ptr]
     for name in ("gather_spmm_f32", "gather_spmm_bf16",
-                 "gather_spmm_grad_w_f32"):
+                 "gather_spmm_grad_w_f32", "gather_spmm_grad_w_bf16"):
         getattr(lib, name).argtypes = [ptr] * 4 + sizes
     lib.gather_spmm_i8.argtypes = [ptr] * 5 + sizes
     lib.transposed = hasattr(lib, "gather_spmm_adj_transpose")
@@ -128,12 +133,13 @@ def grad_x(torch, lib, adj, adj_t, w, g, s):
 
 
 def grad_w(torch, lib, x, adj, g):
-    """grad_w [N, F] of an f32 table through ``lib``."""
+    """grad_w [N, F] of an f32 or bf16 table through ``lib``."""
     (s, d), (n, f) = x.shape, adj.shape
     gw = torch.empty(n, f, device="cuda")
-    if lib.gather_spmm_grad_w_f32(x.data_ptr(), adj.data_ptr(), g.data_ptr(),
-                                  gw.data_ptr(), s, n, f, d,
-                                  torch.cuda.current_stream().cuda_stream):
+    entry = {torch.float32: lib.gather_spmm_grad_w_f32,
+             torch.bfloat16: lib.gather_spmm_grad_w_bf16}[x.dtype]
+    if entry(x.data_ptr(), adj.data_ptr(), g.data_ptr(), gw.data_ptr(), s, n,
+             f, d, torch.cuda.current_stream().cuda_stream):
         raise RuntimeError("grad_w launch failed")
     return gw
 
@@ -225,25 +231,49 @@ def main() -> int:
                           *(lambda lib=libs[k]: grad_x(torch, lib, adj, adj_t,
                                                        w, g, S)
                             for k in libs))
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
     for layer, (S, N, F, D, cap_src, cap_dst) in enumerate(gat):
         adj = head_stacked_adj(None, cap_src, (cap_dst, F), cs.HEADS, "cuda")
-        x = torch.randn(S, D, generator=gen, device="cuda")
+        for dt in (f32, bf16) if layer == 0 else (f32,):
+            cases.append((f"GAT layer {layer}", adj, S, D, dt))
+    _, _, F, D, cap_src, cap_dst = gat[0]
+    contiguous = head_stacked_adj(None, cap_src, (cap_dst, F), cs.HEADS,
+                                  "cuda", 3)
+    for label, adj, S in (
+            ("RGAT stacked layer 0, host layout",
+             *cs.rgat_stacked_adj(torch, gen, 0)),
+            ("RGAT stacked layer 0, contiguous layout", contiguous,
+             3 * cap_src * cs.HEADS),
+            ("IGB-hetero RGAT stacked layer 0 (8 relations), host layout",
+             *cs.rgat_stacked_adj(torch, gen, 0, rels=8))):
+        cases += [(label, adj, S, D, dt) for dt in (f32, bf16)]
+    for label, adj, S, D, dt in cases:
+        N, F = adj.shape
+        x = torch.randn(S, D, generator=gen, device="cuda").to(dt)
         g = torch.randn(N, D, generator=gen, device="cuda")
-        name = f"grad_w GAT layer {layer} ({S}, {N}, {F}, {D})"
+        name = (f"grad_w[{str(dt).split('.')[-1]}] {label} ({S}, {N}, {F}, "
+                f"{D})")
         outs = [grad_w(torch, libs[k], x, adj, g) for k in libs]
         bound = grad_w_error_bound(x, adj, g)
+        want = gather_spmm_grad_w_reference(x, adj, g)
         for k, out in zip(libs, outs):
-            err = (out - gather_spmm_grad_w_reference(x, adj, g)).abs()
-            cs.require(bool((err <= bound).all()),
+            cs.require(bool(((out - want).abs() <= bound).all()),
                        f"{name}: {k} outside the f32 bound of the plain "
                        "version")
         res[name] = turns(torch, cs.median_ms,
                           *(lambda lib=libs[k]: grad_w(torch, lib, x, adj, g)
                             for k in libs))
+        res[name].update(cs.bound(*cs.grad_w_work(torch, x, adj, g)))
+        res[name]["share"] = res[name]["bound_ms"] / res[name]["this"]
         res[name]["bitwise_equal"] = bool(torch.equal(
             *(bits(torch, o) for o in outs)))
         print(f"{name}: outputs bitwise equal between the checkouts: "
-              f"{res[name]['bitwise_equal']}")
+              f"{res[name]['bitwise_equal']}; other / this "
+              f"{res[name]['other'] / res[name]['this']:.3f}x; bound "
+              f"{res[name]['bound_ms']:.4f} ms, share of this "
+              f"{res[name]['share']:.3f}")
+        del x, g, outs, bound, want
     packed, s_packed = cs.host_packed_adj(torch, gen)
     counted = []
     shapes = [("adj_transpose host-packed layer 1", packed, s_packed),

@@ -529,17 +529,17 @@ def transpose_form(adj, s) -> str:
     return "one-block" if words == 0 else "grid"
 
 
-def rgat_stacked_adj(torch, gen, layer: int, device="cuda"):
+def rgat_stacked_adj(torch, gen, layer: int, device="cuda", rels=3):
     """(adj, S) of RGAT's stacked combine on the host CLI's step at the
-    flagship config, layer 0 or 1: a typed block (3 relations, 4 heads),
-    ~20% of slots masked and pointed at their own dst row, as the host
-    sampler pads them, each relation's dead slots at their own dst row
+    flagship config, layer 0 or 1: a typed block (``rels`` relations, 3 as
+    the CLI draws them, 8 as IGB-hetero's with reverses; 4 heads), ~20% of
+    slots masked and pointed at their own dst row, as the host sampler pads
+    them, each relation's dead slots at their own dst row
     (``live_or_own``), stacked by ``head_stacked_adj``."""
     from coala_gnn_tpu_torch.models.layers import head_stacked_adj
     from coala_gnn_tpu_torch.ops.aggregate import live_or_own
     from coala_gnn_tpu_torch.sampling.neighbor import block_capacities
 
-    rels = 3
     cap_dst, n_src = block_capacities(BATCH, FANOUTS)[layer]
     f = FANOUTS[layer]
     adj = torch.randint(0, n_src, (cap_dst, f), generator=gen,
@@ -4090,7 +4090,9 @@ def phase_roofline(torch, smi, ms_flagship: float, ms_step: dict) -> None:
               f"{k} {rows[f'gather_spmm {k}']['ms']:.4f} ms (plain "
               f"{rows[f'gather_spmm {k}']['plain_ms']:.4f}, "
               f"{rows[f'gather_spmm {k}']['gb_per_s']:.1f} GB/s)"
-              for k in ("f32", "bf16", "int8")))
+              for k in ("f32", "bf16", "int8"))
+          + f"; embedding_bag (f32) "
+            f"{rows['gather_spmm f32']['library_ms']:.4f} ms")
     for label, line, ms in [("flagship (phase 3, f32 table)", 4,
                              ms_flagship)] + [
             (f"pressure {t} transport over {'int8' if q else 'f32'} lines "

@@ -20,7 +20,9 @@ Rows (S source rows, N dst rows, F fanout, D width; ``--n_src`` ...):
     and combine in torch ops;
   - ``gather_spmm`` f32, bf16 and int8: the gather-SpMM kernel
     (``ops/gather_spmm.py``) at the same shape, beside its plain version
-    (``plain_ms``), held to it at 1e-5 (``max_abs_err``);
+    (``plain_ms``), held to it at 1e-5 (``max_abs_err``); the f32 row
+    also times ``embedding_bag`` (``library_ms``), the one PyTorch call
+    that computes the f32 forward's function (the port never calls it);
   - ``plain row gather`` f32, bf16 and int8: N * F distinct random rows
     of a table of at least 4x the card's L2, each row moved whole by
     ``row_gather`` (``csrc/row_gather.cu``: 16-byte words, several loads
@@ -298,12 +300,16 @@ def run(device="cuda", iters: int = 20, warmup: int = 3,
                                    "from its plain version")
             plain_ms = bench.time_ms(
                 lambda x=x, sc=sc: gather_spmm_reference(x, adj, w, sc))
+            library = {} if kind != "f32" else {
+                "library_ms": bench.time_ms(
+                    lambda x=x: torch.nn.functional.embedding_bag(
+                        adj, x, per_sample_weights=w, mode="sum"))}
             bench.record(
                 f"gather_spmm {kind}", lambda x=x, sc=sc: gather_spmm(
                     x, adj, w, sc),
                 rows * (D * x.element_size() + (4 if sc is not None else 0))
                 + idx_bytes + N * D * 4, plain_ms=plain_ms,
-                max_abs_err=float((out - ref).abs().max()))
+                max_abs_err=float((out - ref).abs().max()), **library)
 
         # the rand peak: N * F distinct rows of a table past 4x L2
         peak_rows = {}

@@ -59,20 +59,71 @@
 // a row wider than 256 x VB loops. Groups never talk to each other, so a
 // group may span warps.
 //
-// grad_w[n, k] = <g[n, :], x[adj[n, k], :]>. Bound by bytes: it reads the
-// forward's rows again plus g (N x D x 4). A row at least a warp's vectors
-// wide (f32 D >= 128 at 16-byte vectors; GAT layer 0) takes one warp per
-// dst row; each slot's partial dot products are reduced by warp shuffles
-// and written by lane 0. A narrower row would leave most of that warp's
-// lanes empty (GAT layer 1, f32 D = 16: 4 live lanes of 32, its F slots one
+// grad_w[n, k] = <g[n, :], x[adj[n, k], :]>. Bound by bytes: it reads
+// each distinct row of a dst row's slots once, g (N x D x 4) and adj, and
+// writes N x F. It is computed for EVERY slot, w == 0 included: the
+// forward may skip such a slot because it contributes nothing, but the
+// derivative with respect to its weight is not zero.
+//
+// The wide form: a row at least a warp's vectors wide (f32 D >= 128, bf16
+// D >= 256 at 16-byte vectors; layer 0 of GAT and RGAT) takes one warp per
+// dst row. Where its time goes is the same latency as the forward's, plus
+// repeats: the stacked relations' host layout points every dead slot at
+// its own dst row (ops/aggregate.py live_or_own), so most of a dst row's
+// slots name one row (8 relations, a fifth of slots masked: ~90% of them,
+// the other relations' and the masked ones). A slot at a time (load the
+// index, then the row and g, reduce, store) would read 2 KB per slot and
+// keep one row read in flight per warp. So, per dst row:
+//   1. g once: each lane loads its share of g[n] into registers (8
+//      floats: a pass of kPassCols = 256 columns), before the indices'
+//      load returns. Wider rows take passes of 256 columns, each loading
+//      its slice of g once per group of distinct rows below.
+//   2. indices once, repeats once: lane k loads slot k's index (32 slots
+//      a chunk, one coalesced load), __match_any_sync names each slot's
+//      first occurrence in the chunk, and a ballot gives the distinct
+//      rows in slot order. Only they are read and reduced; a repeat takes
+//      its first occurrence's dot, the same row against the same g in the
+//      same order, so the same bits. Out-of-range slots read nothing and
+//      come out NaN. Chunks do not share: F > 32 reads a row again in a
+//      later chunk (bitwise the same dot).
+//   3. reads in flight: the distinct rows go in batches, every lane's
+//      vectors of a batch loaded before its FMAs, kDotVecs = 2 vectors in
+//      flight per lane (f32 at D = 256: a row's 2 vectors, one row a
+//      batch; bf16: 2 rows). What keeps the card's memory busy here is
+//      resident warps more than rows per warp: at 16-byte vectors a lane
+//      takes 46-48 registers (ptxas, no spill), so 5 blocks, 40 warps,
+//      fit an SM. 4 vectors a lane (kDotVecs = 4: 54-59 registers, 32
+//      warps) were 0.1-3.6% slower at the layer-0 shapes of GAT and RGAT
+//      (chip_compare.py against a checkout so set).
+//   4. one reduction for up to kDots = 4 dots: each lane keeps a partial
+//      per distinct row in registers (the fmaf chain over its vectors in
+//      column order, as before), and reduce_dots sums P of them together
+//      (P the power of two at or above their count): a transposed
+//      butterfly that halves the values a lane holds at each of the first
+//      log2 P xor levels, so lane j * 32 / P ends with dot j; P - 1 + 5 -
+//      log2 P shuffles for P dots (6 for 4), not 5 P. Every dot is summed
+//      over the lanes in the tree of xor levels 16, 8, 4, 2, 1, so its
+//      bits depend neither on its group nor on the repeats: they are those
+//      of a warp that reduces each slot alone over the same lane partials.
+//      Lane i then holds the i-th distinct row's dot, and each slot's lane
+//      takes its first occurrence's with one shuffle: the chunk leaves as
+//      one coalesced store, not one store per slot from lane 0. Eight dots
+//      a group (kDots = 8 with a reduce_dots<8> branch, 48 registers) were
+//      no faster (0.998-1.004x the time).
+//   5. not used: a TMA ring, cp.async stages or shared memory. The rows
+//      are random 1 KB reads that registers hold as well as a staged ring
+//      would (the forward's argument), g is read once into registers, and
+//      nothing is shared between warps: a warp's distinct rows come from
+//      its own 32 indices.
+// The narrow form: a narrower row would leave most of that warp's lanes
+// empty (GAT layer 1, f32 D = 16: 4 live lanes of 32, its F slots one
 // after another), so there each (dst row, slot) pair gets a lane group of
 // lanes_for(row bytes) lanes, 32 / lanes dots per warp at once, reduced
-// over the group's lanes only. The sums are bitwise the warp form's: a
-// lane's partial is the same fmaf chain in both, the group's xor levels
-// are the warp tree's lowest ones, and the warp tree's upper levels add
-// +0 from lanes that hold no data. It is computed for EVERY slot, w == 0
-// included: the forward may skip such a slot because it contributes
-// nothing, but the derivative with respect to its weight is not zero.
+// over the group's lanes only (repeats read again: its reads are a few
+// dozen bytes). Its sums are bitwise the 32-lane xor tree's: a lane's
+// partial is the same fmaf chain, the group's xor levels are the tree's
+// lowest ones, and the tree's upper levels add +0 from lanes that hold no
+// data.
 //
 // grad_x[s, :] = sum over the slots (n, k) with adj[n, k] = s, in slot
 // order n * F + k, of w[n, k] * g[n, :]. Bound by bytes: it writes S x D x 4
@@ -158,6 +209,12 @@ constexpr int kThreads = 256;     // forward, narrow grad_w and grad_x
                                   // blocks
 constexpr int kBatch = 4;         // slots whose reads are in flight together
 constexpr int kRowsPerBlock = 8;  // grad_w, wide rows: one warp per dst row
+constexpr int kPassCols = 256;    // grad_w, wide rows: g's columns a warp
+                                  // holds in registers (8 a lane)
+constexpr int kDots = 4;          // grad_w, wide rows: distinct rows whose
+                                  // dots are reduced together
+constexpr int kDotVecs = 2;       // grad_w, wide rows: row vectors in
+                                  // flight per lane
 constexpr int kRowsPerGroup = 8;  // grad_x: table rows per lane group
 constexpr int kScanThreads = 1024;  // transpose blocks
 constexpr int kSlotBatch = 8;     // transpose: slots per thread in
@@ -320,36 +377,139 @@ gather_spmm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// P dots' lane partials v[0..P-1] (P a power of two, at most 32) summed
+// over the warp together. At each of the first log2 P xor levels (offsets
+// 16, 8, ...) a lane keeps half of its values and sends the other half to
+// its partner, which adds them to its own; after them lane l holds value
+// l / (32 / P) alone, and the remaining levels are the plain xor tree.
+// Every value is summed over the lanes in the tree of __shfl_xor_sync
+// levels 16, 8, 4, 2, 1, so each sum is bitwise that tree's.
+template <int P>
+__device__ __forceinline__ float reduce_dots(float* v, int lane) {
+#pragma unroll
+  for (int h = P / 2, off = kWarp / 2; h >= 1; h /= 2, off /= 2) {
+    const bool up = lane & off;
+#pragma unroll
+    for (int j = 0; j < h; ++j) {
+      const float send = up ? v[j] : v[j + h];
+      const float keep = up ? v[j + h] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFullMask, send, off);
+    }
+  }
+  float sum = v[0];
+#pragma unroll
+  for (int off = kWarp / (2 * P); off > 0; off /= 2)
+    sum += __shfl_xor_sync(kFullMask, sum, off);
+  return sum;
+}
+
+// g's columns [c0, c0 + kPassCols) of one dst row into a lane's registers:
+// vector ch at column c0 + ch * 32 E + lane E, where it lies below d.
+template <int E, int NC>
+__device__ __forceinline__ void load_g_pass(const float* g_row, int c0, int d,
+                                            int lane, float (&gv)[NC][E]) {
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch) {
+    const int c = c0 + ch * kWarp * E + lane * E;
+    if (c < d) load_f32<E>(g_row + c, gv[ch]);
+  }
+}
+
+// grad_w for rows at least a warp's vectors wide: one warp per dst row
+// (see the note at the top).
 template <typename T, int VB>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 grad_w_kernel(const T* __restrict__ x, const int32_t* __restrict__ adj,
               const float* __restrict__ g, float* __restrict__ gw,
               int64_t s, int n, int f, int d) {
+  using R = typename Raw<VB>::type;
   constexpr int E = VB / sizeof(T);
+  constexpr int NC = kPassCols / (kWarp * E);   // vectors a lane holds
+  constexpr int KB = NC < kDotVecs ? kDotVecs / NC : 1;   // rows a batch
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (row >= n) return;                     // whole warp: row is per warp
   const int32_t* adj_row = adj + (int64_t)row * f;
   const float* g_row = g + (int64_t)row * d;
+  const bool one_pass = d <= kPassCols;
 
-  for (int k = 0; k < f; ++k) {
-    const int64_t idx = adj_row[k];
-    const bool bad = out_of_range(idx, s);
-    float part = 0.f;
-    if (!bad) {
-      for (int c = lane * E; c < d; c += kWarp * E) {
-        float v[E], gv[E];
-        widen_raw<T, VB>(load_raw<VB>(x + idx * d + c), v);
-        load_f32<E>(g_row + c, gv);
+  float gv[NC][E];
+  if (one_pass) load_g_pass<E, NC>(g_row, 0, d, lane, gv);   // g once
+
+  for (int k0 = 0; k0 < f; k0 += kWarp) {   // kWarp slots at a time
+    const bool in = k0 + lane < f;
+    const int32_t idx = in ? __ldg(adj_row + k0 + lane) : -1;
+    const bool bad = in && out_of_range(idx, s);
+    // a slot's first occurrence in the chunk; the distinct rows to read
+    const int first = __ffs(__match_any_sync(kFullMask, idx)) - 1;
+    const unsigned todo =
+        __ballot_sync(kFullMask, in && !bad && first == lane);
+    const int nd = __popc(todo);
+    float dot = 0.f;          // lane i: the dot of the i-th distinct row
+    unsigned rest = todo;
+    for (int i0 = 0; i0 < nd; i0 += kDots) {
+      float part[kDots];
 #pragma unroll
-        for (int e = 0; e < E; ++e) part = fmaf(gv[e], v[e], part);
+      for (int i = 0; i < kDots; ++i) part[i] = 0.f;
+      for (int c0 = 0; c0 < d; c0 += kPassCols) {
+        if (!one_pass) load_g_pass<E, NC>(g_row, c0, d, lane, gv);
+        unsigned left = rest;
+#pragma unroll
+        for (int b = 0; b < kDots; b += KB) {
+          if (i0 + b >= nd) break;
+          R raw[KB][NC];
+#pragma unroll
+          for (int j = 0; j < KB; ++j) {      // the batch's reads in flight
+            const int64_t r =
+                __shfl_sync(kFullMask, idx, (__ffs(left) - 1) & (kWarp - 1));
+            left &= left - 1;
+            if (i0 + b + j < nd) {
+#pragma unroll
+              for (int ch = 0; ch < NC; ++ch) {
+                const int c = c0 + ch * kWarp * E + lane * E;
+                if (c < d) raw[j][ch] = load_raw<VB>(x + r * d + c);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < KB; ++j) {      // then the FMAs
+            if (i0 + b + j >= nd) break;
+#pragma unroll
+            for (int ch = 0; ch < NC; ++ch) {
+              const int c = c0 + ch * kWarp * E + lane * E;
+              if (c >= d) continue;
+              float v[E];
+              widen_raw<T, VB>(raw[j][ch], v);
+#pragma unroll
+              for (int e = 0; e < E; ++e)
+                part[b + j] = fmaf(gv[ch][e], v[e], part[b + j]);
+            }
+          }
+        }
       }
-    }
 #pragma unroll
-    for (int off = kWarp / 2; off > 0; off /= 2)
-      part += __shfl_xor_sync(kFullMask, part, off);
-    if (lane == 0)
-      gw[(int64_t)row * f + k] = bad ? __int_as_float(0x7fc00000) : part;
+      for (int i = 0; i < kDots; ++i) rest &= rest - 1;
+      // the group's m dots reduced together, dot j landing on lane j * 32/P
+      const int m = nd - i0 < kDots ? nd - i0 : kDots;
+      float sum;
+      int shift;
+      if (m == 1) {
+        sum = reduce_dots<1>(part, lane), shift = 5;
+      } else if (m == 2) {
+        sum = reduce_dots<2>(part, lane), shift = 4;
+      } else {
+        sum = reduce_dots<4>(part, lane), shift = 3;
+      }
+      const int src = (static_cast<unsigned>(lane - i0) << shift) % kWarp;
+      const float got = __shfl_sync(kFullMask, sum, src);
+      if (lane >= i0 && lane < i0 + kDots) dot = got;
+    }
+    // each slot takes its first occurrence's dot: one coalesced store
+    const float out = __shfl_sync(
+        kFullMask, dot, __popc(todo & ((1u << first) - 1)));
+    if (in)
+      gw[(int64_t)row * f + k0 + lane] =
+          bad ? __int_as_float(0x7fc00000) : out;
   }
 }
 

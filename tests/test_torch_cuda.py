@@ -181,6 +181,74 @@ def _adj_w(gen, S, N, F):
     return adj, w
 
 
+def _stacked_host_adj(gen, rels, cap_dst=256, f=10, heads=4):
+    """(adj, S) of RGAT's stacked combine on the host layout: a typed
+    block, ~20% of slots masked, each relation's dead slots at their own
+    dst row (``live_or_own``), stacked by ``head_stacked_adj``."""
+    from coala_gnn_tpu_torch.models.layers import head_stacked_adj
+    from coala_gnn_tpu_torch.ops.aggregate import live_or_own
+
+    n_src = cap_dst * (1 + f)
+    adj = torch.randint(0, n_src, (cap_dst, f), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    own = torch.arange(cap_dst, device="cuda",
+                       dtype=torch.int32)[:, None].expand(cap_dst, f)
+    mask = torch.rand(cap_dst, f, generator=gen, device="cuda") >= 0.2
+    rel = torch.randint(0, rels, (cap_dst, f), generator=gen, device="cuda")
+    live = mask[None] & (rel[None] == torch.arange(rels, device="cuda")[
+        :, None, None])
+    stacked = head_stacked_adj(live_or_own(torch.where(mask, adj, own)[None],
+                                           live), n_src, (cap_dst, f), heads,
+                               "cuda", rels)
+    return stacked, rels * n_src * heads
+
+
+def _first_in_chunk(adj):
+    """[N, F] index of each slot's first occurrence among the slots of its
+    chunk of 32 (the wide grad_w's unit of reuse)."""
+    first = torch.empty_like(adj, dtype=torch.long)
+    for k0 in range(0, adj.shape[1], 32):
+        a = adj[:, k0:k0 + 32]
+        first[:, k0:k0 + 32] = k0 + (a[:, :, None] == a[:, None, :]).float(
+            ).argmax(dim=2)
+    return first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 257, 1024])
+def test_grad_w_on_stacked_host_layout(cuda, dtype, d):
+    """The wide grad_w on RGAT's stacked host layout (3 relations: most of
+    a dst row's slots name its own row) and on random slots across a chunk
+    boundary (F = 33, repeats): within the bound of the plain version, two
+    launches bitwise equal, every repeated slot bitwise its first
+    occurrence, out-of-range slots NaN. d = 257 takes 4-byte (f32) and
+    2-byte (bf16) vectors and two passes of g; 1024 four passes."""
+    stacked, s = _stacked_host_adj(cuda, 3)
+    rand = torch.randint(0, 200, (300, 33), generator=cuda, device="cuda",
+                         dtype=torch.int32)
+    for adj, S in ((stacked, s), (rand, 200)):
+        adj = adj.clone()
+        adj[5, 3], adj[-1, -1] = -1, S
+        bad = (adj < 0) | (adj >= S)
+        x = torch.randn(S, d, generator=cuda, device="cuda").to(dtype)
+        g = torch.randn(adj.shape[0], d, generator=cuda, device="cuda")
+        before = LAUNCHES[GRAD_W[dtype]]
+        gw = gather_spmm_grad_w(x, adj, g)
+        again = gather_spmm_grad_w(x, adj, g)
+        torch.cuda.synchronize()
+        assert LAUNCHES[GRAD_W[dtype]] == before + 2
+        assert torch.equal(gw.view(torch.int32), again.view(torch.int32))
+        assert gw[bad].isnan().all() and not gw[~bad].isnan().any()
+        ok = torch.where(bad, torch.zeros_like(adj), adj)
+        err = (gw - gather_spmm_grad_w_reference(x, ok, g)).abs()
+        assert (err <= grad_w_error_bound(x, ok, g))[~bad].all(), d
+        first = _first_in_chunk(adj)
+        assert (first != torch.arange(adj.shape[1], device="cuda")).any()
+        assert torch.equal(gw.view(torch.int32),
+                           gw.gather(1, first).view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_gat_training_on_card(cuda):
     """A small GAT run on the card: 6 kernel launches per step (forward,

@@ -536,9 +536,11 @@ def test_transpose_long_row_bitmap_rank(rng, d, window):
 @pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
 def test_grad_w_lane_group_sum_is_the_warp_tree(rng, lanes):
     """grad_w's narrow form sums a dot's lane partials over a group of
-    ``lanes`` lanes (xor levels lanes / 2 .. 1); the warp form over 32
-    lanes (levels 16 .. 1), the lanes past the row holding 0. In f32 the
-    two are equal bit for bit: the warp tree's upper levels add +0."""
+    ``lanes`` lanes (xor levels lanes / 2 .. 1); the 32-lane xor tree
+    (levels 16 .. 1, the tree each dot of the wide form is summed over,
+    tests/test_torch_grad_w_design.py) over the same partials, the lanes
+    past the row holding 0. In f32 the two are equal bit for bit: the
+    tree's upper levels add +0."""
     parts = (rng.standard_normal((2000, 32)) *
              np.exp(rng.uniform(-40, 40, (2000, 32)))).astype(np.float32)
     warp = parts.copy()
