@@ -1,0 +1,79 @@
+"""Fanout neighbour sampling, plain: the blocks a training step trains on,
+worked out again from the CSC arrays, the seeds and the step's stream.
+
+A step's sampling stream is a ``torch.Generator`` seeded from
+``numpy.random.SeedSequence(seed, spawn_key=(window, step, 0))`` (stream 0
+is sampling, 1 dropout); the run keys a window by the step it starts at.
+Layers are drawn output-most first, each from one ``torch.rand(cap_dst,
+fanout)`` of that generator. For a destination of in-degree ``deg``: with
+``deg <= fanout`` slot k takes neighbour k (a live slot while k < deg);
+otherwise slot k takes neighbour ``int(u * deg)`` (``u`` and the product
+in f32). A dead slot, and every slot of a padded destination (id
+``num_nodes``), points at its destination. Layer l's input is its
+destinations followed by its slots, slot-major (slot (i, k) at
+``cap_dst + k * cap_dst + i``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+SAMPLE, DROPOUT = 0, 1
+
+
+def stream_seed(seed: int, window: int, step: int, stream: int) -> int:
+    """The 63-bit seed of one (window, step, stream) of the root seed."""
+    ss = np.random.SeedSequence(seed, spawn_key=(window, step, stream))
+    return int(ss.generate_state(1, np.uint64)[0] >> 1)
+
+
+def stream(seed: int, window: int, step: int, kind: int,
+           device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(stream_seed(seed, window, step, kind))
+    return g
+
+
+def capacities(batch: int, fanouts: Sequence[int]) -> List[Tuple[int, int]]:
+    """[(cap_dst, cap_src)] per layer, input-most first."""
+    caps, cap_dst = [], batch
+    for f in reversed(fanouts):
+        caps.append((cap_dst, cap_dst * (f + 1)))
+        cap_dst *= f + 1
+    return caps[::-1]
+
+
+def sample(indptr: torch.Tensor, indices: torch.Tensor, num_nodes: int,
+           seeds: torch.Tensor, fanouts: Sequence[int], batch: int,
+           gen: torch.Generator) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(frontier ids int64 [cap_src of layer 0], masks f32 [cap_dst,
+    fanout] per layer, input-most first). ``indptr`` int64 [N + 1] and
+    ``indices`` [E] on the generator's device."""
+    caps = capacities(batch, fanouts)
+    dst = seeds.long()
+    masks: List[torch.Tensor] = []
+    for layer in range(len(fanouts) - 1, -1, -1):
+        cap_dst, f = caps[layer][0], fanouts[layer]
+        if dst.numel() < cap_dst:
+            dst = torch.cat([dst, dst.new_full((cap_dst - dst.numel(),),
+                                               num_nodes)])
+        u = torch.rand(cap_dst, f, generator=gen, device=dst.device)
+        real = dst < num_nodes
+        safe = torch.where(real, dst, torch.zeros_like(dst))
+        start = indptr[safe]
+        deg = torch.where(real, indptr[safe + 1] - start,
+                          torch.zeros_like(start))
+        k = torch.arange(f, device=dst.device)[None, :]
+        take_all = (deg <= f)[:, None]
+        drawn = (u * deg[:, None].clamp(min=1).float()).to(torch.int64)
+        offset = torch.where(take_all, k, drawn)
+        live = k < deg[:, None].clamp(max=f)
+        pos = torch.where(live, start[:, None] + offset,
+                          torch.zeros_like(offset))
+        nbr = torch.where(live, indices[pos].long(), dst[:, None])
+        masks.insert(0, live.float())
+        dst = torch.cat([dst, nbr.T.reshape(-1)])
+    return dst, masks
