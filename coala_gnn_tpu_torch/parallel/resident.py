@@ -310,20 +310,22 @@ class ResidentBase:
                 dedup: bool = False):
         """(blocks, ids, valid, safe): ``safe`` is ``ids`` with the invalid
         entries at 0. A deduplicated frontier is valid below its count.
-        Collective over the ranks on a sharded topology."""
-        if isinstance(self.g, ShardedTopology):
-            blocks, ids, num = sample_blocks_sharded(
-                self.g, self.mesh, seeds, self.fanouts, self.batch_size,
-                generator)
-        else:
-            blocks, ids, num = sample_blocks_device(
-                self.g, seeds, self.fanouts, self.batch_size, generator,
-                dedup=dedup)
-        if dedup:
-            valid = torch.arange(ids.shape[0], device=ids.device) < num
-        else:
-            valid = ids != self.g.num_nodes
-        safe = torch.where(valid, ids, torch.zeros_like(ids))
+        Collective over the ranks on a sharded topology. A device span
+        ``sample`` of the timers."""
+        with self.timers.time("sample", device=self.device):
+            if isinstance(self.g, ShardedTopology):
+                blocks, ids, num = sample_blocks_sharded(
+                    self.g, self.mesh, seeds, self.fanouts, self.batch_size,
+                    generator)
+            else:
+                blocks, ids, num = sample_blocks_device(
+                    self.g, seeds, self.fanouts, self.batch_size, generator,
+                    dedup=dedup)
+            if dedup:
+                valid = torch.arange(ids.shape[0], device=ids.device) < num
+            else:
+                valid = ids != self.g.num_nodes
+            safe = torch.where(valid, ids, torch.zeros_like(ids))
         return blocks, ids, valid, safe
 
     def _learn(self, blocks: List[DeviceBlock], x, y: torch.Tensor,
@@ -355,11 +357,14 @@ class ResidentBase:
                      window: int):
         """The window's sampling streams replayed: per step, (ids, miss
         bool) of its frontier."""
-        for seeds, gen in zip(seeds_grid, step_generators(
+        t = self.timers
+        for k, (seeds, gen) in enumerate(zip(seeds_grid, step_generators(
                 seed, window, seeds_grid.shape[0], SAMPLE, self.device,
-                self._rank)):
+                self._rank))):
+            t.window, t.step = window, k
             _, ids, valid, safe = self._sample(seeds, gen)
             yield ids, valid & ~self._eng_probe(safe, valid)
+        t.step = None
 
     def presample(self, seeds_grid: torch.Tensor, seed: int,
                   window: int) -> torch.Tensor:
@@ -450,10 +455,9 @@ class ResidentBase:
             u_cap = stage_cap(n)
             gid = np.full(u_cap, -1, np.int64)
             gid[:n] = mids
-            with self.timers.time("stage_alloc"):
-                enc = self._scratch.get("enc", (u_cap, dim), tdt)
-                scale = (self._scratch.get("scale", (u_cap,), torch.float32)
-                         if tr == "int8" else None)
+            enc = self._scratch.get("enc", (u_cap, dim), tdt)
+            scale = (self._scratch.get("scale", (u_cap,), torch.float32)
+                     if tr == "int8" else None)
             with self.timers.time("host_gather"):
                 self._gather_encoded(gid, enc, scale)
                 if self._offer_host_rows:
@@ -519,6 +523,9 @@ class ResidentBase:
                      (mids, gathered, offer) if self._offer_host_rows
                      else None)
         self.timers.tally("stage_rows", float(n))
+        self.timers.tally("h2d_pinned_bytes", float(sum(
+            b.nbytes for b in (enc, ids_p, scale, colors_p, prios_p, offer_p)
+            if b is not None)))
         return stage
 
     # ---- fused windows ---------------------------------------------------
@@ -538,20 +545,22 @@ class ResidentBase:
         """One step's frontier features on the set-associative tier: cache
         lookup, stage rows overlaid where it misses. -> (feats [cap0, dim]
         in cfg.dtype, hits, rows served by neither), counts int32 on the
-        device."""
-        feats, hit = self._eng_lookup(safe, valid, count_stats=False)
-        n_hit = hit.sum(dtype=torch.int32)
-        n_unres = valid.sum(dtype=torch.int32) - n_hit
-        if stage is not None:
-            stage_ids, stage_rows, stage_scale = stage[:3]
-            pos = pos_map[safe.long()]
-            found = (stage_ids[pos] == safe) & valid & ~hit
-            srows = stage_rows[pos]
-            if stage_scale is not None:
-                srows = fc.dequantize_rows(srows, stage_scale[pos],
-                                           dtype=feats.dtype)
-            feats = torch.where(found[:, None], srows.to(feats.dtype), feats)
-            n_unres = n_unres - found.sum(dtype=torch.int32)
+        device. A device span ``lookup`` of the timers."""
+        with self.timers.time("lookup", device=self.device):
+            feats, hit = self._eng_lookup(safe, valid, count_stats=False)
+            n_hit = hit.sum(dtype=torch.int32)
+            n_unres = valid.sum(dtype=torch.int32) - n_hit
+            if stage is not None:
+                stage_ids, stage_rows, stage_scale = stage[:3]
+                pos = pos_map[safe.long()]
+                found = (stage_ids[pos] == safe) & valid & ~hit
+                srows = stage_rows[pos]
+                if stage_scale is not None:
+                    srows = fc.dequantize_rows(srows, stage_scale[pos],
+                                               dtype=feats.dtype)
+                feats = torch.where(found[:, None], srows.to(feats.dtype),
+                                    feats)
+                n_unres = n_unres - found.sum(dtype=torch.int32)
         return feats, n_hit, n_unres
 
     def _window(self, seeds_grid: torch.Tensor, seed: int, window: int,
@@ -569,12 +578,14 @@ class ResidentBase:
         K = seeds_grid.shape[0]
         pos_map = None if stage is None else self._pos_map(stage[0])
         cols = [[] for _ in range(5)]
-        for seeds, g_sample, g_drop in zip(
+        t = self.timers
+        for k, (seeds, g_sample, g_drop) in enumerate(zip(
                 seeds_grid,
                 step_generators(seed, window, K, SAMPLE, self.device,
                                 self._rank),
                 step_generators(seed, window, K, DROPOUT, self.device,
-                                self._rank)):
+                                self._rank))):
+            t.window, t.step = window, k
             blocks, _, valid, safe = self._sample(seeds, g_sample)
             n_valid = valid.sum(dtype=torch.int32)
             if self.direct:
@@ -585,10 +596,13 @@ class ResidentBase:
                 feats, n_hit, n_unres = self._frontier(safe, valid, stage,
                                                        pos_map)
                 x = self._layer0(feats)
-            loss, _ = self._learn(blocks, x, self.labels_dev[seeds], g_drop)
+            with t.time("learn", device=self.device):
+                loss, _ = self._learn(blocks, x, self.labels_dev[seeds],
+                                      g_drop)
             for col, v in zip(cols, (loss, n_valid - n_hit, n_hit, n_unres,
                                      sum(b.mask.sum() for b in blocks))):
                 col.append(v)
+        t.step = None
         return tuple(torch.stack(c) for c in cols)
 
     def _snapshot(self):
@@ -636,8 +650,9 @@ class ResidentBase:
         insert's evictions are patched into stage w+1. The counters of all
         windows come back in one transfer at the end."""
         M = seeds_grids.shape[0]
-        seeds_dev = torch.as_tensor(
-            np.ascontiguousarray(seeds_grids, np.int32)).to(self.device)
+        seeds_np = np.ascontiguousarray(seeds_grids, np.int32)
+        seeds_dev = torch.as_tensor(seeds_np).to(self.device)
+        self.timers.tally("h2d_pageable_bytes", float(seeds_np.nbytes))
         staged = not self.full_coverage and not self.direct
         prefill = not self.full_coverage and self.direct
         losses_out: list = [None] * M
@@ -652,7 +667,7 @@ class ResidentBase:
         elif prefill:
             probe = self._probe_window(seeds_dev[0], seed, first_window)
         for w in range(M):
-            win = first_window + w
+            win = self.timers.window = first_window + w
             if not self.direct:      # the flat window cannot go unresolved
                 with self.timers.time("snapshot"):
                     snaps[w] = self._snapshot()
@@ -698,6 +713,7 @@ class ResidentBase:
                 torch.stack(edges_out).reshape(-1).long()]), phase="control")
             counts = both[:3 * M].view(M, 3)
             edges_out = list(both[3 * M:].view(M, -1).float())
+        self.timers.window = None
         folded = counts.cpu().numpy()                   # ONE d2h transfer
         self.misses += int(folded[:, 0].sum())
         self.hits += int(folded[:, 1].sum())

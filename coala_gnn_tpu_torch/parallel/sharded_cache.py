@@ -237,6 +237,12 @@ def exchange_fill(cfg: fc.CacheConfig, local: fc.ColoredCacheState,
                           rft, ok, rcl)
 
 
+def _phase(timers, name: str):
+    """``timers.time(name)`` (a ``PhaseTimers``), or nothing without one."""
+    return timers.time(name) if timers is not None else \
+        contextlib.nullcontext()
+
+
 def repair_misses(cfg: fc.CacheConfig, local: fc.ColoredCacheState,
                   feats: torch.Tensor, dids: torch.Tensor, ids: np.ndarray,
                   need: np.ndarray, host_fetch: Callable,
@@ -262,8 +268,7 @@ def repair_misses(cfg: fc.CacheConfig, local: fc.ColoredCacheState,
     positions[:pos.size] = pos
     rows = np.zeros((m_cap, cfg.dim), dtype=np.float32)
     miss_colors = np.zeros(m_cap, dtype=np.int32)
-    with (timers.time("host_gather") if timers is not None
-          else contextlib.nullcontext()):
+    with _phase(timers, "host_gather"):
         rows[:pos.size] = host_fetch(miss_ids)
     if colors is not None:
         miss_colors[:pos.size] = colors[miss_ids]
@@ -464,13 +469,11 @@ class ShardedFeatureCache:
             return mine, max(1, int(-(-counts.max() // chunk)))
         return mine, max(1, -(-ids.size // chunk))
 
-    def _insert_chunk(self, ids: np.ndarray, rows: Optional[np.ndarray],
-                      colors: Optional[np.ndarray], chunk: int,
-                      return_evicted: bool = False
-                      ) -> Optional[torch.Tensor]:
-        """One insert of ``chunk`` rows, the tail padded invalid (id -1),
-        as the JAX insert kernel takes them. ``return_evicted``: the id
-        each slot evicted, int32 [chunk] on the device, -1 where none."""
+    def _pack(self, ids: np.ndarray, rows: Optional[np.ndarray],
+              colors: Optional[np.ndarray], chunk: int) -> tuple:
+        """(ids, rows, colors) of one insert on the host, ``chunk`` rows,
+        the tail padded invalid (id -1), as the JAX insert kernel takes
+        them."""
         grid = np.full(chunk, -1, dtype=np.int32)
         rbuf = np.zeros((chunk, self.cfg.dim), dtype=np.float32)
         cbuf = np.zeros(chunk, dtype=np.int32)
@@ -479,13 +482,29 @@ class ShardedFeatureCache:
             rbuf[:ids.size] = rows
             if colors is not None:
                 cbuf[:ids.size] = colors
-        dgrid = torch.from_numpy(grid).to(self.device)
-        ok = dgrid >= 0
-        out = fc.insert_with_colors(
-            self.cfg, self.state, torch.where(ok, dgrid, torch.zeros_like(
-                dgrid)), torch.from_numpy(rbuf).to(self.device).to(
-                self.cfg.dtype), ok, torch.from_numpy(cbuf).to(self.device),
-            return_evicted=return_evicted)
+        return grid, rbuf, cbuf
+
+    def _insert_chunk(self, packed: tuple, return_evicted: bool = False,
+                      timers=None) -> Optional[torch.Tensor]:
+        """One insert of a ``_pack``ed chunk: its three arrays uploaded
+        (pageable; ``timers``: span ``insert.upload``, their bytes tallied
+        as ``h2d_pageable_bytes``), then ``insert_with_colors`` (span
+        ``insert.kernel``). ``return_evicted``: the id each slot evicted,
+        int32 [chunk] on the device, -1 where none."""
+        grid, rbuf, cbuf = packed
+        with _phase(timers, "insert.upload"):
+            dgrid = torch.from_numpy(grid).to(self.device)
+            drows = torch.from_numpy(rbuf).to(self.device)
+            dcolors = torch.from_numpy(cbuf).to(self.device)
+        if timers is not None:
+            timers.tally("h2d_pageable_bytes",
+                         float(grid.nbytes + rbuf.nbytes + cbuf.nbytes))
+        with _phase(timers, "insert.kernel"):
+            ok = dgrid >= 0
+            out = fc.insert_with_colors(
+                self.cfg, self.state, torch.where(ok, dgrid, torch.zeros_like(
+                    dgrid)), drows.to(self.cfg.dtype), ok, dcolors,
+                return_evicted=return_evicted)
         return out[1] if return_evicted else None
 
     def prewarm(self, ids: np.ndarray, host_fetch,
@@ -499,18 +518,18 @@ class ShardedFeatureCache:
         for c in range(n_chunks):
             part = ids[mine[c * chunk:(c + 1) * chunk]]
             rows = host_fetch(part.astype(np.int64)) if part.size else None
-            self._insert_chunk(part, rows,
-                               None if colors is None else colors[part],
-                               chunk)
+            self._insert_chunk(self._pack(
+                part, rows, None if colors is None else colors[part], chunk))
 
     def insert_rows(self, ids: np.ndarray, rows: np.ndarray,
                     colors: Optional[np.ndarray] = None,
-                    chunk: int = 16384, return_evicted: bool = False
-                    ) -> Optional[torch.Tensor]:
+                    chunk: int = 16384, return_evicted: bool = False,
+                    timers=None) -> Optional[torch.Tensor]:
         """``prewarm`` with the rows in hand: ``rows`` [n, dim] and
         ``colors`` int32 [n] aligned with ``ids`` (not per node id); each
         row is inserted at its owner (``owned``), so only the owner's rows
-        are read.
+        are read. ``timers`` (a ``PhaseTimers``): each chunk's selection and
+        packing as span ``insert.pack``, then ``_insert_chunk``'s spans.
 
         ``return_evicted`` (the overlapped staged schedule): the ids the
         inserts evicted, int32 on the device, -1 padded: each chunk's
@@ -526,9 +545,12 @@ class ShardedFeatureCache:
         evicted = []
         for c in range(n_chunks):
             sel = mine[c * chunk:(c + 1) * chunk]
-            evicted.append(self._insert_chunk(
-                ids[sel], rows[sel], None if colors is None else colors[sel],
-                chunk, return_evicted))
+            with _phase(timers, "insert.pack"):
+                packed = self._pack(
+                    ids[sel], rows[sel],
+                    None if colors is None else colors[sel], chunk)
+            evicted.append(self._insert_chunk(packed, return_evicted,
+                                              timers))
         if not return_evicted:
             return None
         out = torch.cat(evicted)

@@ -195,16 +195,19 @@ class ShardedResidentTrainer(ResidentBase):
         never depends on it), from the f32 rows the stage gathered. Patch
         rows (``offer`` False) are not offered. ``return_evicted``: the
         evicted ids, gathered from every rank; None when nothing is
-        offered (every rank alike: the stage is the union)."""
+        offered (every rank alike: the stage is the union). The selection
+        of the offered rows is a span ``insert.pack``, as each chunk's
+        packing in ``insert_rows`` is."""
         mids, rows, offer = stage[6]
-        mids = mids[offer]
+        with self.timers.time("insert.pack"):
+            mids, rows = mids[offer], rows[offer]
+            colors = (None if self.colors is None
+                      else np.asarray(self.colors, np.int32)[mids])
         if not mids.size:
             return None
-        return self.cache.insert_rows(
-            mids, rows[offer],
-            None if self.colors is None
-            else np.asarray(self.colors, np.int32)[mids],
-            return_evicted=return_evicted)
+        return self.cache.insert_rows(mids, rows, colors,
+                                      return_evicted=return_evicted,
+                                      timers=self.timers)
 
     # ---- per-step path -----------------------------------------------------
     def begin(self, seed_grid, generator: torch.Generator) -> StepHandle:
