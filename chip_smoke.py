@@ -3877,18 +3877,21 @@ def overlap_small(torch, mesh, overlap: bool) -> dict:
 
 
 def watch_evicted(cache) -> list:
-    """A copy, on the device, of every evicted-id array ``insert_rows``
-    returns from now on (the gathered array, the same on every rank); no
-    host wait, so a timed run keeps its overlap."""
-    seen, insert = [], cache.insert_rows
+    """A copy, on the device, of every evicted-id array ``insert_rows`` or
+    ``insert_stage`` returns from now on (the gathered array, the same on
+    every rank); no host wait, so a timed run keeps its overlap."""
+    seen = []
 
-    def insert_rows(*args, **kwargs):
-        out = insert(*args, **kwargs)
-        if out is not None:
-            seen.append(out.clone())
-        return out
+    def watched(insert):
+        def inner(*args, **kwargs):
+            out = insert(*args, **kwargs)
+            if out is not None:
+                seen.append(out.clone())
+            return out
+        return inner
 
-    cache.insert_rows = insert_rows
+    cache.insert_rows = watched(cache.insert_rows)
+    cache.insert_stage = watched(cache.insert_stage)
     return seen
 
 

@@ -239,8 +239,10 @@ class ResidentBase:
     replay decision reads the global unresolved count and every rank takes
     it alike; ``_learn`` is the subclass's (the data-parallel step)."""
 
-    #: ``_stage_from_mids`` keeps the f32 rows it gathered, on the host
-    #: (``stage[6]``), for an offer that inserts them from there
+    #: ``_stage_from_mids`` keeps the stage's ids and offer mask on the
+    #: host (``stage[6]``) for an offer that selects from there, and under
+    #: a bf16 or int8 transport the f32 rows it read, which that offer
+    #: inserts from the host
     _offer_host_rows = False
     #: the ranks the trainer spans (``parallel/mesh.Mesh``); None: one card
     mesh = None
@@ -437,9 +439,12 @@ class ResidentBase:
     def _stage_from_mids(self, mids: np.ndarray, evicted=None):
         """Host gather + transport encode + upload for a known miss-id set.
         Returns (ids, rows, scale or None, colors, prios, offer) on the
-        device, then ``host``: (miss ids, their f32 rows, offer) on the
-        host where the trainer offers the stage from there
-        (``_offer_host_rows``), else None. Stage pads carry id INT32_MAX.
+        device, then ``host``: where the trainer selects its offer on the
+        host (``_offer_host_rows``), (miss ids, their f32 rows or None,
+        offer), else None. The f32 rows are kept under a bf16 or int8
+        transport only, whose device rows are rounded: an f32 stage on the
+        device holds them bitwise, and the offer reads them there. Stage
+        pads carry id INT32_MAX.
 
         ``evicted`` (overlapped schedule): the readback handle of the
         previous insert's evicted ids, patched in after the main gather.
@@ -460,13 +465,10 @@ class ResidentBase:
                      if tr == "int8" else None)
             with self.timers.time("host_gather"):
                 self._gather_encoded(gid, enc, scale)
-                if self._offer_host_rows:
-                    rows32 = enc
-                    if tr != "float32":
-                        rows32 = self._scratch.get("rows", (u_cap, dim),
-                                                   torch.float32)
-                        self._store.fetch(self._offered(gid),
-                                          out=rows32.numpy())
+                if self._offer_host_rows and tr != "float32":
+                    rows32 = self._scratch.get("rows", (u_cap, dim),
+                                               torch.float32)
+                    self._store.fetch(self._offered(gid), out=rows32.numpy())
                     gathered = rows32.numpy()[:n]
             offer = np.ones(n, bool)
         else:
@@ -520,8 +522,8 @@ class ResidentBase:
                      None if scale is None else up(scale, self.device),
                      up(colors_p, self.device), up(prios_p, self.device),
                      up(offer_p, self.device),
-                     (mids, gathered, offer) if self._offer_host_rows
-                     else None)
+                     (mids, None if tr == "float32" else gathered, offer)
+                     if self._offer_host_rows else None)
         self.timers.tally("stage_rows", float(n))
         self.timers.tally("h2d_pinned_bytes", float(sum(
             b.nbytes for b in (enc, ids_p, scale, colors_p, prios_p, offer_p)

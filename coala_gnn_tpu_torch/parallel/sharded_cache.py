@@ -45,7 +45,8 @@ count streams back without a sync: a pinned host scalar filled by a
 ``copy_to_host_async``); only the all-hit check reads it. The state is
 updated in place. ``parallel/sharded_resident.py`` calls the module
 functions over the cache's ``route`` and offers its stages through
-``insert_rows``.
+``insert_stage`` (an f32 stage, from the card) or ``insert_rows`` (the f32
+rows of a bf16 or int8 stage, from the host).
 """
 
 from __future__ import annotations
@@ -241,6 +242,22 @@ def _phase(timers, name: str):
     """``timers.time(name)`` (a ``PhaseTimers``), or nothing without one."""
     return timers.time(name) if timers is not None else \
         contextlib.nullcontext()
+
+
+def _take_chunk(t: torch.Tensor, part, chunk: int, fill) -> torch.Tensor:
+    """Entries ``part`` of ``t`` (a ``range`` or an index tensor on the
+    device) as a block of ``chunk`` entries, the tail ``fill``; a full
+    range is a view of ``t``."""
+    m = len(part)
+    if isinstance(part, range):
+        src = t[part.start:part.stop]
+        if m == chunk:
+            return src
+    else:
+        src = t.index_select(0, part)
+    out = t.new_full((chunk,) + tuple(t.shape[1:]), fill)
+    out[:m] = src
+    return out
 
 
 def repair_misses(cfg: fc.CacheConfig, local: fc.ColoredCacheState,
@@ -488,9 +505,8 @@ class ShardedFeatureCache:
                       timers=None) -> Optional[torch.Tensor]:
         """One insert of a ``_pack``ed chunk: its three arrays uploaded
         (pageable; ``timers``: span ``insert.upload``, their bytes tallied
-        as ``h2d_pageable_bytes``), then ``insert_with_colors`` (span
-        ``insert.kernel``). ``return_evicted``: the id each slot evicted,
-        int32 [chunk] on the device, -1 where none."""
+        as ``h2d_pageable_bytes``), then ``_insert_device`` (span
+        ``insert.kernel``)."""
         grid, rbuf, cbuf = packed
         with _phase(timers, "insert.upload"):
             dgrid = torch.from_numpy(grid).to(self.device)
@@ -500,11 +516,21 @@ class ShardedFeatureCache:
             timers.tally("h2d_pageable_bytes",
                          float(grid.nbytes + rbuf.nbytes + cbuf.nbytes))
         with _phase(timers, "insert.kernel"):
-            ok = dgrid >= 0
-            out = fc.insert_with_colors(
-                self.cfg, self.state, torch.where(ok, dgrid, torch.zeros_like(
-                    dgrid)), drows.to(self.cfg.dtype), ok, dcolors,
-                return_evicted=return_evicted)
+            return self._insert_device(dgrid, drows, dcolors,
+                                       return_evicted)
+
+    def _insert_device(self, grid: torch.Tensor, rows: torch.Tensor,
+                       colors: torch.Tensor, return_evicted: bool
+                       ) -> Optional[torch.Tensor]:
+        """``insert_with_colors`` of one chunk on the device, as ``_pack``
+        lays it out: ids int32 [chunk] (-1 invalid), f32 rows, int32
+        colors. ``return_evicted``: the id each slot evicted, int32
+        [chunk], -1 where none."""
+        ok = grid >= 0
+        out = fc.insert_with_colors(
+            self.cfg, self.state, torch.where(ok, grid, torch.zeros_like(
+                grid)), rows.to(self.cfg.dtype), ok, colors,
+            return_evicted=return_evicted)
         return out[1] if return_evicted else None
 
     def prewarm(self, ids: np.ndarray, host_fetch,
@@ -530,6 +556,9 @@ class ShardedFeatureCache:
         row is inserted at its owner (``owned``), so only the owner's rows
         are read. ``timers`` (a ``PhaseTimers``): each chunk's selection and
         packing as span ``insert.pack``, then ``_insert_chunk``'s spans.
+        The resident trainer offers a bf16 or int8 stage through here, from
+        the f32 rows it read on the host (its device stage holds rounded
+        rows); an f32 stage goes through ``insert_stage``, from the card.
 
         ``return_evicted`` (the overlapped staged schedule): the ids the
         inserts evicted, int32 on the device, -1 padded: each chunk's
@@ -551,8 +580,59 @@ class ShardedFeatureCache:
                     None if colors is None else colors[sel], chunk)
             evicted.append(self._insert_chunk(packed, return_evicted,
                                               timers))
-        if not return_evicted:
-            return None
+        return self._gathered(evicted) if return_evicted else None
+
+    def insert_stage(self, ids: np.ndarray, offer: np.ndarray, stage_ids:
+                     torch.Tensor, stage_rows: torch.Tensor,
+                     stage_colors: torch.Tensor, scratch,
+                     chunk: int = 16384, return_evicted: bool = False,
+                     timers=None) -> Optional[torch.Tensor]:
+        """``insert_rows(ids[offer], rows[offer], colors[offer])`` from a
+        window's stage on the device, whose rows never leave it: the same
+        inserts, chunks and evicted ids, the cache state bitwise alike.
+        ``ids`` int32 [n] are the stage's ids on the host and ``offer``
+        bool [n] the ones offered; the device stage holds ids[i] at
+        position i of ``stage_ids`` (int32), ``stage_rows`` (f32 [., dim])
+        and ``stage_colors`` (int32).
+
+        The host selects the stage positions this rank inserts (span
+        ``insert.pack``) and uploads them once, int32 from ``scratch``'s
+        pinned pool (a ``resident.HostScratch``; tallied as
+        ``h2d_pinned_bytes``), or not at all where they are one contiguous
+        range. Each chunk then takes its ids, rows and colors from the
+        stage, its tail invalid as ``_pack`` pads it (span
+        ``insert.kernel``). ``offer_device_rows`` tallies the rows
+        inserted."""
+        with _phase(timers, "insert.pack"):
+            pos = np.flatnonzero(offer)
+            mine, n_chunks = self._owned(
+                np.asarray(ids, np.int32)[pos], chunk)
+            pos = pos[mine]
+            if not pos.size or pos[-1] - pos[0] + 1 == pos.size:
+                lo = int(pos[0]) if pos.size else 0
+                dpos = range(lo, lo + pos.size)
+            else:
+                buf = scratch.get("offer_pos", (pos.size,), torch.int32)
+                buf.numpy()[:] = pos
+                dpos = scratch.upload(buf, self.device)
+                if timers is not None:
+                    timers.tally("h2d_pinned_bytes", float(buf.nbytes))
+        if timers is not None:
+            timers.tally("offer_device_rows", float(pos.size))
+        evicted = []
+        for c in range(n_chunks):
+            part = dpos[c * chunk:(c + 1) * chunk]
+            with _phase(timers, "insert.kernel"):
+                evicted.append(self._insert_device(
+                    _take_chunk(stage_ids, part, chunk, -1),
+                    _take_chunk(stage_rows, part, chunk, 0),
+                    _take_chunk(stage_colors, part, chunk, 0),
+                    return_evicted))
+        return self._gathered(evicted) if return_evicted else None
+
+    def _gathered(self, evicted: list) -> torch.Tensor:
+        """The chunks' evicted ids in order, over more than one rank
+        gathered from every rank (one ``all_gather``, rank-major)."""
         out = torch.cat(evicted)
         if self.mesh.distributed:
             out = self.mesh.all_gather(out, "evicted")

@@ -28,11 +28,12 @@ hooks) and keeps the JAX trainer's differences from it:
     rank gathers and uploads the same stage, the union, as every JAX
     process does; a slot past its exchange bucket (overflow) is not a
     hit, so the union stages it too and the window serves it from there;
-  - no priorities; a window's stage is offered through
-    ``cache.insert_rows``, which inserts each row at its owner, from the
-    f32 rows the stage gathered on the host (under a bf16 or int8
-    transport only the rows this rank owns are read a second time, at
-    f32); under ``stage_overlap`` the offer reports the ids it evicted,
+  - no priorities; a window's stage is offered to the cache, each row
+    inserted at its owner: an f32 stage from the card
+    (``cache.insert_stage``), a bf16 or int8 stage, whose device rows are
+    rounded, from the f32 rows read on the host (``cache.insert_rows``;
+    only the rows this rank owns are read a second time, at f32); under
+    ``stage_overlap`` the offer reports the ids it evicted,
     gathered from every rank (one ``all_gather``), so every rank patches
     the same rows into the next union stage;
   - the per-step ``resolve`` repairs misses through the cache front's own
@@ -190,21 +191,28 @@ class ShardedResidentTrainer(ResidentBase):
 
     def _offer_stage(self, stage, return_evicted: bool = False
                      ) -> Optional[torch.Tensor]:
-        """Insert a window's staged rows into the cache
-        (``cache.insert_rows``, the reference's miss insert; correctness
-        never depends on it), from the f32 rows the stage gathered. Patch
-        rows (``offer`` False) are not offered. ``return_evicted``: the
-        evicted ids, gathered from every rank; None when nothing is
-        offered (every rank alike: the stage is the union). The selection
-        of the offered rows is a span ``insert.pack``, as each chunk's
-        packing in ``insert_rows`` is."""
+        """Insert a window's staged rows into the cache (the reference's
+        miss insert; correctness never depends on it). Under the f32
+        transport the device stage holds the f32 rows bitwise, so they are
+        inserted from there (``cache.insert_stage``: the host selects the
+        positions from the stage's ids, no row crosses the host link);
+        under bf16 or int8 from the f32 rows the stage read on the host
+        (``cache.insert_rows``). Patch rows (``offer`` False) are not
+        offered. ``return_evicted``: the evicted ids, gathered from every
+        rank; None when nothing is offered (every rank alike: the stage is
+        the union). The host's selection of the offered rows is a span
+        ``insert.pack``, as each chunk's packing in ``insert_rows`` is."""
         mids, rows, offer = stage[6]
+        if not offer.any():
+            return None
+        if self.stage_transport == "float32":
+            return self.cache.insert_stage(
+                mids, offer, stage[0], stage[1], stage[3], self._scratch,
+                return_evicted=return_evicted, timers=self.timers)
         with self.timers.time("insert.pack"):
             mids, rows = mids[offer], rows[offer]
             colors = (None if self.colors is None
                       else np.asarray(self.colors, np.int32)[mids])
-        if not mids.size:
-            return None
         return self.cache.insert_rows(mids, rows, colors,
                                       return_evicted=return_evicted,
                                       timers=self.timers)

@@ -7,10 +7,13 @@ and the same ``trainer.*`` ranges nest the same way in a CPU
 ``torch.profiler`` trace; ``device_ms`` stays None off a card. One tiny
 staged window of ``ShardedResidentTrainer`` opens a ``sample`` span for
 every probed and every trained step, a ``lookup`` and a ``learn`` span
-for every trained step, and an ``insert.upload`` and ``insert.kernel``
-span for every chunk of its offer (``insert.pack`` once more, for the
-selection of the offered rows); its ``h2d_pinned_bytes`` and
-``h2d_pageable_bytes`` tallies equal the bytes reckoned from its shapes."""
+for every trained step, and an ``insert.kernel`` span for every chunk of
+its offer: under the int8 transport with an ``insert.upload`` and an
+``insert.pack`` per chunk (and ``insert.pack`` once more, for the
+selection of the offered rows), under f32, whose offer reads the stage on
+the device, with no upload and one ``insert.pack``, the selection; its
+``h2d_pinned_bytes`` and ``h2d_pageable_bytes`` tallies equal the bytes
+reckoned from its shapes."""
 
 import functools
 
@@ -58,6 +61,7 @@ def _trainer(transport="float32"):
                          num_colors=0)
     cache = ShardedFeatureCache(cfg, ["cpu"])
     cache.insert_rows = functools.partial(cache.insert_rows, chunk=CHUNK)
+    cache.insert_stage = functools.partial(cache.insert_stage, chunk=CHUNK)
     model = make_model("sage", DIM, 16, 4, len(FANOUTS), dropout=0.0)
     return ShardedResidentTrainer(
         graph=ds.graph, host_fetch=HostFeatureStore(ds.features).fetch,
@@ -82,11 +86,12 @@ def test_tracing_off_enters_no_range_and_keeps_no_span(monkeypatch):
     rt.train_window(_grid(0), 5, window=0)
     assert _Counting.entered == 0 and not events
     assert rt.timers.spans == []
-    # the phases are timed all the same
+    # the phases are timed all the same (the f32 offer uploads nothing)
     for phase in ("sample", "lookup", "learn", "insert.pack",
-                  "insert.upload", "insert.kernel", "stage_upload"):
+                  "insert.kernel", "stage_upload"):
         assert rt.timers.counts[phase] > 0, phase
     assert "stage_alloc" not in rt.timers.totals
+    assert "insert.upload" not in rt.timers.totals
     t = T.PhaseTimers()
     with t.time("a", device="cpu"):
         pass
@@ -165,8 +170,16 @@ def test_a_staged_window_spans_and_counts_its_bytes(transport):
     rows = int(t.tallies["stage_rows"])
     assert rows > CHUNK, "the window should offer several chunks"
     chunks = -(-rows // CHUNK)
-    assert len(by["insert.upload"]) == len(by["insert.kernel"]) == chunks
-    assert len(by["insert.pack"]) == chunks + 1
+    assert len(by["insert.kernel"]) == chunks
+    if transport == "float32":
+        # the offer reads the stage on the card: the host selects once
+        assert "insert.upload" not in by
+        assert len(by["insert.pack"]) == 1
+        assert t.tallies["offer_device_rows"] == rows
+    else:
+        assert len(by["insert.upload"]) == chunks
+        assert len(by["insert.pack"]) == chunks + 1
+        assert "offer_device_rows" not in t.tallies
     # sampled twice a step: the probe's replay, then the window
     assert len(by["sample"]) == 2 * K
     assert len(by["lookup"]) == len(by["learn"]) == K
@@ -177,7 +190,7 @@ def test_a_staged_window_spans_and_counts_its_bytes(transport):
     offer = next(i for i, s in enumerate(spans)
                  if s.name == "insert_dispatch")
     for name in ("insert.pack", "insert.upload", "insert.kernel"):
-        assert all(s.parent == offer for s in by[name]), name
+        assert all(s.parent == offer for s in by.get(name, [])), name
     # the window's device spans lie in window_dispatch, the probe's in
     # probe_dispatch
     parents = {spans[s.parent].name for s in by["sample"]}
@@ -197,5 +210,7 @@ def test_a_staged_window_spans_and_counts_its_bytes(transport):
         per_row += 4                        # the row scales
     assert t.tallies["h2d_pinned_bytes"] == cap * per_row
     seeds = 1 * K * B * 4
-    assert t.tallies["h2d_pageable_bytes"] == \
-        chunks * CHUNK * (4 + DIM * 4 + 4) + seeds
+    # one rank offers a contiguous range of the stage: no index uploaded
+    offered = 0 if transport == "float32" else chunks * CHUNK * (
+        4 + DIM * 4 + 4)
+    assert t.tallies["h2d_pageable_bytes"] == offered + seeds
