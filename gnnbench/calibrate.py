@@ -40,8 +40,7 @@ def readings(cell, seed: int, control: bool, device) -> list:
     bench.setup(warmup=False)
     bench.free_program()
     n, full = int(cell.cfg["num_nodes"]), cell.traffic["fill"] == "all"
-    ref = check.follow(cell.cfg, cell.traffic, bench.data, bench.seed,
-                       bench.vec, device)
+    ref = check.follow(cell, bench.data, bench.seed, bench.vec, device)
     out = [("program", check.numbers(bench.program, ref, n, full))]
     out.append(("program_leaves", {
         "grad": check.leaf_gaps(bench.program["grad"], ref["grad"]),
@@ -52,8 +51,7 @@ def readings(cell, seed: int, control: bool, device) -> list:
         for kind, kw in (("control_tf32", {"precision": "tf32"}),
                          ("fault_half_batch", {"half_batch": True})):
             other = check.as_program(check.follow(
-                cell.cfg, cell.traffic, bench.data, bench.seed, bench.vec,
-                device, **kw))
+                cell, bench.data, bench.seed, bench.vec, device, **kw))
             out.append((kind, check.numbers(other, ref, n, full)))
     return out
 

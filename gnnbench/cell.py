@@ -7,10 +7,11 @@ The entry the window drives is the program's own:
 resident``, then ``run.trainer.train_window(grid, seed, window=step)``, one
 window of K steps a call, as the CLI's resident loop calls it, keyed by
 the step it starts at. The seeds of step t are the batch t of the run's
-seed order (``graphgen.make_split``).
+seed order (``order`` of the cell's data; ``graphgen.make_split``).
 
-Set-up (``setup``): data, build, the benchmark's initial weights loaded
-into the program's model, the cache filled through the program's API
+Set-up (``setup``): data (``make_dataset`` of the cell's graph module,
+``registry``), build, the benchmark's initial weights loaded into the
+program's model, the cache filled through the program's API
 (``fill``: every node, then ``full_coverage``; or the highest in-degree
 nodes up to capacity), the first window of K steps through
 ``train_window``, as every window is run (``first_window`` records what
@@ -62,7 +63,7 @@ class Context:
 
     cell: object
     run: object = None              # the program's Run
-    data: Optional[dict] = None     # the benchmark's data (graphgen)
+    data: Optional[dict] = None     # the benchmark's data (make_dataset)
     seed: int = 0
     windows: List[Window] = dataclasses.field(default_factory=list)
     wall: float = 0.0               # seconds of ``windows``, to the sync
@@ -85,33 +86,43 @@ def grid(order: np.ndarray, step: int, k: int, batch: int) -> np.ndarray:
     return order[idx].reshape(1, k, batch)
 
 
-def program_flags(cell, seed: int, device) -> List[str]:
+def program_flags(cell, seed: int, device,
+                  num_edge_types: int = 1) -> List[str]:
+    """The CLI's flags: the shared ones, ``--num_edge_types`` on a typed
+    graph, then the model module's own (``flags``)."""
     cfg, tr = cell.cfg, cell.traffic
-    return ["--device", str(device), "--model_type", cfg["model"],
-            "--fan_out", ",".join(str(f) for f in tr["fanout"]),
-            "--batch_size", str(tr["batch"]),
-            "--num_layers", str(cfg["num_layers"]),
-            "--hidden_channels", str(cfg["hidden_channels"]),
-            "--num_heads", str(cfg.get("num_heads", 4)),
-            "--learning_rate", str(cfg["learning_rate"]),
-            "--num_classes", str(cfg["num_classes"]),
-            "--dtype", cfg["dtype"],
-            "--cache_size", str(tr["cache_mb"]),
-            "--pipeline", "resident", "--window", str(tr["window"]),
-            "--distribution", tr["distribution"],
-            "--seed", str(seed % (1 << 31))]
+    flags = ["--device", str(device), "--model_type", cfg["model"],
+             "--fan_out", ",".join(str(f) for f in tr["fanout"]),
+             "--batch_size", str(tr["batch"]),
+             "--num_layers", str(cfg["num_layers"]),
+             "--hidden_channels", str(cfg["hidden_channels"]),
+             "--learning_rate", str(cfg["learning_rate"]),
+             "--num_classes", str(cfg["num_classes"]),
+             "--dtype", cfg["dtype"],
+             "--cache_size", str(tr["cache_mb"]),
+             "--pipeline", "resident", "--window", str(tr["window"]),
+             "--distribution", tr["distribution"],
+             "--seed", str(seed % (1 << 31))]
+    if num_edge_types > 1:
+        flags += ["--num_edge_types", str(num_edge_types)]
+    return flags + cell.model.flags(cfg)
 
 
 def build_program(cell, data: dict, seed: int, device):
-    """The program's ``Run`` on the benchmark's dataset, through the CLI's
-    ``parse_args`` and ``build``; its prints go to standard error."""
+    """The program's ``Run`` on the benchmark's dataset (its graph typed
+    where the data has ``edge_types``), through the CLI's ``parse_args``
+    and ``build``; its prints go to standard error."""
     from coala_gnn_tpu_torch import train as cli
     from coala_gnn_tpu_torch.graph.csc import CSCGraph
     from coala_gnn_tpu_torch.graph.datasets import Dataset
 
-    args = cli.parse_args(program_flags(cell, seed, device))
+    num_edge_types = int(data.get("num_edge_types", 1))
+    args = cli.parse_args(program_flags(cell, seed, device, num_edge_types))
     cli.refuse_unported(args)
-    ds = Dataset(graph=CSCGraph(data["indptr"], data["indices"]),
+    graph = CSCGraph(data["indptr"], data["indices"],
+                     edge_types=data.get("edge_types"),
+                     num_edge_types=num_edge_types)
+    ds = Dataset(graph=graph,
                  features=data["features"], labels=data["labels"],
                  train_idx=data["train_idx"], val_idx=data["val_idx"],
                  test_idx=data["test_idx"],
@@ -146,9 +157,10 @@ def fill(cell, run, num_nodes: int) -> None:
 
 class Capture:
     """What the first window produced, recorded from the benchmark's side:
-    each window step's sampled frontier ids and masks (``_sample`` called
-    from ``_window``), a digest of the layer-0 rows it trained on
-    (``_layer0``): each row's dot with ``vec``, in f64), and after
+    each window step's sampled frontier ids, masks and (where a block has
+    them) relations (``_sample`` called from ``_window``), a digest of the
+    layer-0 rows it trained on (``_layer0``): each row's dot with ``vec``,
+    in f64), and after
     Adam's first and ``check.CHANGE_STEPS``-th updates (by its own step
     count, so a replayed window records its replay) the first gradient
     (``first_grad``) and the parameters' change."""
@@ -156,7 +168,7 @@ class Capture:
     def __init__(self, run, vec: torch.Tensor, change_at: int):
         self.run, self.rt, self.vec = run, run.trainer, vec
         self.change_at = change_at
-        self.ids, self.masks, self.digest = [], [], []
+        self.ids, self.masks, self.rels, self.digest = [], [], [], []
         self.grad = self.update = None
         self.params0 = {k: v.detach().clone()
                         for k, v in run.model.named_parameters()}
@@ -190,6 +202,7 @@ class Capture:
                 blocks, ids = out[0], out[1]
                 self.ids.append(ids.long().cpu())
                 self.masks.append([b.mask.cpu() for b in blocks])
+                self.rels.append([_rel(b) for b in blocks])
             return out
         return inner
 
@@ -211,6 +224,11 @@ class Capture:
                 self.update = _norms(changes(self.run, self.params0))
             return out
         return inner
+
+
+def _rel(block) -> Optional[torch.Tensor]:
+    rel = getattr(block, "rel", None)
+    return None if rel is None else rel.cpu()
 
 
 def _norms(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -259,7 +277,8 @@ def first_window(cell, run, order: np.ndarray, seed: int,
     return {"loss": losses.double().cpu().tolist(),
             "edges": [int(x) for x in edges.cpu().tolist()],
             "hits": int(stats["hits"]), "misses": int(stats["misses"]),
-            "ids": cap.ids, "masks": cap.masks, "digest": cap.digest,
+            "ids": cap.ids, "masks": cap.masks, "rels": cap.rels,
+            "digest": cap.digest,
             "grad": cap.grad or _norms(first_grad(run)),
             "update": cap.update or _norms(changes(run, cap.params0))}
 
@@ -311,9 +330,9 @@ class Bench:
         """The set-up of the module docstring (``warmup`` False: up to the
         first window)."""
         cell, dev = self.cell, self.device
-        self.data = graphgen.make_dataset(cell.cfg, self.seed, dev)
+        self.data = cell.dataset.make_dataset(cell.cfg, self.seed, dev)
         self.run = build_program(cell, self.data, self.seed, dev)
-        params = ref_model.init_params(cell.cfg, self.seed, dev)
+        params = ref_model.init_params(cell.model, cell.cfg, self.seed, dev)
         self.run.model.load_state_dict(params, strict=True)
         del params
         fill(cell, self.run, int(cell.cfg["num_nodes"]))
@@ -440,8 +459,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     ctx = None
     bench.free_program()
     t_ref = trace.now()
-    ref = check.follow(cell.cfg, cell.traffic, bench.data, seed, bench.vec,
-                       device)
+    ref = check.follow(cell, bench.data, seed, bench.vec, device)
     t_ref = trace.now() - t_ref
     nums = check.numbers(bench.program, ref, int(cell.cfg["num_nodes"]),
                          cell.traffic["fill"] == "all")

@@ -1,8 +1,11 @@
 """Host-to-device bytes the window path hands to copies, in MB (10^6 B)
 per window of the traced run's unprofiled stretch: the program's
 ``h2d_pinned_bytes`` tally (the stage buffers uploaded from pinned
-memory, at their ``stage_cap`` rows) plus ``h2d_pageable_bytes`` (the
-offer's three arrays per chunk and the windows' seed grids)."""
+memory, at their ``stage_cap`` rows) plus ``h2d_pageable_bytes``: the
+windows' seed grids, and the offer's uploads, which depend on the stage
+transport. At f32 the offer reads the stage on the card and uploads only
+an int32 index of the offered positions where they are not one range; at
+bf16 and int8 it uploads three arrays per chunk."""
 
 NAMES = ("h2d_pinned_bytes", "h2d_pageable_bytes")
 

@@ -3,18 +3,19 @@
 ``follow`` works out again, from the benchmark's data, seed and weights
 alone, what the program's first window of K steps (the traffic's
 ``window``, keys (0, k) for k < K: the window the timed path runs, at its
-size) should have produced: each step's sampled frontier and masks
-(``reference/sampler.py``), a digest of the layer-0 rows (each valid
-row's dot with the digest vector, in f64; padding rows zero), the edges,
-the valid slots, the losses, the first gradient and the parameters'
-change over the first ``CHANGE_STEPS`` steps (``reference/model.py``). It
-reads the features from the host array with numpy, one step at a time.
+size) should have produced: each step's sampled frontier, masks and, on a
+typed graph, relations (``reference/sampler.py``), a digest of the
+layer-0 rows (each valid row's dot with the digest vector, in f64;
+padding rows zero), the edges, the valid slots, the losses, the first
+gradient and the parameters' change over the first ``CHANGE_STEPS`` steps
+(``reference/model.py`` with the configuration's model module). It reads
+the features from the host array with numpy, one step at a time.
 
 ``compare`` sets the program's record beside the reference's and gives
 each number with its limit (``gnnbench/limits/<cell>.json``):
 
-- ``blocks``: sampled frontier ids and mask entries that differ, over the
-  window's K steps (limit 0);
+- ``blocks``: sampled frontier ids, mask entries and relation entries
+  (a typed graph's) that differ, over the window's K steps (limit 0);
 - ``rows``: valid layer-0 rows whose digest differs (limit 0);
 - ``edges``: the gap of the steps' valid edges (limit 0);
 - ``counters``: hits + misses against the valid slots, plus the misses
@@ -61,39 +62,45 @@ def rows_of(features: np.ndarray, ids: torch.Tensor, num_nodes: int,
     return torch.from_numpy(rows).to(device)
 
 
-def follow(cfg: dict, traffic: dict, data: dict, seed: int,
-           vec: torch.Tensor, device, precision: str = "float32",
-           half_batch: bool = False) -> dict:
-    """The reference's record of the first window (see the module
+def follow(cell, data: dict, seed: int, vec: torch.Tensor, device,
+           precision: str = "float32", half_batch: bool = False) -> dict:
+    """The reference's record of ``cell``'s first window (see the module
     docstring). ``precision="tf32"``: the matmuls in TF32 (the control);
     ``half_batch``: the loss over the first half of the seeds (a fault)."""
+    cfg, traffic, model = cell.cfg, cell.traffic, cell.model
     B, fanouts = int(traffic["batch"]), list(traffic["fanout"])
     N = int(cfg["num_nodes"])
     order = data["order"]
     indptr = torch.from_numpy(data["indptr"]).to(device)
     indices = torch.from_numpy(data["indices"]).to(device)
+    edge_types = data.get("edge_types")
+    if edge_types is not None:
+        edge_types = torch.from_numpy(edge_types).to(device)
     labels = torch.from_numpy(data["labels"]).long().to(device)
-    p = M.init_params(cfg, seed, device)
+    p = M.init_params(model, cfg, seed, device)
     p0 = {k: v.clone() for k, v in p.items()}
     opt = M.Adam(p, float(cfg["learning_rate"]))
-    out = {"ids": [], "masks": [], "digest": [], "edges": [], "valid": [],
-           "loss": []}
+    out = {"ids": [], "masks": [], "rels": [], "digest": [], "edges": [],
+           "valid": [], "loss": []}
     keys = first_keys(traffic)
     change_at = min(CHANGE_STEPS, len(keys))
     for step, (w, k) in enumerate(keys):
         seeds = torch.from_numpy(
             order[np.arange(step * B, (step + 1) * B) % order.size]).to(device)
-        ids, masks = S.sample(indptr, indices, N, seeds, fanouts, B,
-                              S.stream(seed, w, k, S.SAMPLE, device))
+        ids, masks, rels = S.sample(indptr, indices, N, seeds, fanouts, B,
+                                    S.stream(seed, w, k, S.SAMPLE, device),
+                                    edge_types)
         x0 = rows_of(data["features"], ids, N, device)
         out["ids"].append(ids.cpu())
         out["masks"].append([m.cpu() for m in masks])
+        out["rels"].append([_cpu(r) for r in rels])
         out["digest"].append((x0.double() @ vec).cpu())
         out["edges"].append(int(sum(m.sum() for m in masks)))
         out["valid"].append(int((ids < N).sum()))
         leaves = {n: v.detach().requires_grad_(True) for n, v in p.items()}
         with M.precision_mode(precision):
-            logits = M.forward(cfg, leaves, x0, masks,
+            logits = M.forward(model, cfg, leaves, x0,
+                               [M.Block(m, r) for m, r in zip(masks, rels)],
                                S.stream(seed, w, k, S.DROPOUT, device), B,
                                precision)
             loss = M.loss_fn(logits, labels[seeds.long()],
@@ -110,6 +117,25 @@ def follow(cfg: dict, traffic: dict, data: dict, seed: int,
             out["update"] = {n: float((p[n] - p0[n]).double().norm())
                              for n in p}
     return out
+
+
+def _cpu(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.cpu()
+
+
+def rel_gaps(prog: list, ref: list) -> int:
+    """Relation entries of one step's layers that differ (each layer's
+    int32 [cap_dst, fanout], or None on an untyped graph; every entry of a
+    layer that has relations on one side only, or another shape)."""
+    n = 0
+    for pr, rr in zip(prog, ref):
+        if pr is None and rr is None:
+            continue
+        if pr is None or rr is None or pr.shape != rr.shape:
+            n += max(t.numel() for t in (pr, rr) if t is not None)
+            continue
+        n += int((pr.long() != rr.long()).sum())
+    return n
 
 
 def as_program(rec: dict) -> dict:
@@ -159,6 +185,7 @@ def numbers(prog: dict, ref: dict, num_nodes: int,
             blocks += int((pi != ri).sum())
             for pm, rm in zip(prog["masks"][s], ref["masks"][s]):
                 blocks += int((pm.float() != rm.float()).sum())
+            blocks += rel_gaps(prog["rels"][s], ref["rels"][s])
             valid = ri < num_nodes
             dp, dr = prog["digest"][s][valid], ref["digest"][s][valid]
             rows += int(((dp - dr).abs() > 1e-6 * (1 + dr.abs())).sum())

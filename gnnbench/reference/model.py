@@ -1,20 +1,23 @@
-"""GraphSAGE (mean) and GAT, their loss and Adam, plain: the reference
+"""What every model of the reference shares, plain: the layer loop, the
+initial weights, the loss, Adam and the TF32 control; the reference
 training step on the blocks of ``reference/sampler.py``.
 
-Parameters are a dict of named tensors, under the names the port's modules
-give them, so that the benchmark can hand the same initial weights to both
-sides (``init_params``):
+A model is a module ``gnnbench/models/<model>.py``, found by the
+configuration's ``model`` key (``registry.load_module``). It gives:
 
-- SAGE layer l: ``layer_{l}.fc_self.weight`` [d_out, d_in],
-  ``layer_{l}.fc_self.bias`` [d_out], ``layer_{l}.fc_neigh.weight``;
-  ``fc_self(h_dst) + fc_neigh(mean of the live slots' rows)`` (Hamilton et
-  al., 2017, the mean aggregator);
-- GAT layer l: ``layer_{l}.fc.weight`` [heads * d_out, d_in] (no bias),
-  ``layer_{l}.attn_l``, ``layer_{l}.attn_r`` [heads, d_out]; per head,
-  ``e = leaky_relu(<feat_src, attn_l> + <feat_dst, attn_r>, 0.2)`` over a
-  destination's live slots, softmax over them, the slots' features summed
-  with those weights (Velickovic et al., 2018), no self edge; heads
-  flattened between layers and averaged at the output.
+- ``param_shapes(cfg)``: {name: shape} under the names the port's modules
+  give their parameters, so that the benchmark can hand the same initial
+  weights to both sides (``init_params``), in the order they are drawn;
+  optionally its own ``init_params(cfg, seed, device)``;
+- ``layer(p, prefix, h, block, precision) -> h``: layer ``prefix``
+  (``layer_{l}.``) on the layer input ``h`` (its destinations' rows, then
+  its slots', slot-major) and a ``Block``;
+- ``readout(h)``: the logits from the last layer's output;
+- ``flags(cfg)``: its own flags of the program's CLI, beyond the shared
+  ones that ``cell.program_flags`` builds;
+- ``TRANSFORM_ROWS`` (``"dst"`` or ``"src"``): the nodes of a block its
+  dense transforms run on, and ``step_flops(cfg, rows)``: the dense FLOPs
+  of one training step, ``rows[l]`` the distinct such nodes of layer l.
 
 Between layers: ReLU, then dropout 0.5 drawn as ``torch.rand(h.shape) <
 0.5`` from the step's dropout stream, kept values doubled. The loss is the
@@ -27,48 +30,48 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from gnnbench.graphgen import WEIGHTS, generator
 
 
-def dims(cfg: dict) -> List[tuple]:
-    """[(d_in, d_out per head)] per layer, input-most first."""
-    heads = int(cfg.get("num_heads", 1)) if cfg["model"] == "gat" else 1
+class Block(NamedTuple):
+    """One sampled layer as a model's layer takes it: ``mask`` f32
+    [cap_dst, fanout] (1 on live slots), and on a typed graph ``rel`` int32
+    [cap_dst, fanout] (each slot's relation, 0 on dead slots)."""
+
+    mask: torch.Tensor
+    rel: Optional[torch.Tensor] = None
+
+
+def dims(cfg: dict, widen: int = 1) -> List[tuple]:
+    """[(d_in, d_out)] per layer, input-most first; a layer's input is the
+    previous output times ``widen`` (GAT's flattened heads)."""
     out, d_in = [], int(cfg["feature_dim"])
     L = int(cfg["num_layers"])
     for layer in range(L):
         d_out = (int(cfg["num_classes"]) if layer == L - 1
                  else int(cfg["hidden_channels"]))
         out.append((d_in, d_out))
-        d_in = d_out * heads
+        d_in = d_out * widen
     return out
 
 
-def param_shapes(cfg: dict) -> Dict[str, tuple]:
-    shapes = {}
-    heads = int(cfg.get("num_heads", 1))
-    for layer, (d_in, d_out) in enumerate(dims(cfg)):
-        p = f"layer_{layer}."
-        if cfg["model"] == "gat":
-            shapes[p + "fc.weight"] = (heads * d_out, d_in)
-            shapes[p + "attn_l"] = (heads, d_out)
-            shapes[p + "attn_r"] = (heads, d_out)
-        else:
-            shapes[p + "fc_self.weight"] = (d_out, d_in)
-            shapes[p + "fc_self.bias"] = (d_out,)
-            shapes[p + "fc_neigh.weight"] = (d_out, d_in)
-    return shapes
-
-
-def init_params(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Initial weights from the seed, in two draws on the device: linear
-    weights normal with std sqrt(1 / fan_in), attention vectors uniform on
-    +-sqrt(6 / (heads + d_out)), biases zero."""
+def init_params(model, cfg: dict, seed: int, device
+                ) -> Dict[str, torch.Tensor]:
+    """Initial weights of ``model``'s parameters from the seed: the module's
+    own ``init_params`` where it gives one, else in two draws on the
+    device, in the order of its ``param_shapes``: linear weights (names
+    ending in ``weight``) normal with std sqrt(1 / fan_in), attention
+    vectors (names holding ``attn``) uniform on +-sqrt(6 / (heads +
+    d_out)), the rest (biases) zero."""
+    own = getattr(model, "init_params", None)
+    if own is not None:
+        return own(cfg, seed, device)
     gen = generator(seed, WEIGHTS, device)
-    shapes = param_shapes(cfg)
+    shapes = model.param_shapes(cfg)
     n_normal = sum(math.prod(s) for k, s in shapes.items()
                    if k.endswith("weight"))
     n_uniform = sum(math.prod(s) for k, s in shapes.items()
@@ -136,53 +139,23 @@ def precision_mode(precision: str):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def _planes(h: torch.Tensor, cap_dst: int, f: int) -> torch.Tensor:
+def planes(h: torch.Tensor, cap_dst: int, f: int) -> torch.Tensor:
     """[f, cap_dst, ...] slot rows of a layer input (slot-major)."""
     return h[cap_dst:cap_dst * (1 + f)].view(f, cap_dst, *h.shape[1:])
 
 
-def sage_layer(p: dict, pre: str, h: torch.Tensor, mask: torch.Tensor,
-               precision: str) -> torch.Tensor:
-    cap_dst, f = mask.shape
-    nbr = _planes(h, cap_dst, f)
-    s = (nbr * mask.T[:, :, None]).sum(0)
-    mean = s / mask.sum(1).clamp(min=1.0)[:, None]
-    return (matmul(h[:cap_dst], p[pre + "fc_self.weight"].T, precision)
-            + p[pre + "fc_self.bias"]
-            + matmul(mean, p[pre + "fc_neigh.weight"].T, precision))
-
-
-def gat_layer(p: dict, pre: str, h: torch.Tensor, mask: torch.Tensor,
-              precision: str) -> torch.Tensor:
-    cap_dst, f = mask.shape
-    heads, d_out = p[pre + "attn_l"].shape
-    feat = matmul(h, p[pre + "fc.weight"].T, precision).view(
-        h.shape[0], heads, d_out)
-    el = (feat * p[pre + "attn_l"]).sum(-1)
-    er = (feat[:cap_dst] * p[pre + "attn_r"]).sum(-1)
-    e = torch.nn.functional.leaky_relu(
-        _planes(el, cap_dst, f).permute(1, 0, 2) + er[:, None, :], 0.2)
-    m = mask[:, :, None]
-    e = torch.where(m > 0, e, torch.full_like(e, -1e9))
-    alpha = torch.softmax(e, dim=1) * m                 # [cap_dst, f, H]
-    nbr = _planes(feat, cap_dst, f)                     # [f, cap_dst, H, F]
-    return (alpha.permute(1, 0, 2)[..., None] * nbr).sum(0)
-
-
-def forward(cfg: dict, p: dict, x0: torch.Tensor,
-            masks: Sequence[torch.Tensor],
+def forward(model, cfg: dict, p: dict, x0: torch.Tensor,
+            blocks: Sequence[Block],
             dropout_gen: Optional[torch.Generator], batch: int,
             precision: str = "float32") -> torch.Tensor:
-    """Logits [batch, classes] of the seeds (the first ``batch`` rows);
-    ``dropout_gen`` None: no dropout (evaluation)."""
-    gat = cfg["model"] == "gat"
-    layer_fn = gat_layer if gat else sage_layer
+    """``model``'s logits [batch, classes] of the seeds (the first
+    ``batch`` rows); ``dropout_gen`` None: no dropout (evaluation)."""
     rate = float(cfg["dropout"])
-    h, L = x0, len(masks)
-    for layer, mask in enumerate(masks):
-        h = layer_fn(p, f"layer_{layer}.", h, mask, precision)
+    h, L = x0, len(blocks)
+    for layer, block in enumerate(blocks):
+        h = model.layer(p, f"layer_{layer}.", h, block, precision)
         if layer == L - 1:
-            h = h.mean(1) if gat else h
+            h = model.readout(h)
             break
         h = torch.relu(h.reshape(h.shape[0], -1))
         if dropout_gen is not None and rate > 0:

@@ -11,12 +11,14 @@ otherwise slot k takes neighbour ``int(u * deg)`` (``u`` and the product
 in f32). A dead slot, and every slot of a padded destination (id
 ``num_nodes``), points at its destination. Layer l's input is its
 destinations followed by its slots, slot-major (slot (i, k) at
-``cap_dst + k * cap_dst + i``).
+``cap_dst + k * cap_dst + i``). On a typed graph each slot also carries
+its edge's relation, ``edge_types`` at the edge's CSC position, and 0 on a
+dead slot (the port's convention, ``models/hetero.py``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,13 +50,17 @@ def capacities(batch: int, fanouts: Sequence[int]) -> List[Tuple[int, int]]:
 
 def sample(indptr: torch.Tensor, indices: torch.Tensor, num_nodes: int,
            seeds: torch.Tensor, fanouts: Sequence[int], batch: int,
-           gen: torch.Generator) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+           gen: torch.Generator,
+           edge_types: Optional[torch.Tensor] = None) -> tuple:
     """(frontier ids int64 [cap_src of layer 0], masks f32 [cap_dst,
-    fanout] per layer, input-most first). ``indptr`` int64 [N + 1] and
-    ``indices`` [E] on the generator's device."""
+    fanout] per layer, rels per layer: int32 [cap_dst, fanout] where
+    ``edge_types`` [E] is given, else None), layers input-most first.
+    ``indptr`` int64 [N + 1], ``indices`` and ``edge_types`` on the
+    generator's device."""
     caps = capacities(batch, fanouts)
     dst = seeds.long()
     masks: List[torch.Tensor] = []
+    rels: List[Optional[torch.Tensor]] = []
     for layer in range(len(fanouts) - 1, -1, -1):
         cap_dst, f = caps[layer][0], fanouts[layer]
         if dst.numel() < cap_dst:
@@ -75,5 +81,10 @@ def sample(indptr: torch.Tensor, indices: torch.Tensor, num_nodes: int,
                           torch.zeros_like(offset))
         nbr = torch.where(live, indices[pos].long(), dst[:, None])
         masks.insert(0, live.float())
+        rel = None
+        if edge_types is not None:
+            rel = edge_types[pos]
+            rel = torch.where(live, rel, torch.zeros_like(rel))
+        rels.insert(0, rel)
         dst = torch.cat([dst, nbr.T.reshape(-1)])
-    return dst, masks
+    return dst, masks, rels

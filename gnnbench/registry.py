@@ -11,11 +11,19 @@
   ``<base>.<regime>`` without a file of its own is read by
   ``<base>.py`` (the same reading, a metric of its own per regime);
 - the limits of the comparison that decides ``correct`` are
-  ``gnnbench/limits/<cell>.json``.
+  ``gnnbench/limits/<cell>.json``;
+- a configuration's model is ``gnnbench/models/<model>.py``, by its
+  ``model`` key (``reference/model.py`` says what such a module gives);
+- a configuration whose ``graph`` group names a ``generator`` gets its
+  dataset from ``gnnbench/graphs/<generator>.py`` (its
+  ``make_dataset(cfg, seed, device)``: ``graphgen.make_dataset``'s dict,
+  plus ``edge_types`` int32 [E] in CSC order and ``num_edge_types`` on a
+  typed graph); one that names none, from ``gnnbench/graphgen.py``.
 
 A metric applies to a cell when its ``workloads`` list names the cell, or
 when it has no such list. Adding a cell, configuration, traffic mix or
-metric is adding its files and its ``BENCHMARK.json`` entries.
+metric, model or graph is adding its files and its ``BENCHMARK.json``
+entries.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ class Cell:
     per_layer: List[dict]
     limits: dict
     root: str
+    model: object       # the configuration's model module
+    dataset: object     # the module whose ``make_dataset`` makes its data
 
     def readers(self, trace: bool) -> Dict[str, object]:
         """name -> loaded reader module of the metrics this cell reports
@@ -78,16 +88,44 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
                                  w["traffic"] + ".json"))
     limits_path = os.path.join(root, "gnnbench", "limits", name + ".json")
     limits = _json(limits_path) if os.path.exists(limits_path) else {}
+    generator = cfg.get("graph", {}).get("generator")
+    if generator is None:
+        from gnnbench import graphgen as dataset
+    else:
+        dataset = load_module(root, "graphs", generator)
     return Cell(name=name, config_name=w["config"], chips=int(w["chips"]),
                 cfg=cfg, traffic=traffic,
                 end_to_end=[m for m in bench["end_to_end"]
                             if _applies(m, name)],
                 per_layer=[m for m in bench["per_layer"]
                            if _applies(m, name)],
-                limits=limits, root=root)
+                limits=limits, root=root,
+                model=load_module(root, "models", cfg["model"]),
+                dataset=dataset)
 
 
-_READERS: Dict[str, object] = {}
+_MODULES: Dict[str, object] = {}
+
+
+def _load(path: str, prefix: str):
+    """The module of the file ``path`` (loaded once per process)."""
+    if path not in _MODULES:
+        mod_name = prefix + re.sub(r"\W", "_", os.path.basename(path)[:-3])
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _MODULES[path] = mod
+    return _MODULES[path]
+
+
+def load_module(root: str, kind: str, name: str):
+    """The module ``gnnbench/<kind>/<name>.py`` under ``root`` (``kind``
+    ``models`` or ``graphs``); FileNotFoundError naming the path where it
+    is missing."""
+    path = os.path.join(root, "gnnbench", kind, name + ".py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{kind[:-1]} {name!r} has no module {path}")
+    return _load(path, f"gnnbench_{kind}_")
 
 
 def reader_path(root: str, name: str) -> str:
@@ -104,13 +142,6 @@ def load_reader(root: str, name: str):
     """The reader module of metric ``name`` (``reader_path``; loaded once
     per process)."""
     path = reader_path(root, name)
-    if path not in _READERS:
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"metric {name!r} has no reader {path}")
-        mod_name = "gnnbench_metric_" + re.sub(
-            r"\W", "_", os.path.basename(path)[:-3])
-        spec = importlib.util.spec_from_file_location(mod_name, path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _READERS[path] = mod
-    return _READERS[path]
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"metric {name!r} has no reader {path}")
+    return _load(path, "gnnbench_metric_")

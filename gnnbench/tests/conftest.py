@@ -1,7 +1,7 @@
 """CPU tests of the benchmark: tiny cells written into a temporary root
 (its own BENCHMARK.json, configurations, traffic mixes and limits, with
-the real metric readers), run through the harness on the CPU. Tests
-marked ``cuda`` need a card and skip without one."""
+the real metric readers and model modules), run through the harness on
+the CPU. Tests marked ``cuda`` need a card and skip without one."""
 
 import json
 import os
@@ -29,10 +29,10 @@ TINY = {"sage-igbm-c4g": ("sage-igbm", "c4g", (1, 4), "degree_top"),
 
 def make_root(path: str, wide: bool = False, num_nodes: int = 6000) -> str:
     """A benchmark root at ``path`` holding the real cells' tiny stand-ins
-    and the real metric readers and limits."""
+    and the real metric readers, model modules and limits."""
     src = os.path.join(REPO, "gnnbench")
     dst = os.path.join(path, "gnnbench")
-    for d in ("metrics", "limits"):
+    for d in ("metrics", "limits", "models"):
         shutil.copytree(os.path.join(src, d), os.path.join(dst, d))
     os.makedirs(os.path.join(dst, "configs"))
     os.makedirs(os.path.join(dst, "traffic"))
