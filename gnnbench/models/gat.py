@@ -53,7 +53,7 @@ def layer(p: dict, pre: str, h: torch.Tensor, block: M.Block,
     return (alpha.permute(1, 0, 2)[..., None] * nbr).sum(0)
 
 
-def readout(h: torch.Tensor) -> torch.Tensor:
+def readout(p: dict, h: torch.Tensor) -> torch.Tensor:
     return h.mean(1)
 
 

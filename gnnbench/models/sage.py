@@ -39,7 +39,7 @@ def layer(p: dict, pre: str, h: torch.Tensor, block: M.Block,
             + M.matmul(mean, p[pre + "fc_neigh.weight"].T, precision))
 
 
-def readout(h: torch.Tensor) -> torch.Tensor:
+def readout(p: dict, h: torch.Tensor) -> torch.Tensor:
     return h
 
 

@@ -9,7 +9,11 @@ layer-0 rows (each valid row's dot with the digest vector, in f64;
 padding rows zero), the edges, the valid slots, the losses, the first
 gradient and the parameters' change over the first ``CHANGE_STEPS`` steps
 (``reference/model.py`` with the configuration's model module). It reads
-the features from the host array with numpy, one step at a time.
+the features from the host array with numpy, one step at a time. Where
+the data types its nodes (``node_type_offsets``, ``relation_dst_type``),
+the model's layers get each destination's type and each relation's
+destination type in their ``Block``: nothing of the program's is read for
+them, since they follow from the frontier ids, which ``blocks`` compares.
 
 ``compare`` sets the program's record beside the reference's and gives
 each number with its limit (``gnnbench/limits/<cell>.json``):
@@ -76,6 +80,7 @@ def follow(cell, data: dict, seed: int, vec: torch.Tensor, device,
     edge_types = data.get("edge_types")
     if edge_types is not None:
         edge_types = torch.from_numpy(edge_types).to(device)
+    offsets, rel_dst = node_types(data, N, device)
     labels = torch.from_numpy(data["labels"]).long().to(device)
     p = M.init_params(model, cfg, seed, device)
     p0 = {k: v.clone() for k, v in p.items()}
@@ -87,9 +92,9 @@ def follow(cell, data: dict, seed: int, vec: torch.Tensor, device,
     for step, (w, k) in enumerate(keys):
         seeds = torch.from_numpy(
             order[np.arange(step * B, (step + 1) * B) % order.size]).to(device)
-        ids, masks, rels = S.sample(indptr, indices, N, seeds, fanouts, B,
-                                    S.stream(seed, w, k, S.SAMPLE, device),
-                                    edge_types)
+        ids, masks, rels, ntypes = S.sample(
+            indptr, indices, N, seeds, fanouts, B,
+            S.stream(seed, w, k, S.SAMPLE, device), edge_types, offsets)
         x0 = rows_of(data["features"], ids, N, device)
         out["ids"].append(ids.cpu())
         out["masks"].append([m.cpu() for m in masks])
@@ -100,7 +105,8 @@ def follow(cell, data: dict, seed: int, vec: torch.Tensor, device,
         leaves = {n: v.detach().requires_grad_(True) for n, v in p.items()}
         with M.precision_mode(precision):
             logits = M.forward(model, cfg, leaves, x0,
-                               [M.Block(m, r) for m, r in zip(masks, rels)],
+                               [M.Block(m, r, t, rel_dst) for m, r, t
+                                in zip(masks, rels, ntypes)],
                                S.stream(seed, w, k, S.DROPOUT, device), B,
                                precision)
             loss = M.loss_fn(logits, labels[seeds.long()],
@@ -117,6 +123,30 @@ def follow(cell, data: dict, seed: int, vec: torch.Tensor, device,
             out["update"] = {n: float((p[n] - p0[n]).double().norm())
                              for n in p}
     return out
+
+
+def node_types(data: dict, num_nodes: int, device) -> tuple:
+    """(``node_type_offsets`` int64 [T + 1], ``relation_dst_type`` int32
+    [R]) of the data on ``device``; (None, None) where the data has
+    neither. ValueError unless the data gives both, the offsets rising
+    from 0 to ``num_nodes`` and one destination type below T for each of
+    the ``num_edge_types`` relations."""
+    offsets, rel_dst = (data.get(k) for k in ("node_type_offsets",
+                                              "relation_dst_type"))
+    if offsets is None and rel_dst is None:
+        return None, None
+    o = np.asarray([] if offsets is None else offsets, np.int64)
+    r = np.asarray([] if rel_dst is None else rel_dst, np.int32)
+    if not (o.ndim == 1 and o.size >= 2 and o[0] == 0
+            and o[-1] == num_nodes and (np.diff(o) >= 0).all()
+            and r.shape == (int(data.get("num_edge_types", -1)),)
+            and r.min() >= 0 and r.max() < o.size - 1):
+        raise ValueError(
+            f"node_type_offsets {o.tolist()} must rise from 0 to num_nodes "
+            f"{num_nodes}, and relation_dst_type {r.tolist()} give a type "
+            f"below {max(o.size - 1, 0)} for each of the num_edge_types "
+            "relations; a graph module gives both keys or neither")
+    return torch.from_numpy(o).to(device), torch.from_numpy(r).to(device)
 
 
 def _cpu(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

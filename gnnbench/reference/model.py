@@ -6,23 +6,28 @@ A model is a module ``gnnbench/models/<model>.py``, found by the
 configuration's ``model`` key (``registry.load_module``). It gives:
 
 - ``param_shapes(cfg)``: {name: shape} under the names the port's modules
-  give their parameters, so that the benchmark can hand the same initial
-  weights to both sides (``init_params``), in the order they are drawn;
-  optionally its own ``init_params(cfg, seed, device)``;
+  give their parameters, a readout's leaves included, so that the
+  benchmark can hand the same initial weights to both sides
+  (``init_params``), in the order they are drawn; optionally its own
+  ``init_params(cfg, seed, device)``;
 - ``layer(p, prefix, h, block, precision) -> h``: layer ``prefix``
   (``layer_{l}.``) on the layer input ``h`` (its destinations' rows, then
   its slots', slot-major) and a ``Block``;
-- ``readout(h)``: the logits from the last layer's output;
+- ``readout(p, h)``: the logits from the last layer's output, with the
+  parameters ``p`` (a classifier head's leaves among them);
+- optionally ``activate(h)``: the activation between layers, on the
+  layer's output flattened to [rows, features]; ReLU where it gives none;
 - ``flags(cfg)``: its own flags of the program's CLI, beyond the shared
   ones that ``cell.program_flags`` builds;
 - ``TRANSFORM_ROWS`` (``"dst"`` or ``"src"``): the nodes of a block its
   dense transforms run on, and ``step_flops(cfg, rows)``: the dense FLOPs
   of one training step, ``rows[l]`` the distinct such nodes of layer l.
 
-Between layers: ReLU, then dropout 0.5 drawn as ``torch.rand(h.shape) <
-0.5`` from the step's dropout stream, kept values doubled. The loss is the
-mean softmax cross-entropy of the batch's seeds (the first ``batch`` rows
-of the last layer). Everything is float32 with TF32 off, unless a
+Between layers: the activation, then dropout at the configuration's
+``dropout`` rate drawn as ``torch.rand(h.shape) < 1 - rate`` from the
+step's dropout stream, kept values divided by ``1 - rate``. The loss is
+the mean softmax cross-entropy of the batch's seeds (the first ``batch``
+rows of the last layer). Everything is float32 with TF32 off, unless a
 ``precision`` of ``"tf32"`` asks for the matmuls in TF32 (the control).
 """
 
@@ -39,11 +44,16 @@ from gnnbench.graphgen import WEIGHTS, generator
 
 class Block(NamedTuple):
     """One sampled layer as a model's layer takes it: ``mask`` f32
-    [cap_dst, fanout] (1 on live slots), and on a typed graph ``rel`` int32
-    [cap_dst, fanout] (each slot's relation, 0 on dead slots)."""
+    [cap_dst, fanout] (1 on live slots); on a typed graph ``rel`` int32
+    [cap_dst, fanout] (each slot's relation, 0 on dead slots); where the
+    data types its nodes, ``ntype`` int32 [cap_dst] (each destination's
+    node type, -1 on a padded one) and ``rel_dst`` int32 [R] (each
+    relation's destination type). None where the data has no such key."""
 
     mask: torch.Tensor
     rel: Optional[torch.Tensor] = None
+    ntype: Optional[torch.Tensor] = None
+    rel_dst: Optional[torch.Tensor] = None
 
 
 def dims(cfg: dict, widen: int = 1) -> List[tuple]:
@@ -151,13 +161,14 @@ def forward(model, cfg: dict, p: dict, x0: torch.Tensor,
     """``model``'s logits [batch, classes] of the seeds (the first
     ``batch`` rows); ``dropout_gen`` None: no dropout (evaluation)."""
     rate = float(cfg["dropout"])
+    activate = getattr(model, "activate", torch.relu)
     h, L = x0, len(blocks)
     for layer, block in enumerate(blocks):
         h = model.layer(p, f"layer_{layer}.", h, block, precision)
         if layer == L - 1:
-            h = model.readout(h)
+            h = model.readout(p, h)
             break
-        h = torch.relu(h.reshape(h.shape[0], -1))
+        h = activate(h.reshape(h.shape[0], -1))
         if dropout_gen is not None and rate > 0:
             keep = torch.rand(h.shape, generator=dropout_gen,
                               device=h.device) < 1.0 - rate

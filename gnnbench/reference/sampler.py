@@ -13,7 +13,12 @@ in f32). A dead slot, and every slot of a padded destination (id
 destinations followed by its slots, slot-major (slot (i, k) at
 ``cap_dst + k * cap_dst + i``). On a typed graph each slot also carries
 its edge's relation, ``edge_types`` at the edge's CSC position, and 0 on a
-dead slot (the port's convention, ``models/hetero.py``).
+dead slot (the port's convention, ``models/hetero.py``). Where the data
+types its nodes (``node_type_offsets`` int64 [T + 1]: type t holds the ids
+``offsets[t] <= id < offsets[t + 1]``, the predict type first, as the
+port's ``graph/datasets.py`` ``_flatten_hetero`` lays them out), each
+layer's destinations also carry their type, and -1 on a padded one. None
+of this draws from the stream.
 """
 
 from __future__ import annotations
@@ -51,16 +56,20 @@ def capacities(batch: int, fanouts: Sequence[int]) -> List[Tuple[int, int]]:
 def sample(indptr: torch.Tensor, indices: torch.Tensor, num_nodes: int,
            seeds: torch.Tensor, fanouts: Sequence[int], batch: int,
            gen: torch.Generator,
-           edge_types: Optional[torch.Tensor] = None) -> tuple:
+           edge_types: Optional[torch.Tensor] = None,
+           node_type_offsets: Optional[torch.Tensor] = None) -> tuple:
     """(frontier ids int64 [cap_src of layer 0], masks f32 [cap_dst,
     fanout] per layer, rels per layer: int32 [cap_dst, fanout] where
-    ``edge_types`` [E] is given, else None), layers input-most first.
-    ``indptr`` int64 [N + 1], ``indices`` and ``edge_types`` on the
+    ``edge_types`` [E] is given, else None, destination types per layer:
+    int32 [cap_dst] where ``node_type_offsets`` [T + 1] is given, else
+    None), layers input-most first. ``indptr`` int64 [N + 1],
+    ``indices``, ``edge_types`` and ``node_type_offsets`` on the
     generator's device."""
     caps = capacities(batch, fanouts)
     dst = seeds.long()
     masks: List[torch.Tensor] = []
     rels: List[Optional[torch.Tensor]] = []
+    ntypes: List[Optional[torch.Tensor]] = []
     for layer in range(len(fanouts) - 1, -1, -1):
         cap_dst, f = caps[layer][0], fanouts[layer]
         if dst.numel() < cap_dst:
@@ -68,6 +77,7 @@ def sample(indptr: torch.Tensor, indices: torch.Tensor, num_nodes: int,
                                                num_nodes)])
         u = torch.rand(cap_dst, f, generator=gen, device=dst.device)
         real = dst < num_nodes
+        ntypes.insert(0, dst_types(dst, real, node_type_offsets))
         safe = torch.where(real, dst, torch.zeros_like(dst))
         start = indptr[safe]
         deg = torch.where(real, indptr[safe + 1] - start,
@@ -87,4 +97,14 @@ def sample(indptr: torch.Tensor, indices: torch.Tensor, num_nodes: int,
             rel = torch.where(live, rel, torch.zeros_like(rel))
         rels.insert(0, rel)
         dst = torch.cat([dst, nbr.T.reshape(-1)])
-    return dst, masks, rels
+    return dst, masks, rels, ntypes
+
+
+def dst_types(dst: torch.Tensor, real: torch.Tensor,
+              offsets: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Each destination's node type (int32; -1 where not ``real``), or
+    None without ``offsets``."""
+    if offsets is None:
+        return None
+    t = torch.searchsorted(offsets, dst, right=True) - 1
+    return torch.where(real, t, torch.full_like(t, -1)).to(torch.int32)

@@ -13,12 +13,20 @@
 - the limits of the comparison that decides ``correct`` are
   ``gnnbench/limits/<cell>.json``;
 - a configuration's model is ``gnnbench/models/<model>.py``, by its
-  ``model`` key (``reference/model.py`` says what such a module gives);
+  ``model`` key, which is also the program's ``--model_type``: its
+  parameter shapes under the port's names (a readout's included), its
+  layer, its ``readout(p, h)``, optionally its ``activate(h)`` between
+  layers, its own CLI flags and its dense FLOPs (``reference/model.py``
+  says what each takes and gives);
 - a configuration whose ``graph`` group names a ``generator`` gets its
   dataset from ``gnnbench/graphs/<generator>.py`` (its
   ``make_dataset(cfg, seed, device)``: ``graphgen.make_dataset``'s dict,
   plus ``edge_types`` int32 [E] in CSC order and ``num_edge_types`` on a
-  typed graph); one that names none, from ``gnnbench/graphgen.py``.
+  typed graph, and where its nodes are typed ``node_type_offsets`` int64
+  [T + 1] (types as contiguous id ranges, the predict type first) and
+  ``relation_dst_type`` int32 [R], which reach the model's layers as each
+  destination's type and each relation's destination type); one that
+  names none, from ``gnnbench/graphgen.py``.
 
 A metric applies to a cell when its ``workloads`` list names the cell, or
 when it has no such list. Adding a cell, configuration, traffic mix or

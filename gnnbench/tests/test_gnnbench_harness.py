@@ -184,7 +184,7 @@ def layer(p, pre, h, block, precision):
     return out
 
 
-def readout(h):
+def readout(p, h):
     return h
 
 
@@ -245,7 +245,7 @@ def layer(p, pre, h, block, precision):
     return out
 
 
-def readout(h):
+def readout(p, h):
     return h
 
 
@@ -278,6 +278,45 @@ def make_dataset(cfg, seed, device):
     return out
 '''
 
+def write_modules(root, modules):
+    """``{path under gnnbench/ without .py: source}`` written into
+    ``root``."""
+    for path, text in modules.items():
+        path = os.path.join(root, "gnnbench", path + ".py")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(text)
+
+
+def add_cell(root, name, cfg, like, **traffic):
+    """Cell ``name`` added to ``root`` as files: ``cfg`` as its
+    configuration, ``like``'s traffic mix with ``traffic``'s keys changed,
+    ``like``'s limits, its entries in BENCHMARK.json, and in every metric
+    that ``like`` reports."""
+    import shutil
+    g = os.path.join(root, "gnnbench")
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    config = f"gnnbench/configs/{cfg['name']}.json"
+    with open(os.path.join(root, config), "w") as f:
+        json.dump(cfg, f)
+    mix = next(w["traffic"] for w in bench["workloads"] if w["name"] == like)
+    with open(os.path.join(g, "traffic", mix + ".json")) as f:
+        tr = json.load(f)
+    with open(os.path.join(g, "traffic", name + ".json"), "w") as f:
+        json.dump(dict(tr, **traffic), f)
+    shutil.copy(os.path.join(g, "limits", like + ".json"),
+                os.path.join(g, "limits", name + ".json"))
+    bench["configs"].append({"name": cfg["name"], "file": config})
+    bench["workloads"].append({"name": name, "config": cfg["name"],
+                               "traffic": name, "chips": 1})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if like in m.get("workloads", ()):
+            m["workloads"].append(name)
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+
+
 #: (model, the real cell whose traffic, limits and metrics it takes) of
 #: the typed cells: one under cache pressure, one at full coverage
 TYPED = {"rgat-typed-c4g": ("rgat", "sage-igbm-c4g"),
@@ -296,38 +335,16 @@ def typed_root(tiny_root, tmp_path_factory):
     root = str(tmp_path_factory.mktemp("typed"))
     g = os.path.join(root, "gnnbench")
     shutil.copytree(os.path.join(tiny_root, "gnnbench"), g)
-    with open(os.path.join(tiny_root, "BENCHMARK.json")) as f:
-        bench = json.load(f)
-    for name, text in (("models/rsage", RSAGE), ("models/rgat", RGAT),
-                       ("graphs/typed", TYPED_GRAPH)):
-        os.makedirs(os.path.dirname(os.path.join(g, name)), exist_ok=True)
-        with open(os.path.join(g, name + ".py"), "w") as f:
-            f.write(text)
+    shutil.copy(os.path.join(tiny_root, "BENCHMARK.json"), root)
+    write_modules(root, {"models/rsage": RSAGE, "models/rgat": RGAT,
+                         "graphs/typed": TYPED_GRAPH})
     with open(os.path.join(g, "configs", "sage-igbm.json")) as f:
         base = json.load(f)
-    cells = {w["name"]: w for w in bench["workloads"]}
     for cell, (model, like) in TYPED.items():
         cfg = dict(base, name=model + "-typed", model=model, num_heads=2)
         cfg["graph"] = dict(base["graph"], generator="typed",
                             num_edge_types=2)
-        with open(os.path.join(g, "configs", model + ".json"), "w") as f:
-            json.dump(cfg, f)
-        with open(os.path.join(g, "traffic",
-                               cells[like]["traffic"] + ".json")) as f:
-            tr = json.load(f)
-        with open(os.path.join(g, "traffic", cell + ".json"), "w") as f:
-            json.dump(dict(tr, fanout=[6, 6, 6]), f)
-        shutil.copy(os.path.join(g, "limits", like + ".json"),
-                    os.path.join(g, "limits", cell + ".json"))
-        bench["configs"].append({"name": cfg["name"],
-                                 "file": f"gnnbench/configs/{model}.json"})
-        bench["workloads"].append({"name": cell, "config": cfg["name"],
-                                   "traffic": cell, "chips": 1})
-        for m in bench["end_to_end"] + bench["per_layer"]:
-            if like in m.get("workloads", ()):
-                m["workloads"].append(cell)
-    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
-        json.dump(bench, f)
+        add_cell(root, cell, cfg, like, fanout=[6, 6, 6])
     return root
 
 
@@ -473,3 +490,393 @@ def test_the_control_is_not_correct_on_a_card(wide_root, name):
     ok, rows = check.compare(check.numbers(control, ref, n, False),
                              cell.limits)
     assert not ok, rows
+
+
+# -- a model's own activation, a readout with parameters, node types --------
+
+def _old_forward(model, cfg, p, x0, blocks, gen, batch, readout):
+    """The layer loop as it stood before a model could give ``activate``
+    and before ``readout`` took the parameters: ReLU between layers, the
+    old ``readout(h)``."""
+    rate, h = float(cfg["dropout"]), x0
+    for layer, block in enumerate(blocks):
+        h = model.layer(p, f"layer_{layer}.", h, block, "float32")
+        if layer == len(blocks) - 1:
+            return readout(h)[:batch]
+        h = torch.relu(h.reshape(h.shape[0], -1))
+        keep = torch.rand(h.shape, generator=gen) < 1.0 - rate
+        h = torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
+
+
+#: the readouts of ``models/sage.py`` and ``models/gat.py`` as ``readout(h)``
+OLD_READOUT = {"sage-igbm-c4g": lambda h: h,
+               "gat-igbm4m-c16g": lambda h: h.mean(1)}
+
+
+@pytest.mark.parametrize("name", sorted(OLD_READOUT))
+def test_relu_by_default_by_name_and_the_old_loop_agree_bitwise(
+        tiny_root, name):
+    """A module without ``activate``, the same module declaring
+    ``activate = torch.relu``, and the old loop with ``readout(h)`` give
+    the same logits and first gradients, bit for bit."""
+    import types
+
+    from gnnbench.reference import model as M
+    from gnnbench.reference import sampler as S
+
+    cell = registry.load_cell(name, tiny_root)
+    cfg, tr, model = cell.cfg, cell.traffic, cell.model
+    assert not hasattr(model, "activate")
+    relu = types.SimpleNamespace(**vars(model), activate=torch.relu)
+    data = cell.dataset.make_dataset(cfg, SEED, "cpu")
+    B, n = int(tr["batch"]), int(cfg["num_nodes"])
+    seeds = torch.from_numpy(data["order"][:B])
+    ids, masks, rels, _ = S.sample(
+        torch.from_numpy(data["indptr"]), torch.from_numpy(data["indices"]),
+        n, seeds, tr["fanout"], B, S.stream(SEED, 0, 0, S.SAMPLE, "cpu"))
+    x0 = check.rows_of(data["features"], ids, n, "cpu")
+    blocks = [M.Block(m, r) for m, r in zip(masks, rels)]
+    labels = torch.from_numpy(data["labels"]).long()[seeds.long()]
+    p0 = M.init_params(model, cfg, SEED, "cpu")
+
+    def step(forward):
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        logits = forward(p, S.stream(SEED, 0, 0, S.DROPOUT, "cpu"))
+        loss = M.loss_fn(logits, labels)
+        return logits.detach(), torch.autograd.grad(loss, list(p.values()))
+
+    runs = [step(lambda p, g, m=m: M.forward(m, cfg, p, x0, blocks, g, B))
+            for m in (model, relu)]
+    runs.append(step(lambda p, g: _old_forward(
+        model, cfg, p, x0, blocks, g, B, OLD_READOUT[name])))
+    for logits, grads in runs[1:]:
+        assert torch.equal(logits, runs[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(grads, runs[0][1]))
+
+
+#: RGAT as the port's ``RelGATConv`` trains it, with what the published
+#: R-GAT adds switched by the constants ``@BIAS@`` and ``@ACTIVATE@``
+RGAT_TYPED = '''"""RGAT after the port's ``RelGATConv`` (as ``rgat.py``), each
+relation r reaching only the destinations of its destination type
+(``block.ntype == block.rel_dst[r]``, as PyG's ``HeteroConv`` sums into a
+type only the relations that end there); with ``BIAS`` a bias per
+relation, ``layer_{l}.bias_r{r}``, added to every destination of its type
+(the port has none); ``activate`` between layers."""
+import torch
+from gnnbench.reference import model as M
+
+TRANSFORM_ROWS = "src"
+BIAS = @BIAS@
+activate = @ACTIVATE@
+
+
+def rels(cfg):
+    return int(cfg["graph"]["num_edge_types"])
+
+
+def param_shapes(cfg):
+    heads, shapes = int(cfg["num_heads"]), {}
+    for layer, (d_in, d_out) in enumerate(M.dims(cfg)):
+        p = f"layer_{layer}."
+        for r in range(rels(cfg)):
+            shapes[p + f"fc_r{r}.weight"] = (heads * d_out, d_in)
+            shapes[p + f"attn_l_r{r}"] = (heads, d_out)
+            shapes[p + f"attn_r_r{r}"] = (heads, d_out)
+            if BIAS:
+                shapes[p + f"bias_r{r}"] = (d_out,)
+    return shapes
+
+
+def layer(p, pre, h, block, precision):
+    cap_dst, f = block.mask.shape
+    out, r = 0, 0
+    while pre + f"fc_r{r}.weight" in p:
+        into = (block.ntype == block.rel_dst[r]).float()
+        heads, d_out = p[pre + f"attn_l_r{r}"].shape
+        feat = M.matmul(h, p[pre + f"fc_r{r}.weight"].T, precision).view(
+            h.shape[0], heads, d_out)
+        el = (feat * p[pre + f"attn_l_r{r}"]).sum(-1)
+        er = (feat[:cap_dst] * p[pre + f"attn_r_r{r}"]).sum(-1)
+        e = torch.nn.functional.leaky_relu(
+            M.planes(el, cap_dst, f).permute(1, 0, 2) + er[:, None, :], 0.2)
+        m = (block.mask * (block.rel == r) * into[:, None])[:, :, None]
+        e = torch.where(m > 0, e, torch.full_like(e, -1e9))
+        alpha = torch.softmax(e, dim=1) * m
+        nbr = M.planes(feat, cap_dst, f)
+        out = out + (alpha.permute(1, 0, 2)[..., None] * nbr).sum(0).mean(1)
+        if BIAS:
+            out = out + into[:, None] * p[pre + f"bias_r{r}"]
+        r += 1
+    return out
+
+
+def readout(p, h):
+    return h
+
+
+def flags(cfg):
+    return ["--num_heads", str(cfg["num_heads"])]
+
+
+def step_flops(cfg, rows):
+    heads = int(cfg["num_heads"])
+    return sum(rels(cfg) * (2 if layer == 0 else 3) * 2 * n * a * heads * b
+               for layer, ((a, b), n) in enumerate(zip(M.dims(cfg), rows)))
+'''
+
+#: the stand-ins of RGAT_TYPED, each ``models/rgat.py`` of a root of its
+#: own (the module's name is the program's ``--model_type``): (BIAS,
+#: ACTIVATE)
+RGAT_FORMS = {"relu": ("False", "torch.relu"),
+              "leaky": ("False", "lambda h: torch.nn.functional."
+                                 "leaky_relu(h, 0.01)"),
+              "bias": ("True", "torch.relu")}
+#: the cell of a root of ``forms_roots``
+NODES_CELL = "rgat-nodes-c4g"
+
+TYPED_NODES_GRAPH = '''"""graphgen's graph with typed nodes: the
+configuration's ``graph.node_type_shares`` cut the ids into contiguous
+ranges, the predict type first; each edge takes, drawn from the seed, one
+of the relations whose destination type (``graph.relation_dst_type``) is
+its destination's type."""
+import numpy as np
+import torch
+from gnnbench import graphgen
+
+TYPES = 5           # a generator stream of its own
+
+
+def make_dataset(cfg, seed, device):
+    out = graphgen.make_dataset(cfg, seed, device)
+    g, n = cfg["graph"], int(cfg["num_nodes"])
+    shares = np.cumsum(g["node_type_shares"], dtype=np.float64)
+    offsets = np.zeros(shares.size + 1, np.int64)
+    offsets[1:] = np.round(shares / shares[-1] * n)
+    rel_dst = np.asarray(g["relation_dst_type"], np.int32)
+    into = [np.flatnonzero(rel_dst == t) for t in range(shares.size)]
+    table = np.array([np.resize(r, len(rel_dst)) for r in into])
+    counts = np.array([len(r) for r in into])
+    dst = np.repeat(np.arange(n), np.diff(out["indptr"]))
+    t = np.searchsorted(offsets, dst, side="right") - 1
+    gen = graphgen.generator(seed, TYPES, device)
+    u = torch.rand(dst.size, generator=gen, device=device,
+                   dtype=torch.float64).cpu().numpy()
+    out["edge_types"] = table[t, (u * counts[t]).astype(np.int64)].astype(
+        np.int32)
+    out.update(num_edge_types=rel_dst.size, node_type_offsets=offsets,
+               relation_dst_type=rel_dst)
+    return out
+'''
+
+#: a schema of two node types (the predict type 0 on 65% of the ids) and
+#: three relations, two of them into type 0
+SCHEMA = {"node_type_shares": [0.65, 0.35], "relation_dst_type": [0, 1, 0]}
+
+
+def add_typed_nodes_cell(root, name, text, schema, like="sage-igbm-c4g",
+                         **traffic):
+    """Cell ``name`` added to ``root`` as files (``add_cell``):
+    ``models/rgat.py`` (``text``) on the ``typed_nodes`` graph of
+    ``schema``."""
+    write_modules(root, {"models/rgat": text,
+                         "graphs/typed_nodes": TYPED_NODES_GRAPH})
+    with open(os.path.join(root, "gnnbench", "configs",
+                           "sage-igbm.json")) as f:
+        base = json.load(f)
+    cfg = dict(base, name=name, model="rgat", num_heads=2)
+    cfg["graph"] = dict(base["graph"], generator="typed_nodes",
+                        num_edge_types=len(schema["relation_dst_type"]),
+                        **schema)
+    add_cell(root, name, cfg, like, **traffic)
+
+
+@pytest.fixture(scope="module")
+def forms_roots(tiny_root, tmp_path_factory):
+    """{form: a copy of ``tiny_root`` with the cell NODES_CELL of that
+    form of RGAT_FORMS on the ``typed_nodes`` graph of SCHEMA, added as
+    files alone}."""
+    import shutil
+    roots = {}
+    for form, (bias, act) in RGAT_FORMS.items():
+        root = roots[form] = str(tmp_path_factory.mktemp(form))
+        shutil.copytree(os.path.join(tiny_root, "gnnbench"),
+                        os.path.join(root, "gnnbench"))
+        shutil.copy(os.path.join(tiny_root, "BENCHMARK.json"), root)
+        text = RGAT_TYPED.replace("@BIAS@", bias).replace("@ACTIVATE@", act)
+        add_typed_nodes_cell(root, NODES_CELL, text, SCHEMA,
+                             fanout=[6, 6, 6])
+    return roots
+
+
+def test_destination_types_follow_the_offsets(forms_roots):
+    """Each layer's destination types are ``searchsorted(offsets, ids,
+    right=True) - 1``, -1 on a padded destination; untyped data gives
+    None; ``check.follow`` hands them and the relations' destination
+    types to every layer."""
+    import dataclasses
+    import types
+
+    from gnnbench.reference import sampler as S
+
+    root = forms_roots["relu"]
+    cell = registry.load_cell(NODES_CELL, root)
+    cfg, tr = cell.cfg, cell.traffic
+    data = cell.dataset.make_dataset(cfg, SEED, "cpu")
+    n, B, fanouts = int(cfg["num_nodes"]), int(tr["batch"]), tr["fanout"]
+    offsets = torch.from_numpy(data["node_type_offsets"])
+    assert offsets[0] == 0 and offsets[-1] == n and offsets.numel() == 3
+    graph = (torch.from_numpy(data["indptr"]),
+             torch.from_numpy(data["indices"]), n)
+    seeds = torch.from_numpy(data["order"][:B - 3])     # 3 padded seeds
+    ids, masks, _, ntypes = S.sample(
+        *graph, seeds, fanouts, B, S.stream(SEED, 0, 0, S.SAMPLE, "cpu"),
+        torch.from_numpy(data["edge_types"]), offsets)
+    for (cap_dst, _), t in zip(S.capacities(B, fanouts), ntypes):
+        dst = ids[:cap_dst]
+        want = torch.searchsorted(offsets, dst, right=True) - 1
+        want[dst == n] = -1
+        assert t.dtype == torch.int32 and torch.equal(t.long(), want)
+    assert (ntypes[-1][B - 3:] == -1).all() and (ntypes[-1][:B - 3] == 0).all()
+    assert all((t >= 0).sum() < t.numel() for t in ntypes)
+    untyped = S.sample(*graph, seeds, fanouts, B,
+                       S.stream(SEED, 0, 0, S.SAMPLE, "cpu"))
+    assert untyped[3] == [None] * len(fanouts)
+    assert all(torch.equal(a, b) for a, b in zip(untyped[1], masks))
+    assert check.node_types({}, n, "cpu") == (None, None)
+    for key in ("node_type_offsets", "relation_dst_type"):
+        with pytest.raises(ValueError, match="both keys or neither"):
+            check.node_types({k: v for k, v in data.items() if k != key},
+                             n, "cpu")
+
+    seen = []
+
+    def spied(c):
+        def layer(p, pre, h, block, precision):
+            seen.append(block)
+            return c.model.layer(p, pre, h, block, precision)
+        return dataclasses.replace(c, model=types.SimpleNamespace(
+            **{**vars(c.model), "layer": layer}))
+
+    for c, typed in ((cell, True),
+                     (registry.load_cell("sage-igbm-c4g", root), False)):
+        seen.clear()
+        check.follow(spied(c), c.dataset.make_dataset(c.cfg, SEED, "cpu"),
+                     SEED, torch.zeros(int(c.cfg["feature_dim"]),
+                                       dtype=torch.float64), "cpu")
+        assert len(seen) == len(c.traffic["fanout"]) * c.traffic["window"]
+        for b in seen:
+            if typed:
+                assert b.ntype.shape == b.mask.shape[:1]
+                assert b.rel_dst.tolist() == SCHEMA["relation_dst_type"]
+            else:
+                assert b.ntype is None and b.rel_dst is None
+
+
+def test_a_model_that_declares_relu_and_uses_node_types_is_correct(
+        forms_roots):
+    """RGAT_TYPED with ``activate = torch.relu`` and no leaf the program
+    lacks trains through the port's RGAT and agrees with the reference."""
+    result = run(forms_roots["relu"], NODES_CELL)
+    assert result["correct"], result["compared"]
+    for near in ("loss_first", "grad_median", "update"):
+        assert result["compared"][near]["value"] < 1e-5
+
+
+def test_a_model_that_declares_leaky_relu_is_not_correct(forms_roots):
+    """The reference's forward applies the module's own activation: leaky
+    ReLU against the program's ReLU is over a limit."""
+    result = run(forms_roots["leaky"], NODES_CELL, seconds=0.1)
+    assert not result["correct"]
+    cmp = result["compared"]
+    assert any(cmp[n]["value"] > cmp[n]["limit"]
+               for n in ("loss_first", "grad_median")), cmp
+
+
+def test_a_leaf_the_program_lacks_stops_the_set_up(forms_roots):
+    """A per-relation bias in ``param_shapes`` that the port's RGAT has
+    not: loading the benchmark's weights into the program fails at
+    set-up, naming the leaf."""
+    with pytest.raises(RuntimeError, match=r"layer_0\.bias_r0"):
+        run(forms_roots["bias"], NODES_CELL, seconds=0.1)
+
+
+HEAD = '''"""A mean aggregator of width ``hidden_channels`` at every
+layer, then a classifier head: ``head.weight`` [classes, hidden],
+``head.bias``."""
+import torch
+from gnnbench.reference import model as M
+
+TRANSFORM_ROWS = "dst"
+
+
+def param_shapes(cfg):
+    d, h = int(cfg["feature_dim"]), int(cfg["hidden_channels"])
+    shapes = {}
+    for layer in range(int(cfg["num_layers"])):
+        shapes[f"layer_{layer}.fc.weight"] = (h, h if layer else d)
+    shapes["head.weight"] = (int(cfg["num_classes"]), h)
+    shapes["head.bias"] = (int(cfg["num_classes"]),)
+    return shapes
+
+
+def layer(p, pre, h, block, precision):
+    cap_dst, f = block.mask.shape
+    s = (M.planes(h, cap_dst, f) * block.mask.T[:, :, None]).sum(0)
+    mean = s / block.mask.sum(1).clamp(min=1.0)[:, None]
+    return M.matmul(h[:cap_dst] + mean, p[pre + "fc.weight"].T, precision)
+
+
+def readout(p, h):
+    return h @ p["head.weight"].T + p["head.bias"]
+
+
+def flags(cfg):
+    return []
+
+
+def step_flops(cfg, rows):
+    return 0
+'''
+
+
+def test_a_readout_head_is_drawn_and_compared_like_every_leaf(tiny_root,
+                                                              tmp_path):
+    """A head's leaves get the init rule (weights normal with std
+    sqrt(1 / fan_in), biases zero), reach ``readout(p, h)``, and are
+    compared like every leaf: a program record without them is not
+    correct."""
+    import dataclasses
+    import shutil
+
+    from gnnbench.reference import model as M
+
+    root = str(tmp_path)
+    shutil.copytree(os.path.join(tiny_root, "gnnbench"),
+                    os.path.join(root, "gnnbench"))
+    with open(os.path.join(root, "gnnbench", "models", "head.py"), "w") as f:
+        f.write(HEAD)
+    plain = registry.load_cell("sage-igbm-c4g", tiny_root)
+    cell = dataclasses.replace(plain, model=registry.load_module(
+        root, "models", "head"))
+    cfg = cell.cfg
+    p = M.init_params(cell.model, cfg, SEED, "cpu")
+    hidden = int(cfg["hidden_channels"])
+    assert p["head.weight"].shape == (int(cfg["num_classes"]), hidden)
+    assert torch.equal(p["head.bias"], torch.zeros(int(cfg["num_classes"])))
+    assert abs(float(p["head.weight"].std()) * hidden ** 0.5 - 1) < 0.25
+    data = cell.dataset.make_dataset(cfg, SEED, "cpu")
+    ref = check.follow(cell, data, SEED, torch.zeros(
+        int(cfg["feature_dim"]), dtype=torch.float64), "cpu")
+    for leaf in ("head.weight", "head.bias"):
+        assert ref["grad"][leaf] > 0 and ref["update"][leaf] > 0
+        assert leaf in check.moved(ref)
+    n = int(cfg["num_nodes"])
+    same = check.as_program(ref)
+    assert check.compare(check.numbers(same, ref, n, False), cell.limits)[0]
+    headless = dict(same)
+    for k in ("grad", "update"):
+        headless[k] = {leaf: v for leaf, v in same[k].items()
+                       if not leaf.startswith("head.")}
+    ok, rows = check.compare(check.numbers(headless, ref, n, False),
+                             cell.limits)
+    assert not ok and {k: v for k, v, _ in rows}["update"] > 0.1
